@@ -11,16 +11,30 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      nvcc -Xptxas -v register / shared-memory use per kernel);
   3. kernel K1 (fused MLP tower step) against its plain PyTorch version at
      the main path's shapes — dropout 0.5, dropout 0, a partial batch, an
-     all-pad batch — and its time beside the plain version's;
+     all-pad batch — and its time beside the plain version's; then K1 over
+     30 lanes (the DR phase's shape) against the lane-batched plain version
+     (independent of the kernel: ReLU units whose pre-activation the two put
+     on different sides of 0 are counted and their rows set aside),
+     with a partial and an all-pad lane in the same call, each lane bit-equal
+     to the single-lane call, and its time;
   4. kernel K2 (row gather) against its plain version on a [100000, 128]
      table with out-of-range ids, and its time beside the plain version's
      and torch.nn.functional.embedding's (a yardstick the port never calls);
+     the same at the DR lane-step's shapes (30720 ids flattened over 30
+     lanes, on the shared table and on a lane-stacked domain table);
+     kernel K3 (the ring gather) exact against both at k 32 and k 128, its
+     time, and the gather probe (mamdr_tpu_torch.probe_gather), the one path
+     that runs K3, with K3's launches on it;
   5. the slice: Trainer + MAMDRStrategy at bench.py's shapes (30 domains,
      100k users and items, frozen 128-d tables, MLP 384-256-128-64-1,
      dropout 0.5, batch 1024, flat Adam): one train step through the kernels
-     against the same step through the plain versions, then one full
+     against the same step through the plain versions, one full
      Domain-Negotiation phase (360 steps) with its launch counts, losses,
-     the update of `shared`, and its time;
+     the update of `shared`, and its time; then the Domain-Regularization
+     phase of the same epoch as 30 query-domain lanes (144 lane-steps) with
+     its launch counts, the update of every domain's `specific`, and its
+     time, and one DR lane-step through the kernels against the same
+     lane-step through the plain versions;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -32,7 +46,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -49,51 +62,6 @@ def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def device_ms(fn, inner: int = 20, reps: int = 5) -> float:
-    """Device milliseconds per call of fn: `inner` calls captured in a CUDA
-    graph, replayed `reps` times between CUDA events (no host overhead)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (reps * inner)
-
-
-def eager_ms(fn, iters: int = 50) -> float:
-    """Milliseconds per call issued one by one from the host (what the train
-    loop sees), between CUDA events after a warm-up."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> int:
     import torch
 
@@ -102,17 +70,26 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mamdr_tpu_torch.ops import _cuda
+    from mamdr_tpu_torch import probe_gather
     from mamdr_tpu_torch.ops.embedding_lookup import (
         embedding_lookup,
         embedding_lookup_reference,
+        gather_rows_pipelined,
     )
     from mamdr_tpu_torch.ops.fused_mlp_step import (
         fused_tower_grad,
+        fused_tower_grad_lanes,
         make_fast_loss_grad,
+        table_rows,
         tower_grad_reference,
+        tower_grad_reference_lanes,
     )
-    from mamdr_tpu_torch.train.steps import make_train_step
+    from mamdr_tpu_torch.strategies import ops as weight_ops
+    from mamdr_tpu_torch.train import fused
+    from mamdr_tpu_torch.train.steps import make_subset_train_step, make_train_step
     from mamdr_tpu_torch.utils import trees
+    from mamdr_tpu_torch.utils.kernel_check import k1_flip_rows, k1_vs_plain, worst_errors
+    from mamdr_tpu_torch.utils.timing import card_line, device_ms, eager_ms
     from mamdr_tpu_torch.workload import build_bench_strategy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -120,10 +97,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 1. the card ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi)
     card = f"{torch.cuda.get_device_name(0)}, power limit {smi.split(',')[-1].strip()}"
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -166,23 +140,22 @@ def main() -> int:
         seeds = torch.tensor([0xDEADBEEF, 12345, 2**31 + 7], dtype=torch.int64, device=dev)
         return x, label, weight, seeds, dense
 
-    k1_err = 0.0
+    # The plain version is independent of the kernel. Where the two take a
+    # ReLU unit differently (a pre-activation within rounding of 0, summed in
+    # another order), the units are counted, each must lie at 0 within
+    # rounding, and the comparison is made again with those rows' weights 0.
+    def report(r):
+        return (f"max abs err {r['err']:.3e} (tol {K1_REL_TOL} of each output's max); "
+                f"{r['flips']} ReLU units on the edge in {r['rows']} rows set aside, "
+                f"largest error with none set aside {r['as_given']:.2e} of the output's max")
+
+    k1_err, k1_flips = 0.0, 0
     for case, rate in (("mixed", 0.5), ("mixed", 0.0), ("partial", 0.5), ("all_pad", 0.5)):
-        args = tower_inputs(case)
-        lk, dxk, gk = fused_tower_grad(*args, dims, rate)
-        lp, dxp, gp = tower_grad_reference(*args, dims, rate)
-        torch.cuda.synchronize()
-        worst = 0.0
-        for a, b in [(lk, lp), (dxk, dxp), *zip(gk, gp)]:
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            if not np.isfinite(err) or err > K1_REL_TOL * max(scale, 1e-30):
-                fail(f"K1 {case} rate {rate}: max abs err {err} vs scale {scale}")
-            worst = max(worst, err)
-        k1_err = max(k1_err, worst)
-        print(f"K1 fused_tower_grad vs plain [{case}, rate {rate}]: loss {float(lk):.6f} "
-              f"vs {float(lp):.6f}, max abs err {worst:.3e} (tol {K1_REL_TOL} of each "
-              f"output's max)")
+        r = k1_vs_plain(fused_tower_grad, tower_grad_reference, *tower_inputs(case),
+                        dims, rate, K1_REL_TOL)
+        k1_err, k1_flips = max(k1_err, r["err"]), k1_flips + r["flips"]
+        print(f"K1 fused_tower_grad vs plain [{case}, rate {rate}]: loss "
+              f"{float(r['out'][0]):.6f}, {report(r)}")
     args = tower_inputs("mixed")
     k1_ms = device_ms(lambda: fused_tower_grad(*args, dims, 0.5))
     k1_plain_ms = device_ms(lambda: tower_grad_reference(*args, dims, 0.5))
@@ -196,6 +169,49 @@ def main() -> int:
           f"{k1_eager_ms * 1e3:.1f} us/call issued eagerly; plain {k1_plain_ms * 1e3:.1f} us; "
           f"bound {k1_bound * 1e3:.2f} us ({k1_flops / 1e9:.3f} GFLOP, "
           f"{k1_bytes / 1e6:.2f} MB); {card}")
+
+    # ---- 3b. K1 over 30 lanes (the DR phase's shape) ----
+    lanes = 30
+
+    def lane_inputs():
+        per = [tower_inputs({1: "partial", 2: "all_pad"}.get(l, "mixed"))
+               for l in range(lanes)]
+        x, label, weight = (torch.stack([p[i] for p in per]) for i in range(3))
+        dense = tuple(torch.stack([p[4][i] for p in per]) for i in range(len(per[0][4])))
+        seeds = torch.from_numpy(rng.integers(0, 2**32, (lanes, len(dims) - 1),
+                                              dtype=np.int64)).to(dev)
+        return x, label, weight, seeds, dense
+
+    k1l_err, k1l_flips = 0.0, 0
+    for rate in (0.5, 0.0):
+        args = lane_inputs()
+        r = k1_vs_plain(fused_tower_grad_lanes, tower_grad_reference_lanes, *args,
+                        dims, rate, K1_REL_TOL)
+        lk, dxk, gk = r["out"]
+        if float(lk[2]) != 0.0 or bool(dxk[2].any()) or any(bool(g[2].any()) for g in gk):
+            fail("K1 lanes: the all-pad lane's loss and gradients are not zero")
+        x, label, weight, seeds, dense = args
+        for l in range(lanes):  # lane l of the batched call == the single-lane call
+            l1, dx1, g1 = fused_tower_grad(x[l], label[l], weight[l], seeds[l],
+                                           tuple(t[l] for t in dense), dims, rate)
+            same = [torch.equal(l1, lk[l]), torch.equal(dx1, dxk[l]),
+                    *(torch.equal(a, b[l]) for a, b in zip(g1, gk))]
+            if not all(same):
+                fail(f"K1 lanes rate {rate}: lane {l} is not bit-equal to the single-lane call")
+        k1l_err, k1l_flips = max(k1l_err, r["err"]), k1l_flips + r["flips"]
+        print(f"K1 fused_tower_grad_lanes vs plain [L {lanes}, lane 1 partial, lane 2 all-pad, "
+              f"rate {rate}]: {report(r)}; every lane bit-equal to the single-lane call")
+    args = lane_inputs()
+    k1l_ms = device_ms(lambda: fused_tower_grad_lanes(*args, dims, 0.5), inner=5)
+    k1l_plain_ms = device_ms(lambda: tower_grad_reference_lanes(*args, dims, 0.5), inner=2)
+    k1l_eager_ms = eager_ms(lambda: fused_tower_grad_lanes(*args, dims, 0.5), iters=20)
+    k1l_bound = lanes * k1_bound
+    print(f"K1 lanes time: {k1l_ms * 1e3:.1f} us/call on the device (CUDA graph), "
+          f"{k1l_eager_ms * 1e3:.1f} us/call launched eagerly "
+          f"({k1l_ms / lanes * 1e3:.1f} us a lane; single-lane K1 {k1_ms * 1e3:.1f} us); "
+          f"plain {k1l_plain_ms * 1e3:.1f} us; bound {k1l_bound * 1e3:.1f} us "
+          f"({lanes * k1_flops / 1e9:.2f} GFLOP, {lanes * k1_bytes / 1e6:.1f} MB); {card}")
+    del args, lk, dxk, gk, r
 
     # ---- 4. K2 vs its plain version ----
     n_rows, dim = 100_000, 128
@@ -227,6 +243,103 @@ def main() -> int:
           f"F.embedding {k2_lib_ms * 1e3:.2f} us; bound {k2_bound * 1e3:.3f} us "
           f"({k2_bytes / 1e6:.3f} MB); {card}")
 
+    # ---- 4a. K2 at the DR lane-step's shapes ----
+    # 30 lanes x 1024 ids flattened into one launch, built as the lane step
+    # builds them (table_rows): on the table every lane shares, and on a
+    # lane-stacked [30, 30, 128] domain table gathered as its [900, 128] view,
+    # every lane with ids below 0 and past its own rows. Held exactly against
+    # the plain gather through the same builder and against indexing each
+    # lane's table on its own.
+    lane_ids_np = rng.integers(0, n_rows, (lanes, batch)).astype(np.int32)
+    lane_ids_np[:, :6] = [-1, -(2**31), n_rows, n_rows + 5, 2**31 - 1, n_rows - 1]
+    lane_ids = torch.from_numpy(lane_ids_np).to(dev)
+    n_dom = 30
+    dom_stack = torch.from_numpy(
+        rng.normal(0, 1e-2, (lanes, n_dom, dim)).astype(np.float32)).to(dev)
+    dom_ids_np = rng.integers(0, n_dom, (lanes, batch)).astype(np.int32)
+    dom_ids_np[:, :6] = [-1, -(2**31), n_dom, n_dom + 1, 2**31 - 1, n_dom - 1]
+    dom_lane_ids = torch.from_numpy(dom_ids_np).to(dev)
+    before = embedding_lookup.launches
+    k2l_err = 0.0
+    for tab, lids, alone in (
+            (table, lane_ids, table[lane_ids.long().clamp(0, n_rows - 1)]),
+            (dom_stack, dom_lane_ids,
+             dom_stack[torch.arange(lanes, device=dev)[:, None],
+                       dom_lane_ids.long().clamp(0, n_dom - 1)])):
+        rows_k, flat_k = table_rows(tab, lids, embedding_lookup)
+        rows_p, _ = table_rows(tab, lids, embedding_lookup_reference)
+        torch.cuda.synchronize()
+        if rows_k.shape != (lanes, batch, dim) or flat_k.numel() != lanes * batch:
+            fail(f"K2 over lanes: rows {tuple(rows_k.shape)}")
+        k2l_err = max(k2l_err, float((rows_k - rows_p).abs().max()),
+                      float((rows_k - alone).abs().max()))
+    if k2l_err != 0.0 or embedding_lookup.launches != before + 2:
+        fail(f"K2 at the lane step's shapes differs from the plain gather: {k2l_err}")
+    print(f"K2 gather_rows vs plain [{lanes * batch} ids over {lanes} lanes, 6 a lane out of "
+          f"range or at the edge: the shared {n_rows}x{dim} table and a lane-stacked "
+          f"{lanes}x{n_dom}x{dim} table as its {lanes * n_dom}x{dim} view]: max abs err "
+          f"{k2l_err} (tol 0)")
+    # Timed over 4 id sets taken in turn, so that a replay does not find the
+    # rows it read last time in the 50 MB L2 (one call moves 31.6 MB; on the
+    # main path 2 ms of K1 run between two gathers). With one id set replayed,
+    # the time falls below the device-memory bound.
+    id_sets = [torch.from_numpy(rng.integers(0, n_rows, lanes * batch).astype(np.int32)).to(dev)
+               for _ in range(4)]
+    long_sets = [i.long() for i in id_sets]
+    turn = [0]
+
+    def in_turn(fn, sets):
+        turn[0] += 1
+        return fn(sets[turn[0] % len(sets)])
+
+    _, dom_flat = table_rows(dom_stack, dom_lane_ids, embedding_lookup_reference)
+    dom_view = dom_stack.reshape(lanes * n_dom, dim)
+    k2l_ms = device_ms(lambda: in_turn(lambda i: embedding_lookup(table, i), id_sets),
+                       inner=48)
+    k2l_same_ms = device_ms(lambda: embedding_lookup(table, id_sets[0]), inner=48)
+    k2l_dom_ms = device_ms(lambda: embedding_lookup(dom_view, dom_flat), inner=48)
+    k2l_plain_ms = device_ms(
+        lambda: in_turn(lambda i: embedding_lookup_reference(table, i), id_sets), inner=48)
+    k2l_lib_ms = device_ms(
+        lambda: in_turn(lambda i: torch.nn.functional.embedding(i, table), long_sets), inner=48)
+    k2l_bytes = 4 * lanes * batch + 2 * 4 * lanes * batch * dim
+    k2l_bound = k2l_bytes / HBM_BYTES * 1e3
+    print(f"K2 time at {lanes * batch} ids: {k2l_ms * 1e3:.2f} us/call on the shared table "
+          f"(4 id sets in turn; {k2l_same_ms * 1e3:.2f} us with one id set replayed, its rows "
+          f"in L2), {k2l_dom_ms * 1e3:.2f} us on the {lanes * n_dom}-row view; plain "
+          f"{k2l_plain_ms * 1e3:.2f} us; F.embedding {k2l_lib_ms * 1e3:.2f} us; bound "
+          f"{k2l_bound * 1e3:.3f} us ({k2l_bytes / 1e6:.3f} MB); {card}")
+    del id_sets, long_sets
+    del dom_stack, dom_view, rows_k, rows_p, alone
+
+    # ---- 4b. K3 vs its plain version and vs K2 ----
+    k3_err = 0.0
+    for k in probe_gather.RING_DEPTHS:
+        ring = gather_rows_pipelined(table, ids, k=k)
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, float((ring - want).abs().max()),
+                     float((ring - got).abs().max()))
+    short = gather_rows_pipelined(table, ids[:5], k=32)  # k = min(k, B)
+    k3_err = max(k3_err, float((short - want[:5]).abs().max()))
+    if k3_err != 0.0:
+        fail(f"K3 differs from the plain gather or from K2: max abs err {k3_err}")
+    print(f"K3 gather_rows_pipelined vs plain and vs K2 [k {list(probe_gather.RING_DEPTHS)}, "
+          f"the same ids; and 5 ids with k 32]: max abs err {k3_err} (tol 0)")
+    k3_ms = {k: device_ms(lambda k=k: gather_rows_pipelined(table, ids, k=k), inner=50)
+             for k in probe_gather.RING_DEPTHS}
+    print("K3 time: " + ", ".join(f"k {k}: {v * 1e3:.2f} us/call" for k, v in k3_ms.items())
+          + f"; K2 {k2_ms * 1e3:.2f} us; F.embedding {k2_lib_ms * 1e3:.2f} us; "
+          f"bound {k2_bound * 1e3:.3f} us; {card}")
+    # K3's path is the gather probe, as in the JAX package: drive it and
+    # count K3's launches on it.
+    gather_rows_pipelined.launches = 0
+    probe_rows = probe_gather.run()
+    k3_launches = gather_rows_pipelined.launches
+    if k3_launches == 0 or not all(np.isfinite(ns) and ns > 0 for _, ns in probe_rows):
+        fail(f"the gather probe launched K3 {k3_launches}x: {probe_rows}")
+    print(f"gather probe: K3 launched {k3_launches}x")
+    del table, got, want, ring
+
     # ---- 5. the slice at bench.py's shapes ----
     t0 = time.perf_counter()
     trainer, strat = build_bench_strategy()  # no device given: the card
@@ -235,35 +348,56 @@ def main() -> int:
     print(f"slice set-up: {time.perf_counter() - t0:.1f} s (dataset, tables, trainer, "
           f"{n_domain} specific draws, device block)")
 
-    # One train step through the kernels vs the same step through the plain
-    # versions, on the first batch of domain 0. Compared: the loss and the
-    # optimizer's new moments mu, nu (linear and quadratic in the gradient).
-    # The parameters themselves are Adam's normalisation of mu/nu, which
-    # turns last-bit differences of near-zero gradients into steps of order
-    # lr, so they are not a measure of the kernels.
+    def hold_step(build, kernel, plain, state, cols):
+        """One step through the kernels against the same step through the
+        independent plain versions; build(tower_grad, lookup) -> step. Rows
+        where K1 and the plain version take a ReLU unit differently (counted,
+        each at 0 within rounding) get weight 0 in both. Compared: the loss
+        and the optimizer's new moments mu, nu (linear and quadratic in the
+        gradient). The parameters themselves are Adam's normalisation of
+        mu/nu, which turns last-bit differences of near-zero gradients into
+        steps of order lr, so they are not a measure of the kernels."""
+        seen = []
+
+        def spy(*a):
+            seen[:] = a
+            return kernel(*a)
+
+        def moments(s, loss):
+            return [loss, s.opt_state.mu, s.opt_state.nu]
+
+        step_p = build(plain, embedding_lookup_reference)
+        s_k, l_k = build(spy, embedding_lookup)(state, cols)
+        s_p, l_p = step_p(state, cols)
+        _, rel = worst_errors(moments(s_k, l_k), moments(s_p, l_p))
+        note = ""
+        rows, flips = k1_flip_rows(*seen)
+        if flips:
+            note = (f"{flips} ReLU units on the edge in {int(rows.sum())} rows set aside "
+                    f"(with none set aside: {rel:.2e})")
+            cols = {**cols, "weight": torch.where(rows, 0.0, cols["weight"])}
+            s_k, l_k = build(kernel, embedding_lookup)(state, cols)
+            s_p, l_p = step_p(state, cols)
+            _, rel = worst_errors(moments(s_k, l_k), moments(s_p, l_p))
+        if not rel <= K1_REL_TOL:
+            fail(f"step through the kernels and through the plain versions differ by {rel} "
+                 f"of a tensor's max; {note}")
+        return s_k, l_k, l_p, rel, flips, note or "no ReLU unit on the edge"
+
+    # One train step on the first batch of domain 0.
     batch0 = {k: v[0, :batch].contiguous() for k, v in strat._block.items()}
-    step_k = make_train_step(trainer.model, trainer.tx, trainer.step_cfg)
-    step_p = make_train_step(
-        trainer.model, trainer.tx, trainer.step_cfg,
-        loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
-                                      tower_grad=tower_grad_reference,
-                                      lookup=embedding_lookup_reference))
-    s_k, l_k = step_k(trainer.state, batch0)
-    s_p, l_p = step_p(trainer.state, batch0)
-    torch.cuda.synchronize()
-    step_err = 0.0
-    for what, a, b in (("loss", l_k, l_p), ("mu", s_k.opt_state.mu, s_p.opt_state.mu),
-                       ("nu", s_k.opt_state.nu, s_p.opt_state.nu)):
-        err = float((a - b).abs().max())
-        if not np.isfinite(err) or err > K1_REL_TOL * float(b.abs().max()):
-            fail(f"train step {what}: kernels and plain versions differ by {err}")
-        step_err = max(step_err, err / max(float(b.abs().max()), 1e-30))
+    s_k, l_k, l_p, step_err, _, step_note = hold_step(
+        lambda tower, lookup: make_train_step(
+            trainer.model, trainer.tx, trainer.step_cfg,
+            loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
+                                          tower_grad=tower, lookup=lookup)),
+        fused_tower_grad, tower_grad_reference, trainer.state, batch0)
     if int(s_k.step) != 1 or not all(bool(torch.isfinite(p).all())
                                      for p in trees.leaves(s_k.params)):
         fail("train step through the kernels did not give one finite step")
     print(f"train step, kernels vs plain versions: loss {float(l_k):.6f} vs {float(l_p):.6f}, "
           f"largest difference in loss, mu, nu {step_err:.2e} of the tensor's max "
-          f"(tol {K1_REL_TOL})")
+          f"(tol {K1_REL_TOL}); {step_note}")
 
     shared0 = strat.shared
     steps = sum(trainer.steps_per_domain())
@@ -295,19 +429,141 @@ def main() -> int:
     print(f"DN phase time: {dn_s:.3f} s, {n_examples} examples, "
           f"{n_examples / dn_s:.0f} examples/s, {dn_s / steps * 1e3:.3f} ms/step; {card}")
 
+    # ---- 5b. the DR phase of the same epoch, as query-domain lanes ----
+    if not strat.dr_lanes:
+        fail("dr_parallel 'auto' did not take the lanes on this card")
+    tc = trainer.config.train
+    spd = trainer.steps_per_domain()
+    cap = tc.domain_regulation_step
+
+    def capped(n):
+        return min(n, cap) if cap > 0 else n
+
+    # per support run: the longest support epoch and the longest (capped)
+    # query epoch over the lanes
+    lane_steps = sum(max(spd[s] for s in strat.aux[:, j])
+                     + max(capped(spd[q]) for q in strat.order)
+                     for j in range(strat.aux.shape[1]))
+    last_lane_steps = sum(spd[s] + capped(spd[int(strat.order[-1])]) for s in strat.aux[-1])
+    dr_examples = sum(ds.train[s].n + min(ds.train[q].n, capped(spd[q]) * batch)
+                      for q, row in zip(strat.order, strat.aux) for s in row)
+    entry_step = int(trainer.state.step)
+    spec0 = list(strat.specific)
+    frozen0 = {n: x for n, x in trees.leaves_with_names(trainer.state.params)
+               if "user_emb" in n or "item_emb" in n}
+    fused_tower_grad.launches = fused_tower_grad_lanes.launches = 0
+    embedding_lookup.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strat.run_dr_phase()
+    torch.cuda.synchronize()
+    dr_s = time.perf_counter() - t0
+    k1l_launches = fused_tower_grad_lanes.launches
+    k2_dr_launches = embedding_lookup.launches
+    if (k1l_launches != lane_steps or k2_dr_launches != 3 * lane_steps
+            or fused_tower_grad.launches != 0):
+        fail(f"DR phase launched K1-lanes {k1l_launches}x, K2 {k2_dr_launches}x and "
+             f"single-lane K1 {fused_tower_grad.launches}x; expected {lane_steps}, "
+             f"{3 * lane_steps} and 0")
+    if int(trainer.state.step) != entry_step + last_lane_steps:
+        fail(f"state.step {int(trainer.state.step)} after DR, expected "
+             f"{entry_step} + {last_lane_steps}")
+    for d_idx, (new, old) in enumerate(zip(strat.specific, spec0)):
+        for (n, m), a, b in zip(trees.leaves_with_names(strat.mask), trees.leaves(new),
+                                trees.leaves(old)):
+            if m and (not bool(torch.isfinite(a).all()) or torch.equal(a, b)):
+                fail(f"DR left specific[{d_idx}] {n} unchanged or not finite")
+    for tree, what in ((trainer.state.params, "params"), (strat.shared, "shared"),
+                       (strat._spec_stack, "specific stack"), (strat.specific[0], "specific")):
+        for n, x in trees.leaves_with_names(tree):
+            if n in frozen0 and x is not frozen0[n]:
+                fail(f"{what}: the frozen table {n} is no longer the same tensor")
+    print(f"DR phase: {n_domain} lanes, {lane_steps} lane-steps "
+          f"({strat.aux.shape[1]} support runs), K1-lanes launched {k1l_launches}x, "
+          f"K2 {k2_dr_launches}x; every domain's specific updated and finite; frozen "
+          f"tables shared; step {entry_step} -> {int(trainer.state.step)}")
+    print(f"DR phase time: {dr_s:.3f} s, {lane_steps} lane-steps, {dr_examples} examples, "
+          f"{dr_examples / dr_s:.0f} examples/s, {dr_s / lane_steps * 1e3:.3f} ms/lane-step; "
+          f"{card}")
+    # A second epoch through run_fused_epoch, the entry point a training loop
+    # calls: one host sync at its end, examples counted as above.
+    epoch_examples = n_examples + dr_examples  # DR's count holds for any draw here:
+    if len({s.n for s in ds.train}) != 1:      # every domain has as many rows
+        fail("the bench workload's domains are no longer balanced")
+    t0 = time.perf_counter()
+    epoch_losses = strat.run_fused_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    if not np.all(np.isfinite(epoch_losses)) or int(trainer.state.step) != (
+            entry_step + last_lane_steps + steps + last_lane_steps):
+        fail(f"run_fused_epoch: losses {epoch_losses}, step {int(trainer.state.step)}")
+    print(f"MAMDR epoch (run_fused_epoch, DN + DR): {epoch_s:.3f} s, {epoch_examples} "
+          f"examples, {epoch_examples / epoch_s:.0f} examples/s (the two phases timed "
+          f"apart above: {dn_s + dr_s:.3f} s); {card}")
+
+    # One DR lane-step through the kernels vs the same lane-step through the
+    # plain versions: every lane its own merged weights, seeds and batch.
+    frozen_mask = strat._frozen_mask()
+    _, to_sub, _ = make_subset_train_step(
+        trainer.model, trainer.tx, trainer.step_cfg, frozen_mask, trainer.state.params)
+    lane_state = fused.make_lane_state(trainer.state, to_sub(trainer.state.params),
+                                       strat.mask, n_domain)
+    merged = weight_ops.merge_weights(to_sub(strat.shared), strat._spec_stack, strat.mask,
+                                      tc.merged_method)
+    lane_state = lane_state.replace(
+        params=weight_ops.load_masked(lane_state.params, merged, strat.mask))
+    lane_batch = {k: v[:, :batch].contiguous() for k, v in strat._block.items()}
+    k1l_before = fused_tower_grad_lanes.launches
+    s_k, l_k, l_p, lane_step_err, lane_step_flips, lane_step_note = hold_step(
+        lambda tower, lookup: make_subset_train_step(
+            trainer.model, trainer.tx, trainer.step_cfg, frozen_mask, trainer.state.params,
+            loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
+                                          tower_grad=tower, lookup=lookup))[0],
+        fused_tower_grad_lanes, tower_grad_reference_lanes, lane_state, lane_batch)
+    if fused_tower_grad_lanes.launches != k1l_before + 1 + bool(lane_step_flips):
+        fail("the DR lane-step did not launch K1-lanes exactly once")
+    if l_k.shape != (n_domain,) or s_k.opt_state.mu.shape[0] != n_domain:
+        fail(f"DR lane-step: {tuple(l_k.shape)} losses for {n_domain} lanes")
+    if not bool(torch.all(s_k.step == lane_state.step + 1)):
+        fail("DR lane-step through the kernels did not advance every lane by one step")
+    print(f"DR lane-step, kernels vs plain versions: {n_domain} losses (mean "
+          f"{float(l_k.mean()):.6f} vs {float(l_p.mean()):.6f}), largest difference in "
+          f"loss, mu, nu {lane_step_err:.2e} of the tensor's max (tol {K1_REL_TOL}); "
+          f"{lane_step_note}")
+
     # ---- 6. kernels ----
     print(json.dumps({"kernels": [
         {"name": "fused_tower_grad", "route": "cuda",
          "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
          "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
-         "launches": k1_launches, "max_abs_err": k1_err,
+         "launches": k1_launches, "max_abs_err": k1_err, "relu_edge_units": k1_flips,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "operations", "library_ms": None},
+        {"name": "fused_tower_grad_lanes", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": k1l_launches, "max_abs_err": k1l_err, "relu_edge_units": k1l_flips,
+         "ms": k1l_ms, "plain_ms": k1l_plain_ms, "bound_ms": k1l_bound,
+         "bound_by": "operations", "library_ms": None},
+        # K2 twice: the DN step's shape (1024 ids) with the DN phase's launches,
+        # and the DR lane-step's (30720 ids) with the DR phase's
         {"name": "gather_rows", "route": "cuda",
          "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
          "launches": k2_launches, "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": k2_lib_ms},
+        {"name": f"gather_rows ({lanes * batch} ids, the DR lane-step)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": k2_dr_launches, "max_abs_err": k2l_err,
+         "ms": k2l_ms, "plain_ms": k2l_plain_ms, "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": k2l_lib_ms},
+        {"name": "gather_rows_pipelined", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/gather_rows_pipelined.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:103",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "ms": k3_ms[32], "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": k2_lib_ms},
     ]}))
     # ---- 7. ----

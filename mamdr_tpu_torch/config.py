@@ -117,6 +117,10 @@ class TrainConfig:
     emb_trainable: bool = True
     learning_rate: float = 1e-3
     meta_learning_rate: float = 1e-3
+    merged_method: str = "plus"          # plus | times
+    # Cap on the query-domain epoch of a DR support run, in steps; 0 = the
+    # whole epoch (reference mamdr.py:85-92).
+    domain_regulation_step: int = 0
     sample_num: int = 5
     add_query_domain: bool = True
     shuffle_sequence: bool = True
@@ -129,6 +133,16 @@ class TrainConfig:
     specific_init: str = "random"
     # Flat-vector Adam over the trainable leaves (train/flat_optimizer.py).
     flat_optimizer: bool = True
+    # MAMDR's DR phase as query-domain lanes (train/fused.py
+    # make_fused_dr_parallel): "auto" takes the lanes when the model is
+    # eligible and the lane state fits the card, "on" requires them (and
+    # raises with the reason when not eligible), "off" runs the sequential
+    # dr_phase.
+    dr_parallel: str = "auto"
+    # Lanes in groups of C to bound the concurrent lane state. Read so that a
+    # config using it is refused rather than silently run unchunked: chunked
+    # lanes are not ported yet (ROADMAP.md, open items §1).
+    dr_lane_chunk: int = 0
 
 
 @dataclass

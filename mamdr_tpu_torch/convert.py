@@ -14,6 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from mamdr_tpu_torch.train.flat_optimizer import FlatAdamState
 from mamdr_tpu_torch.utils import trees
 
 
@@ -25,3 +26,23 @@ def params_from_jax(tree_of_numpy: Any) -> Any:
 def params_to_numpy(port_params: Any) -> Any:
     """Nested dict of tensors -> nested dict of numpy arrays (host copies)."""
     return trees.tree_map(lambda t: t.detach().cpu().numpy(), port_params)
+
+
+def spec_stack_from_jax(stack_of_numpy: Any, mask: Any, shared: Any) -> Any:
+    """The JAX package's [D]-stacked specific tree (fused.stack_specific, as
+    numpy) -> the port's: masked leaves become tensors on `shared`'s device;
+    unmasked leaves, which are never read, alias `shared`'s tensors as the
+    port's own stack does (no second copy of a frozen table)."""
+    return trees.tree_map(
+        lambda m, x, s: torch.tensor(np.asarray(x), device=s.device) if m else s,
+        mask, stack_of_numpy, shared)
+
+
+def flat_adam_state_from_jax(count, mu, nu, device="cpu") -> FlatAdamState:
+    """The JAX package's flat Adam slots (numpy) -> the port's. Both ravel
+    the trainable leaves in the same order, so the vectors carry over 1:1."""
+    return FlatAdamState(
+        count=torch.tensor(np.asarray(count), dtype=torch.int32, device=device),
+        mu=torch.tensor(np.asarray(mu), dtype=torch.float32, device=device),
+        nu=torch.tensor(np.asarray(nu), dtype=torch.float32, device=device),
+    )

@@ -1,4 +1,4 @@
-"""Device-time breakdown of kernel K1 and of the DN phase (torch.profiler).
+"""Device-time breakdown of kernel K1 and of the DN and DR phases (torch.profiler).
 
     python3 -m mamdr_tpu_torch.kernel_profile
 
@@ -10,14 +10,19 @@ On one CUDA card, from the repository root. Prints
   2. for the Domain-Negotiation phase at bench.py's shapes (360 train
      steps): the wall time per step without the profiler, the device busy
      time per step (the sum of kernel times in a profiled run), the idle
-     share, and the kernels that take the most device time.
+     share, and the kernels that take the most device time;
+  3. for the Domain-Regularization phase of the same epoch, run as 30
+     query-domain lanes (144 lane-steps): the same per lane-step — wall
+     time, device busy time, idle share, CUDA launches per lane-step, the
+     kernels that take the most device time — and K1 over 30 lanes alone;
+  4. the same DR phase run sequentially (``dr_parallel`` "off": 4320
+     single-lane steps), wall time only, beside the lanes'.
 
 Every line names the card and its power limit.
 """
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
 
@@ -48,14 +53,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_profile: no CUDA card available", file=sys.stderr)
         return 1
-    from mamdr_tpu_torch.ops.fused_mlp_step import fused_tower_grad
+    from mamdr_tpu_torch.ops.fused_mlp_step import fused_tower_grad, fused_tower_grad_lanes
+    from mamdr_tpu_torch.utils.timing import card_line
     from mamdr_tpu_torch.workload import build_bench_strategy
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi)
     dev = torch.device("cuda")
 
@@ -100,9 +103,60 @@ def main() -> int:
     kt = _kernel_times(prof)
     busy = sum(us for _, us in kt.values()) / steps
     print(f"DN step: {wall * 1e6:.1f} us wall without the profiler, {busy:.1f} us device "
-          f"busy, idle share {1 - busy / (wall * 1e6):.2f}; {steps} steps ({smi})")
+          f"busy, idle share {1 - busy / (wall * 1e6):.3f}; {steps} steps ({smi})")
     for name, (n, us) in sorted(kt.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {us / steps:8.2f} us/step  {n / steps:5.1f}x/step  {_short(name)}")
+
+    # ---- 3. the DR phase as lanes, on the draws of the last DN phase ----
+    if not strat.dr_lanes:
+        print("kernel_profile: the DR phase did not take the lanes", file=sys.stderr)
+        return 1
+    strat.run_dr_phase()  # warm-up
+    torch.cuda.synchronize()
+    fused_tower_grad_lanes.launches = 0
+    t0 = time.perf_counter()
+    strat.run_dr_phase()
+    torch.cuda.synchronize()
+    lane_steps = fused_tower_grad_lanes.launches
+    lanes_s = time.perf_counter() - t0
+    wall = lanes_s / lane_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        strat.run_dr_phase()
+        torch.cuda.synchronize()
+    kt = _kernel_times(prof)
+    busy = sum(us for _, us in kt.values()) / lane_steps
+    launches = sum(n for n, _ in kt.values()) / lane_steps
+    print(f"DR lane-step ({trainer.dataset.n_domain} lanes): {wall * 1e6:.1f} us wall without "
+          f"the profiler, {busy:.1f} us device busy, idle share "
+          f"{1 - busy / (wall * 1e6):.3f}, {launches:.0f} CUDA launches; "
+          f"{lane_steps} lane-steps ({smi})")
+    for name, (n, us) in sorted(kt.items(), key=lambda kv: -kv[1][1])[:15]:
+        print(f"  {us / lane_steps:8.2f} us/lane-step  {n / lane_steps:5.1f}x/lane-step  "
+              f"{_short(name)}")
+    k1_kernels = ("gemm_kernel", "finish_kernel", "head_rows_kernel", "head_grad_kernel",
+                  "colsum_kernel")  # csrc/fused_mlp_step.cu
+    k1 = sum(us for name, (_, us) in kt.items()
+             if any(k in name for k in k1_kernels)) / lane_steps
+    print(f"K1 over {trainer.dataset.n_domain} lanes: {k1:.1f} us of the lane-step's device "
+          f"time ({smi})")
+
+    # ---- 4. the same DR phase, sequential ----
+    del trainer, strat
+    trainer, strat = build_bench_strategy(dr_parallel="off")
+    if strat.dr_lanes:
+        print("kernel_profile: dr_parallel 'off' still took the lanes", file=sys.stderr)
+        return 1
+    strat.run_dn_phase()  # the draws, and a warm-up
+    fused_tower_grad.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strat.run_dr_phase()
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    seq_steps = fused_tower_grad.launches
+    print(f"DR phase, sequential: {seq_s:.3f} s for {seq_steps} steps "
+          f"({seq_s / seq_steps * 1e6:.1f} us/step, one run after a DN phase); as lanes {lanes_s:.3f} s "
+          f"for {lane_steps} lane-steps ({smi})")
     return 0
 
 

@@ -6,6 +6,12 @@ On a CUDA tensor it launches the port's row-gather kernel
 (``csrc/gather_rows.cu``, kernel K2), which replaces the Pallas row gather
 ``pallas_gather_rows`` (``mamdr_tpu/ops/embedding_lookup.py:56``) and adds
 the clamp inside the kernel. On a CPU tensor it runs the plain version.
+
+``gather_rows_pipelined`` is the counterpart of
+``pallas_gather_rows_pipelined`` (``:103``): the same gather through a ring
+of ``k`` row copies in flight (``csrc/gather_rows_pipelined.cu``, kernel K3).
+As in the JAX package it is a probe (``mamdr_tpu_torch/probe_gather.py``), on
+no training path.
 """
 
 from __future__ import annotations
@@ -35,14 +41,9 @@ def _bind():
     return fn
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Gather rows: table [N, D] float32, ids [B] int32 -> [B, D].
-
-    CUDA tensors go through kernel K2 (one launch, counted in
-    ``embedding_lookup.launches``); CPU tensors through the plain version.
-    """
-    if table.device.type == "cpu" and ids.device.type == "cpu":
-        return embedding_lookup_reference(table, ids)
+def _require_gather_operands(table: torch.Tensor, ids: torch.Tensor) -> None:
+    """What both gather kernels take: a contiguous float32 CUDA table [N>=1, D]
+    with D % 4 == 0, 16-byte aligned, and contiguous int32 ids [B] beside it."""
     _cuda.require_cuda(table, "table", torch.float32)
     _cuda.require_cuda(ids, "ids", torch.int32)
     if table.device != ids.device:
@@ -54,7 +55,18 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_rows needs D % 4 == 0 and a 16-byte aligned table")
     if n == 0:
         raise ValueError("empty table")
-    b = ids.shape[0]
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Gather rows: table [N, D] float32, ids [B] int32 -> [B, D].
+
+    CUDA tensors go through kernel K2 (one launch, counted in
+    ``embedding_lookup.launches``); CPU tensors through the plain version.
+    """
+    if table.device.type == "cpu" and ids.device.type == "cpu":
+        return embedding_lookup_reference(table, ids)
+    _require_gather_operands(table, ids)
+    (n, d), b = table.shape, ids.shape[0]
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
     if b == 0:
         return out
@@ -66,3 +78,53 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 embedding_lookup.launches = 0
+
+
+RING_SHARED_BYTES_MAX = 232448  # 227 KB: the most shared memory a block may opt into
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_pipelined():
+    fn = _cuda.load("gather_rows_pipelined").mamdr_gather_rows_pipelined
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_rows_pipelined(table: torch.Tensor, ids: torch.Tensor, k: int = 32) -> torch.Tensor:
+    """Gather rows through a ring of ``k`` row copies in flight: table [N, D]
+    float32, ids [B] int32 -> [B, D], with ``k = min(k, B)``.
+
+    The same function as ``embedding_lookup``. Unlike the Pallas kernel it
+    replaces, which does not clip (an out-of-range id is an out-of-bounds DMA
+    there), it clamps ids as ``embedding_lookup`` does. CUDA tensors go
+    through kernel K3 (one launch, counted in
+    ``gather_rows_pipelined.launches``); its ring takes k * D * 4 bytes of
+    shared memory, and a ``k`` that does not fit a block's 227 KB raises. CPU
+    tensors go through the plain version, where ``k`` changes nothing.
+    """
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    if table.device.type == "cpu" and ids.device.type == "cpu":
+        return embedding_lookup_reference(table, ids)
+    _require_gather_operands(table, ids)
+    (n, d), b = table.shape, ids.shape[0]
+    out = torch.empty((b, d), dtype=table.dtype, device=table.device)
+    if b == 0:
+        return out
+    k = min(int(k), b)
+    if k * d * 4 > RING_SHARED_BYTES_MAX:
+        raise ValueError(
+            f"a ring of k={k} rows of {d} float32 needs {k * d * 4} bytes of shared "
+            f"memory, more than a block's {RING_SHARED_BYTES_MAX}")
+    rc = _bind_pipelined()(table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, d, b, k,
+                           _cuda.stream_ptr(table.device))
+    _cuda.check(rc, "gather_rows_pipelined")
+    gather_rows_pipelined.launches += 1
+    return out
+
+
+gather_rows_pipelined.launches = 0

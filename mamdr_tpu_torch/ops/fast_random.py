@@ -10,7 +10,10 @@ so the values live in int64 and every product is reduced mod 2**32 by
 ``key_to_seed`` (which consumes JAX PRNG keys): per-step, per-layer uint32
 seeds derived on the device from a base seed and the train state's step
 counter, so a step that does not advance ``step`` (an all-pad batch) does
-not advance the dropout stream either.
+not advance the dropout stream either. ``lane_seeds`` gives each lane of a
+lane-batched phase its own base seed (the JAX package folds the lane index
+into the state's PRNG key, ``train/fused.py:1144-1153``): lanes whose step
+counters run in lockstep would otherwise share their masks.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ IOTA_MUL = 2654435761
 MUL1 = 0x85EBCA6B
 MUL2 = 0xC2B2AE35
 _GOLDEN = 0x9E3779B9
+_LANE_MUL = 0xC2B2AE3D  # another odd constant: lane seeds are not step seeds
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -69,11 +73,21 @@ def dropout_mask(seed, rate: float, shape, device=None) -> torch.Tensor:
     return hash_uniform(seed, shape, device).reshape(tuple(shape)) >= rate
 
 
-def step_seeds(base: int, step: torch.Tensor, n_layers: int) -> torch.Tensor:
-    """[n_layers] int64 tensor of uint32 dropout seeds for train step `step`.
+def step_seeds(base, step: torch.Tensor, n_layers: int) -> torch.Tensor:
+    """uint32 dropout seeds (int64 tensor) for train step `step`: [n_layers]
+    for a scalar step and base, [L, n_layers] for `step` [L] with `base` a
+    scalar or one base seed per lane ([L], see lane_seeds).
 
     Computed on step's device: no host sync per step.
     """
     layer = torch.arange(n_layers, dtype=torch.int64, device=step.device)
-    counter = (step.to(torch.int64) * n_layers + layer) & MASK32
-    return fmix32((mul32(counter, _GOLDEN) + (int(base) & MASK32)) & MASK32)
+    counter = (step.to(torch.int64)[..., None] * n_layers + layer) & MASK32
+    return fmix32((mul32(counter, _GOLDEN) + _seed_i64(base, step.device)[..., None])
+                  & MASK32)
+
+
+def lane_seeds(base: int, n_lanes: int, device) -> torch.Tensor:
+    """[n_lanes] int64 tensor of uint32 base seeds, one per lane, from one
+    base seed: fmix32(lane * c + base)."""
+    lane = torch.arange(n_lanes, dtype=torch.int64, device=device)
+    return fmix32((mul32(lane, _LANE_MUL) + (int(base) & MASK32)) & MASK32)

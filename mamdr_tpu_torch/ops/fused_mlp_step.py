@@ -17,13 +17,20 @@ tree — dense grads from the kernel, the domain-table scatter-add of dx plus
 its l2 term, and user/item table grads only when the tables train. A frozen
 table gets no gradient at all (``None``), so no table-sized tensor is made
 per step for it.
+
+``fused_tower_grad_lanes`` is the same step over a leading lane axis: L
+independent towers (the query-domain lanes of the Domain-Regularization
+phase) advance in one call of K1, and ``make_fast_loss_grad``'s function
+serves both shapes. The JAX package runs its lanes through autodiff under
+``vmap`` (``train/steps.py:187-190``); the port's lanes go through the
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,21 +45,14 @@ def _dropout_scale(rate: float) -> float:
     return float(np.float32(1.0 / (1.0 - rate)))
 
 
-def tower_grad_reference(x, label, weight, seeds, dense, dims, rate):
-    """Plain PyTorch version of the fused tower step (any device).
-
-    x [B, in]; label, weight [B]; seeds [L] uint32 values (int64 tensor);
-    dense = (W1, b1, ..., Wk, bk, Wl) with W [in, out], b [out], Wl [hk, 1].
-    Returns (loss [], dx [B, in], grads in dense's layout).
-    """
+def tower_forward_reference(x, seeds, dense, dims, rate):
+    """Forward pass of the plain version: (zs, acts, keeps, logits) with the
+    per-layer pre-activations z [B, h], the layer inputs acts (x first), the
+    dropout keep masks (empty when rate is 0) and the logits [B, 1]."""
     n_layers = len(dims) - 1
     ws = dense[0 : 2 * n_layers : 2]
     bs = dense[1 : 2 * n_layers : 2]
-    wl = dense[2 * n_layers]
-    label = label.reshape(-1, 1)
-    weight = weight.reshape(-1, 1)
     scale = _dropout_scale(rate) if rate > 0.0 else 1.0
-
     acts, zs, keeps = [x], [], []
     h = x
     for i in range(n_layers):
@@ -66,7 +66,23 @@ def tower_grad_reference(x, label, weight, seeds, dense, dims, rate):
         else:
             h = a
         acts.append(h)
-    logits = h @ wl
+    return zs, acts, keeps, h @ dense[2 * n_layers]
+
+
+def tower_grad_reference(x, label, weight, seeds, dense, dims, rate):
+    """Plain PyTorch version of the fused tower step (any device).
+
+    x [B, in]; label, weight [B]; seeds [L] uint32 values (int64 tensor);
+    dense = (W1, b1, ..., Wk, bk, Wl) with W [in, out], b [out], Wl [hk, 1].
+    Returns (loss [], dx [B, in], grads in dense's layout).
+    """
+    n_layers = len(dims) - 1
+    ws = dense[0 : 2 * n_layers : 2]
+    wl = dense[2 * n_layers]
+    label = label.reshape(-1, 1)
+    weight = weight.reshape(-1, 1)
+    scale = _dropout_scale(rate) if rate > 0.0 else 1.0
+    zs, acts, keeps, logits = tower_forward_reference(x, seeds, dense, dims, rate)
 
     bce = (
         torch.clamp(logits, min=0.0)
@@ -89,6 +105,23 @@ def tower_grad_reference(x, label, weight, seeds, dense, dims, rate):
     return loss, dh, (*grads, dwl)
 
 
+def tower_grad_reference_lanes(x, label, weight, seeds, dense, dims, rate):
+    """Plain PyTorch version of the lane-batched step: every operand carries
+    a leading lane axis (x [L, B, in], label and weight [L, B], seeds
+    [L, n_layers], W [L, in, out], b [L, out], Wl [L, hk, 1]) and lane l is
+    ``tower_grad_reference`` on lane l's operands, bit for bit.
+    Returns (loss [L], dx [L, B, in], grads with a leading L)."""
+    per_lane = [
+        tower_grad_reference(x[l], label[l], weight[l], seeds[l],
+                             tuple(t[l] for t in dense), dims, rate)
+        for l in range(x.shape[0])
+    ]
+    loss = torch.stack([r[0] for r in per_lane])
+    dx = torch.stack([r[1] for r in per_lane])
+    grads = tuple(torch.stack([r[2][i] for r in per_lane]) for i in range(len(dense)))
+    return loss, dx, grads
+
+
 @functools.lru_cache(maxsize=None)
 def _bind():
     """(kernel entry, scratch-size query) of the built library, bound once."""
@@ -97,7 +130,7 @@ def _bind():
     vp, ip = ctypes.c_void_p, ctypes.c_int
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
-        ip, ctypes.POINTER(ctypes.c_int), ip,     # n_layers, dims, batch
+        ip, ip, ctypes.POINTER(ctypes.c_int), ip,  # lanes, n_layers, dims, batch
         vp, vp, vp, vp,                           # x, label, weight, seeds
         ptrs, ptrs, vp,                           # W[], b[], Wl
         ctypes.c_float, ctypes.c_float,           # rate, scale
@@ -122,15 +155,11 @@ def _seeds_as_int32(seeds: torch.Tensor) -> torch.Tensor:
     return (s - ((s & 0x80000000) << 1)).to(torch.int32).contiguous()
 
 
-def fused_tower_grad(x, label, weight, seeds, dense, dims, rate):
-    """Fused tower step; see tower_grad_reference for the contract.
-
-    CUDA tensors launch kernel K1 (counted once per call in
-    ``fused_tower_grad.launches``, however many CUDA launches it takes);
-    CPU tensors run the plain version.
-    """
-    if x.device.type == "cpu":
-        return tower_grad_reference(x, label, weight, seeds, dense, dims, rate)
+def _launch_k1(x, label, weight, seeds, dense, dims, rate):
+    """Check lane-stacked CUDA operands ([L, ...] each), allocate outputs and
+    scratch, and launch kernel K1's chain once for all L lanes. Returns
+    (loss, dx, grads, zs); zs are the per-layer pre-activations [L, B, h] the
+    chain leaves in its scratch."""
     dims = tuple(int(d) for d in dims)
     n_layers = len(dims) - 1
     if n_layers < 1 or len(dense) != 2 * n_layers + 1:
@@ -140,59 +169,102 @@ def fused_tower_grad(x, label, weight, seeds, dense, dims, rate):
     _cuda.require_cuda(x, "x", torch.float32)
     _cuda.require_cuda(label, "label", torch.float32)
     _cuda.require_cuda(weight, "weight", torch.float32)
-    b = x.shape[0]
-    if x.dim() != 2 or x.shape[1] != dims[0] or b < 1:
-        raise ValueError(f"x must be [B>=1, {dims[0]}], got {tuple(x.shape)}")
-    if label.numel() != b or weight.numel() != b:
-        raise ValueError("label and weight must hold one value per row")
-    if seeds.numel() != n_layers or seeds.device != x.device:
-        raise ValueError(f"seeds must be {n_layers} values on {x.device}")
+    if x.dim() != 3 or x.shape[2] != dims[0] or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"x must be [L>=1, B>=1, {dims[0]}], got {tuple(x.shape)}")
+    lanes, b = int(x.shape[0]), int(x.shape[1])
+    if tuple(label.shape) != (lanes, b) or tuple(weight.shape) != (lanes, b):
+        raise ValueError("label and weight must hold one value per lane and row")
+    if tuple(seeds.shape) != (lanes, n_layers) or seeds.device != x.device:
+        raise ValueError(f"seeds must be [{lanes}, {n_layers}] on {x.device}")
     for i in range(n_layers):
         w, bias = dense[2 * i], dense[2 * i + 1]
         _cuda.require_cuda(w, f"W{i + 1}", torch.float32)
         _cuda.require_cuda(bias, f"b{i + 1}", torch.float32)
-        if tuple(w.shape) != (dims[i], dims[i + 1]) or bias.numel() != dims[i + 1]:
+        if (tuple(w.shape) != (lanes, dims[i], dims[i + 1])
+                or tuple(bias.shape) != (lanes, dims[i + 1])):
             raise ValueError(f"layer {i + 1}: W {tuple(w.shape)}, b {tuple(bias.shape)} "
-                             f"do not fit dims {dims}")
+                             f"do not fit {lanes} lanes of dims {dims}")
     wl = dense[2 * n_layers]
     _cuda.require_cuda(wl, "Wl", torch.float32)
-    if wl.numel() != dims[-1]:
-        raise ValueError(f"Wl must hold {dims[-1]} values, got {tuple(wl.shape)}")
+    if wl.shape[0] != lanes or wl.numel() != lanes * dims[-1]:
+        raise ValueError(f"Wl must hold {lanes} x {dims[-1]} values, got {tuple(wl.shape)}")
 
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    loss = torch.empty((), **f32)
-    dx = torch.empty((b, dims[0]), **f32)
-    dws = [torch.empty((dims[i], dims[i + 1]), **f32) for i in range(n_layers)]
-    dbs = [torch.empty((dims[i + 1],), **f32) for i in range(n_layers)]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    loss = torch.empty((lanes,), **f32)
+    dx = torch.empty((lanes, b, dims[0]), **f32)
+    dws = [torch.empty((lanes, dims[i], dims[i + 1]), **f32) for i in range(n_layers)]
+    dbs = [torch.empty((lanes, dims[i + 1]), **f32) for i in range(n_layers)]
     dwl = torch.empty(tuple(wl.shape), **f32)
-    zs = [torch.empty((b, dims[i + 1]), **f32) for i in range(n_layers)]
-    hs = [torch.empty((b, dims[i + 1]), **f32) for i in range(n_layers)]
-    dzs = [torch.empty((b, dims[i + 1]), **f32) for i in range(n_layers)]
-    dlog = torch.empty((b,), **f32)
+    zs = [torch.empty((lanes, b, dims[i + 1]), **f32) for i in range(n_layers)]
+    hs = [torch.empty((lanes, b, dims[i + 1]), **f32) for i in range(n_layers)]
+    dzs = [torch.empty((lanes, b, dims[i + 1]), **f32) for i in range(n_layers)]
+    dlog = torch.empty((lanes, b), **f32)
     seeds32 = _seeds_as_int32(seeds)
     scale = _dropout_scale(rate) if rate > 0.0 else 1.0
 
     fn, scratch_floats = _bind()
     dims_c = (ctypes.c_int * len(dims))(*dims)
-    split = torch.empty((scratch_floats(n_layers, dims_c, b),), **f32)
+    split = torch.empty((lanes * scratch_floats(n_layers, dims_c, b),), **f32)
     rc = fn(
-        n_layers, dims_c, b,
+        lanes, n_layers, dims_c, b,
         x.data_ptr(), label.data_ptr(), weight.data_ptr(), seeds32.data_ptr(),
         _ptr_array(dense[0 : 2 * n_layers : 2]), _ptr_array(dense[1 : 2 * n_layers : 2]),
         wl.data_ptr(),
         rate, scale,
         loss.data_ptr(), dx.data_ptr(), _ptr_array(dws), _ptr_array(dbs), dwl.data_ptr(),
         _ptr_array(zs), _ptr_array(hs), _ptr_array(dzs), dlog.data_ptr(),
-        split.data_ptr(), _cuda.stream_ptr(dev),
+        split.data_ptr(), _cuda.stream_ptr(x.device),
     )
     _cuda.check(rc, "fused_tower_grad")
-    fused_tower_grad.launches += 1
     grads = [g for i in range(n_layers) for g in (dws[i], dbs[i])]
-    return loss, dx, (*grads, dwl)
+    return loss, dx, (*grads, dwl), zs
+
+
+def fused_tower_grad(x, label, weight, seeds, dense, dims, rate):
+    """Fused tower step; see tower_grad_reference for the contract.
+
+    CUDA tensors launch kernel K1 as its one-lane case (counted once per
+    call in ``fused_tower_grad.launches``, however many CUDA launches it
+    takes); CPU tensors run the plain version.
+    """
+    if x.device.type == "cpu":
+        return tower_grad_reference(x, label, weight, seeds, dense, dims, rate)
+    if x.dim() != 2:
+        raise ValueError(f"x must be [B, {dims[0]}], got {tuple(x.shape)}")
+    if label.numel() != x.shape[0] or weight.numel() != x.shape[0]:
+        raise ValueError("label and weight must hold one value per row")
+    n_layers = len(dims) - 1
+    if len(dense) != 2 * n_layers + 1 or any(
+            t.dim() != (2 if i % 2 == 0 else 1) for i, t in enumerate(dense)):
+        raise ValueError("dense must be (W1 [in,out], b1 [out], ..., Wl [hk,1])")
+    loss, dx, grads, _ = _launch_k1(
+        x[None], label.reshape(1, -1), weight.reshape(1, -1), seeds.reshape(1, -1),
+        tuple(t[None] for t in dense), dims, rate)
+    fused_tower_grad.launches += 1
+    return loss[0], dx[0], tuple(g[0] for g in grads)
 
 
 fused_tower_grad.launches = 0
+
+
+def fused_tower_grad_lanes(x, label, weight, seeds, dense, dims, rate):
+    """Fused tower step of L independent lanes in one call; see
+    tower_grad_reference_lanes for the contract.
+
+    CUDA tensors launch kernel K1 with the lane as a grid dimension of every
+    launch of its chain (counted once per call in
+    ``fused_tower_grad_lanes.launches``); lane l's results are bit-equal to
+    ``fused_tower_grad`` on lane l's operands. CPU tensors run the plain
+    version.
+    """
+    if x.device.type == "cpu":
+        return tower_grad_reference_lanes(x, label, weight, seeds, dense, dims, rate)
+    loss, dx, grads, _ = _launch_k1(x, label, weight, seeds, dense, dims, rate)
+    fused_tower_grad_lanes.launches += 1
+    return loss, dx, grads
+
+
+fused_tower_grad_lanes.launches = 0
 
 
 def dense_paths(model_params) -> Sequence[Tuple[str, ...]]:
@@ -218,13 +290,39 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def make_fast_loss_grad(model, cfg, tower_grad: Callable = fused_tower_grad,
-                        lookup: Callable = embedding_lookup):
-    """Returns f(params, batch, seeds, train=True) -> (data_loss, grads).
+def table_rows(table, ids, lookup: Callable = embedding_lookup):
+    """Rows of an embedding table for one tower or for L lanes, by ONE lookup.
 
-    ``grads`` has the structure of ``params`` with ``None`` at frozen tables.
-    ``tower_grad`` and ``lookup`` default to the kernels' wrappers; a check
-    on the card passes the plain versions to compare a whole step.
+    ``table`` [N, D] is one table: the single tower's (ids [B]) or one that
+    every lane reads (ids [L, B], flattened across lanes). ``table``
+    [L, N, D] holds a table per lane and is gathered as its [L*N, D] view,
+    ids [L, B] clipped to the lane's rows before the lane's offset is added,
+    so clip semantics hold per lane. Returns (rows [*ids.shape, D], the flat
+    row ids handed to ``lookup``).
+    """
+    if table.dim() == 2:
+        flat = ids.reshape(-1)
+    else:
+        lanes, n = table.shape[:2]
+        offset = torch.arange(lanes, dtype=ids.dtype, device=ids.device)[:, None] * n
+        flat = (ids.clamp(0, n - 1) + offset).reshape(-1)
+    rows = lookup(table.reshape(-1, table.shape[-1]), flat)
+    return rows.reshape(*ids.shape, -1), flat
+
+
+def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
+                        lookup: Callable = embedding_lookup):
+    """Returns f(params, batch, seeds, train=True) -> (data_loss, grads), for
+    one tower or for L lanes at once; the shapes of the batch decide.
+
+    One tower: batch columns [B], ``seeds`` [n_layers], ``data_loss`` [].
+    L lanes: batch columns [L, B], ``seeds`` [L, n_layers], ``data_loss``
+    [L]; every trainable leaf of ``params`` carries a leading lane axis and a
+    frozen user/item table is the one [N, D] tensor every lane reads (see
+    ``table_rows``). ``grads`` has the structure of ``params`` with ``None``
+    at frozen tables. ``tower_grad`` defaults to the kernel's wrapper for the
+    batch's shape and ``lookup`` to the gather kernel's; a check on the card
+    passes the plain versions to compare a whole step.
     """
     dims = (
         int(model.user_dim) + int(model.item_dim) + int(model.domain_dim),
@@ -235,19 +333,30 @@ def make_fast_loss_grad(model, cfg, tower_grad: Callable = fused_tower_grad,
     l2 = float(cfg.l2_emb)
     emb_trainable = bool(cfg.emb_trainable)
 
+    def table_grad(table, flat, dx_part):
+        """Scatter-add of dx rows into the table (or the lane-stacked table's
+        [L*N, D] view), plus its l2 term."""
+        if table.dim() != dx_part.dim():
+            raise ValueError("a table that trains needs one copy per lane")
+        d = table.shape[-1]
+        g = torch.zeros_like(table).reshape(-1, d).index_add_(
+            0, flat.long(), dx_part.reshape(-1, d))
+        return g.reshape(table.shape) + 2.0 * l2 * table
+
     def loss_grad(params, batch, seeds, train: bool = True):
         mp = params["model"]
         emb = mp["embedding"]
-        u = lookup(emb["user_emb"], batch["uid"])
-        p = lookup(emb["item_emb"], batch["pid"])
-        d = lookup(emb["domain_emb"], batch["domain"])
+        u, u_flat = table_rows(emb["user_emb"], batch["uid"], lookup)
+        p, p_flat = table_rows(emb["item_emb"], batch["pid"], lookup)
+        d, d_flat = table_rows(emb["domain_emb"], batch["domain"], lookup)
         x = torch.cat([u, p, d], dim=-1)
 
         paths = dense_paths(mp)
         dense = tuple(_get(mp, path) for path in paths)
-        eff_rate = rate if train else 0.0
-        data_loss, dx, dgrads = tower_grad(
-            x, batch["label"], batch["weight"], seeds, dense, dims, eff_rate,
+        tower = tower_grad or (fused_tower_grad_lanes if x.dim() == 3 else fused_tower_grad)
+        data_loss, dx, dgrads = tower(
+            x, batch["label"], batch["weight"], seeds, dense, dims,
+            rate if train else 0.0,
         )
 
         grads_model = trees.tree_map(lambda leaf: None, mp)
@@ -257,22 +366,11 @@ def make_fast_loss_grad(model, cfg, tower_grad: Callable = fused_tower_grad,
         # embedding grads: scatter-add of dx slices + l2 terms (frozen
         # tables get none: the optimizer never reads them)
         ge = grads_model["embedding"]
-        ge["domain_emb"] = (
-            torch.zeros_like(emb["domain_emb"]).index_add_(
-                0, batch["domain"].long(), dx[:, u_dim + i_dim :])
-            + 2.0 * l2 * emb["domain_emb"]
-        )
+        ge["domain_emb"] = table_grad(emb["domain_emb"], d_flat, dx[..., u_dim + i_dim :])
         if emb_trainable:
-            ge["user_emb"] = (
-                torch.zeros_like(emb["user_emb"]).index_add_(
-                    0, batch["uid"].long(), dx[:, :u_dim])
-                + 2.0 * l2 * emb["user_emb"]
-            )
-            ge["item_emb"] = (
-                torch.zeros_like(emb["item_emb"]).index_add_(
-                    0, batch["pid"].long(), dx[:, u_dim : u_dim + i_dim])
-                + 2.0 * l2 * emb["item_emb"]
-            )
+            ge["user_emb"] = table_grad(emb["user_emb"], u_flat, dx[..., :u_dim])
+            ge["item_emb"] = table_grad(emb["item_emb"], p_flat,
+                                        dx[..., u_dim : u_dim + i_dim])
         return data_loss, {"model": grads_model}
 
     return loss_grad

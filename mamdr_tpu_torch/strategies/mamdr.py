@@ -1,13 +1,18 @@
 """MAMDR = Domain Negotiation + Domain Regularization (the flagship).
 
-Counterpart of the construction path and the DN phase of
-``mamdr_tpu/strategies/mamdr.py`` (``__init__`` :55-96, ``prepare_fused``
-:307-333, the draws and DN half of ``run_fused_epoch`` :442-467). State:
-shared weights plus per-domain specific deltas on the meta-param subset.
+Counterpart of the construction path and the fused epoch of
+``mamdr_tpu/strategies/mamdr.py`` (``__init__`` :55-96,
+``_dr_parallel_eligible`` :123-225, ``prepare_fused`` :307-418 without the
+mesh, ``run_fused_epoch`` :442-470). State: shared weights plus per-domain
+specific deltas on the meta-param subset.
 
 Per epoch, phase 1 (DN): load shared, one full-epoch pass through the
 shuffled domain sequence, then shared += (θ_final - shared) * meta_lr.
-Phase 2 (DR), evaluation and the finetune stage are later slices.
+Phase 2 (DR): per query domain q, for each sampled support domain s: load
+merge(shared, specific[q]); an epoch on s; an epoch on q;
+specific[q] += (θ - merged) * meta_lr — run with every query domain as a
+lane when eligible (train/fused.py). Evaluation and the finetune stage are
+later slices.
 """
 
 from __future__ import annotations
@@ -15,9 +20,11 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
 
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.train import fused
+from mamdr_tpu_torch.train.steps import make_subset_train_step
 from mamdr_tpu_torch.utils import trees
 
 
@@ -46,21 +53,78 @@ class MAMDRStrategy(MetaStrategy):
                 for i in range(self.n_domain)
             ]
 
+    def _frozen_mask(self):
+        """True at the leaves the optimizer never trains (the user/item
+        tables when emb_trainable is false)."""
+        return trees.named_tree_map(
+            lambda n, x: (not self.tc.emb_trainable)
+            and ("user_emb" in n or "item_emb" in n),
+            self.trainer.state.params)
+
+    def _dr_parallel_eligible(self) -> bool:
+        """Gate for the query-domain-lanes DR phase (fused.make_fused_dr_parallel).
+
+        The lanes need (a) the meta mask to cover EVERY trainable leaf — a
+        trainable leaf outside it would need the sequential phase's lineage
+        chained through the query domains; the MLP carries no batch
+        statistics, the other thing that would; and (b) under "auto" the
+        lane state (params + 2 Adam slots per trainable leaf, times
+        n_domain) to stay under 40% of the card's free memory — with
+        trainable tables the lanes stack whole tables. The budget is not
+        checked on the CPU. "on" raises with the reason when (a) fails.
+        """
+        mode = self.tc.dr_parallel
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"dr_parallel must be auto, on or off, got {mode!r}")
+        if self.tc.dr_lane_chunk > 0:
+            raise NotImplementedError(
+                f"dr_lane_chunk={self.tc.dr_lane_chunk}: chunked DR lanes are not "
+                "ported yet (ROADMAP.md, open items §1: dr_lane_chunk and the "
+                "sharded lanes)")
+        if mode == "off":
+            return False
+        params = self.trainer.state.params
+        frozen = self._frozen_mask()
+        uncovered = [n for (n, m), f in zip(trees.leaves_with_names(self.mask),
+                                            trees.leaves(frozen)) if not (m or f)]
+        if uncovered:
+            if mode == "on":
+                raise ValueError(
+                    "dr_parallel='on' but the meta mask does not cover every "
+                    f"trainable leaf (uncovered: {uncovered}); non-meta trainables "
+                    "need the sequential chained lineage")
+            return False
+        if mode == "on" or self.trainer.device.type != "cuda":
+            return True
+        trainable_bytes = sum(
+            x.numel() * x.element_size()
+            for x, f in zip(trees.leaves(params), trees.leaves(frozen)) if not f)
+        free_bytes, _ = torch.cuda.mem_get_info(self.trainer.device)
+        return 3 * self.n_domain * trainable_bytes < 0.4 * free_bytes
+
     def prepare_fused(self) -> None:
-        """Build the device-resident data block and the DN phase function."""
+        """Build the device-resident data block and the two phase functions;
+        ``self.dr_lanes`` says whether DR runs as lanes."""
         t = self.trainer
         self._block, n_steps = t.train_block()
-        self._dn_phase = fused.make_fused_mamdr(
-            t.train_step_fn(), self.mask, n_steps, t.dataset.batch_size,
-            steps_list=t.steps_per_domain(),
-        )
+        batch, steps_list = t.dataset.batch_size, t.steps_per_domain()
+        method, reg_step = self.tc.merged_method, self.tc.domain_regulation_step
+        self._dn_phase, self._dr_phase = fused.make_fused_mamdr(
+            t.train_step_fn(), self.mask, method, n_steps, batch, reg_step,
+            steps_list=steps_list)
+        self.dr_lanes = self._dr_parallel_eligible()
+        if self.dr_lanes:
+            sub_step, to_sub, combine = make_subset_train_step(
+                t.model, t.tx, t.step_cfg, self._frozen_mask(), t.state.params)
+            self._dr_phase = fused.make_fused_dr_parallel(
+                sub_step, to_sub, combine, self.mask, method, n_steps, batch,
+                reg_step, steps_list=steps_list)
+        self._spec_stack = fused.stack_specific(self.specific, self.mask)
 
     def draw_epoch(self):
         """The epoch's host draws from np_rng, exactly as the JAX package's
         run_fused_epoch makes them (mamdr.py:447-459): the shuffled domain
-        order, then each query domain's support (aux) domains. The DR phase
-        consumes the aux rows; drawing them here keeps the numpy stream in
-        step with the JAX package's."""
+        order, then each query domain's support (aux) domains."""
         t = self.trainer
         sequence = self.meta_sequence()
         if self.tc.shuffle_sequence:
@@ -76,13 +140,34 @@ class MAMDRStrategy(MetaStrategy):
             aux_rows.append(row)
         return order, np.asarray(aux_rows, np.int32)
 
-    def run_dn_phase(self) -> np.ndarray:
-        """One epoch's draws, then the DN phase. Returns the per-position
-        mean train losses; reading them is the phase's only host sync."""
+    def _start_dn_phase(self) -> torch.Tensor:
+        """The epoch's draws, then the DN phase; returns its per-position
+        mean train losses, still on the device."""
         t = self.trainer
         self.order, self.aux = self.draw_epoch()
         t.state, self.shared, losses = self._dn_phase(
             t.state, self.shared, self._block, self.order, t.gen,
-            float(self.tc.meta_learning_rate),
-        )
+            float(self.tc.meta_learning_rate))
+        return losses
+
+    def run_dn_phase(self) -> np.ndarray:
+        """One epoch's draws, then the DN phase. Returns the per-position
+        mean train losses; reading them is the phase's only host sync."""
+        return self._start_dn_phase().cpu().numpy()
+
+    def run_dr_phase(self) -> None:
+        """The DR phase on the draws of the last DN phase; then ``specific``
+        is refreshed from the stack. No host sync."""
+        t = self.trainer
+        t.state, self._spec_stack = self._dr_phase(
+            t.state, self.shared, self._spec_stack, self._block, self.order,
+            self.aux, t.gen, float(self.tc.meta_learning_rate))
+        self.specific = fused.unstack_specific(self._spec_stack, self.mask, self.n_domain)
+
+    def run_fused_epoch(self) -> np.ndarray:
+        """One MAMDR epoch: the draws, the DN phase, the DR phase. Returns
+        the DN phase's losses; reading them, after both phases are enqueued,
+        is the epoch's only host sync."""
+        losses = self._start_dn_phase()
+        self.run_dr_phase()
         return losses.cpu().numpy()

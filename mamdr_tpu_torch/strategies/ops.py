@@ -10,6 +10,11 @@ MAMDR's ``shared`` tree is the trainer's initial params, and each domain's
 ``specific`` tree aliases shared's unmasked leaves (strategies/mamdr.py); an
 in-place update would silently rewrite them all. Unmasked leaves are passed
 through by reference, so frozen tables are never copied.
+
+The ops broadcast: with ``shared`` leaves [...] and lane-stacked ``specific``
+leaves [L, ...] (the DR phase's query-domain lanes), ``merge_weights`` gives
+the [L, ...] merged leaves, and ``reptile_update`` / ``specific_update``
+work leaf-wise on whatever leading axes their operands share.
 """
 
 from __future__ import annotations
@@ -42,3 +47,12 @@ def merge_weights(shared: Tree, specific: Tree, mask: Tree, method: str = "plus"
     if method == "times":
         return trees.tree_map(lambda m, s_, p_: s_ * p_ if m else s_, mask, shared, specific)
     raise ValueError(f"unknown merged_method {method!r}")
+
+
+def specific_update(specific: Tree, adapted: Tree, merged: Tree, lr, mask: Tree) -> Tree:
+    """specific += (adapted - merged) * lr on masked leaves: the DR phase's
+    update of a query domain's specific weights after a support run
+    (reference mamdr.py:93-101)."""
+    return trees.tree_map(
+        lambda m, sp, a, mg: sp + (a - mg) * lr if m else sp,
+        mask, specific, adapted, merged)

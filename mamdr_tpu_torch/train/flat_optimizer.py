@@ -6,6 +6,11 @@ sorted at each level, utils.trees), Adam's elementwise update runs on that
 vector, and the step is sliced back into the tree. ``mu`` and ``nu`` are
 therefore laid out exactly like the JAX package's and convert 1:1.
 
+The update is elementwise, so the same code serves a lane-stacked state
+(the DR phase's query-domain lanes): ``mu`` and ``nu`` [L, n], ``count``
+[L], every gradient leaf with a leading L — lane l's slots then hold exactly
+what a single-lane optimizer fed lane l's gradients would.
+
 Frozen leaves (mask False) take no gradient, get no update (``None``) and
 carry no slot state. ``torch.optim.Adam`` is not used: the train step must be
 able to discard a whole update, slot counter included, on an all-pad batch
@@ -22,9 +27,9 @@ from mamdr_tpu_torch.utils import trees
 
 
 class FlatAdamState(NamedTuple):
-    count: torch.Tensor  # int32 scalar
-    mu: torch.Tensor     # [n] flat first moment
-    nu: torch.Tensor     # [n] flat second moment
+    count: torch.Tensor  # int32 scalar, or [L] over lanes
+    mu: torch.Tensor     # [n] flat first moment, or [L, n]
+    nu: torch.Tensor     # [n] flat second moment, or [L, n]
 
 
 class FlatAdam:
@@ -52,19 +57,22 @@ class FlatAdam:
 
     def update(self, grads, state: FlatAdamState) -> Tuple[Any, FlatAdamState]:
         """(updates, new_state); updates has grads' structure, None at
-        frozen leaves."""
+        frozen leaves. Leading lane axes of the state are those of every
+        gradient leaf."""
         b1, b2 = self.b1, self.b2
         sel = self._selected(grads)
-        g = torch.cat([x.reshape(-1) for x in sel])
+        lead = state.mu.shape[:-1]  # () or (L,)
+        g = torch.cat([x.reshape(*lead, -1) for x in sel], dim=-1)
         count = state.count + 1
         mu = b1 * state.mu + (1.0 - b1) * g
         nu = b2 * state.nu + (1.0 - b2) * (g * g)
-        c = count.to(torch.float32)
+        c = count.to(torch.float32).reshape(*lead, 1)
         mu_hat = mu / (1.0 - b1 ** c)
         nu_hat = nu / (1.0 - b2 ** c)
         step = -self.learning_rate * mu_hat / (torch.sqrt(nu_hat) + self.eps)
 
-        pieces = iter(torch.split(step, [x.numel() for x in sel]))
+        pieces = iter(torch.split(step, [x[(0,) * len(lead)].numel() for x in sel],
+                                  dim=-1))
         updates = trees.tree_map(
             lambda m, x: next(pieces).reshape(x.shape) if m else None,
             self.mask, grads,

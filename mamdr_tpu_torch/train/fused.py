@@ -1,6 +1,9 @@
 """Whole training phases over a device-resident data block.
 
-Counterpart of the DN half of ``mamdr_tpu/train/fused.py``:
+Counterpart of the MAMDR part of ``mamdr_tpu/train/fused.py`` (block
+stacking, batch formation, the ragged sequential pass, ``make_fused_mamdr``,
+``make_fused_dr_parallel`` without its mesh-sharding and lane-chunk
+branches, ``stack_specific`` / ``unstack_specific``):
 
   - all domain data lives on the device once, padded to a uniform
     [n_domain, n_steps*batch] block (weight-0 tail rows);
@@ -9,7 +12,12 @@ Counterpart of the DN half of ``mamdr_tpu/train/fused.py``:
   - the sequential multi-domain pass runs only each domain's ceil(n_d/B)
     real steps (the JAX package's ragged pass, :161-242). A padded step
     would be an all-pad batch, which the train step turns into an exact
-    no-op, so skipping it is bit-identical to the padded scan.
+    no-op, so skipping it is bit-identical to the padded scan;
+  - the Domain-Regularization phase runs every query domain as a LANE: all
+    lanes start from the DR-entry state and take each step together, one
+    launch chain per lane-step through the lane-batched train step. Lanes
+    with fewer real steps than the longest see all-pad batches, which the
+    per-lane gate turns into exact no-ops.
 
 The JAX package fuses each phase into one jit dispatch; here a phase is a
 Python loop issuing work to one CUDA stream, and nothing in it waits for the
@@ -19,14 +27,18 @@ stay on the device, and the caller reads them once at the end.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from mamdr_tpu_torch.data.dataset import DomainSplit
+from mamdr_tpu_torch.ops.fast_random import lane_seeds
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.train.state import TrainState
+from mamdr_tpu_torch.utils import trees
+
+Tree = Any
 
 
 def stack_domains_on_device(
@@ -62,76 +74,111 @@ def domain_step_counts(splits: List[DomainSplit], batch_size: int) -> List[int]:
 def _form_batches(flat: Dict[str, torch.Tensor], gen: torch.Generator,
                   n_steps: int, batch: int, cap_steps: int = 0,
                   shuffle: bool = True) -> Dict[str, torch.Tensor]:
-    """Shuffled [steps, B] batches from a flat [N_pad] column block, formed
-    by ONE gather.
+    """Shuffled batches from a column block, formed by ONE gather: columns
+    [N_pad] give [steps, B] batches; columns [L, N_pad] (one row block per
+    lane) give [steps, L, B], each lane shuffled on its own by one draw of
+    shape [L, N_pad].
 
     The shuffle permutes only the real rows and keeps the weight-0 pad tail
-    last (stable sort by random key + pad penalty), so the domain trains
+    last (stable sort by random key + pad penalty), so a domain trains
     exactly ceil(n_d/B) effective steps. All columns are 32-bit: they are
-    packed into one [N_pad, C] int32 array (float columns reinterpreted, a
-    bit-exact round trip) and gathered once. Each returned column is
-    contiguous, so a step's slice is a contiguous [B] row.
+    packed into one [..., N_pad, C] int32 array (float columns reinterpreted,
+    a bit-exact round trip) and gathered once. Each returned column is
+    contiguous, so a step's slice is a contiguous [B] or [L, B] block.
     """
     n_pad = n_steps * batch
     w = flat["weight"]
     if shuffle:
-        sort_key = torch.rand(n_pad, generator=gen, device=w.device) + torch.where(
+        sort_key = torch.rand(w.shape, generator=gen, device=w.device) + torch.where(
             w > 0.0, 0.0, 2.0)
-        perm = torch.argsort(sort_key, stable=True)
+        perm = torch.argsort(sort_key, dim=-1, stable=True)
     else:
         # equivalence testing: natural order, pad tail last
-        perm = torch.arange(n_pad, device=w.device)
+        perm = torch.arange(n_pad, device=w.device).expand(w.shape)
     steps = n_steps if cap_steps <= 0 else min(cap_steps, n_steps)
-    idx = perm[: steps * batch]
+    idx = perm[..., : steps * batch]
     keys = sorted(flat)
     packed = torch.stack(
         [flat[k] if flat[k].dtype == torch.int32 else flat[k].view(torch.int32)
          for k in keys],
-        dim=1,
+        dim=-1,
     )
-    rows = packed[idx]  # [steps*B, C]
+    # [..., steps*B, C]
+    rows = torch.gather(packed, -2, idx[..., None].expand(*idx.shape, len(keys)))
     out = {}
     for j, k in enumerate(keys):
-        col = rows[:, j].contiguous()
+        col = rows[..., j].reshape(*w.shape[:-1], steps, batch)
+        col = col.movedim(-2, 0).contiguous()  # the step axis first
         if flat[k].dtype != torch.int32:
             col = col.view(flat[k].dtype)
-        out[k] = col.reshape(steps, batch)
+        out[k] = col
     return out
 
 
+def _epoch_on_flat(train_step, state: TrainState, flat, gen: torch.Generator,
+                   n_steps: int, batch: int, cap_steps: int = 0,
+                   shuffle: bool = True, real_steps: Optional[int] = None):
+    """One shuffled epoch over a flat column block (JAX ``_epoch_on_flat``,
+    fused.py:121-153): at most ``cap_steps`` steps when that is positive, and
+    only the first ``real_steps`` of them when given — the rest would be
+    all-pad batches (real rows sort first), which the train step turns into
+    exact no-ops, so not running them is bit-identical.
+
+    ``flat`` columns are [N_pad], or [L, N_pad] with a lane-batched
+    ``train_step`` (then ``real_steps`` is the largest over the lanes).
+    Returns (state, the mean data loss over the steps run)."""
+    steps = n_steps if cap_steps <= 0 else min(cap_steps, n_steps)
+    if real_steps is not None:
+        steps = min(steps, int(real_steps))
+    batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=flat["weight"].device)
+    for s in range(steps):
+        state, loss = train_step(state, {k: v[s] for k, v in batches.items()})
+        loss_sum = loss_sum + loss
+    return state, loss_sum / max(steps, 1)
+
+
 def _sequential_pass(train_step, state: TrainState, block, order: Sequence[int],
-                     gen: torch.Generator, steps_of: Sequence[int],
+                     gen: torch.Generator, steps_of: Optional[Sequence[int]],
                      n_steps: int, batch: int, shuffle: bool = True):
     """One epoch on each domain in `order`, chained without reset, running
-    only each domain's real steps. Returns (state, [D] losses on the device):
+    only each domain's real steps (`steps_of`, when given). Returns (state, [D] losses on the device):
     losses[i] is the mean data loss over the real steps of the domain at
     order position i."""
     losses = []
     for dom in order:
         dom = int(dom)
-        flat = {k: v[dom] for k, v in block.items()}
-        steps = int(steps_of[dom])
-        batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps,
-                                shuffle=shuffle)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=block["weight"].device)
-        for s in range(steps):
-            state, loss = train_step(state, {k: v[s] for k, v in batches.items()})
-            loss_sum = loss_sum + loss
-        losses.append(loss_sum / max(steps, 1))
+        state, loss = _epoch_on_flat(
+            train_step, state, {k: v[dom] for k, v in block.items()}, gen, n_steps,
+            batch, shuffle=shuffle,
+            real_steps=None if steps_of is None else steps_of[dom])
+        losses.append(loss)
     return state, torch.stack(losses)
 
 
-def make_fused_mamdr(train_step, mask, n_steps: int, batch: int,
-                     steps_list: Sequence[int], shuffle: bool = True):
-    """The MAMDR Domain-Negotiation phase (reference mamdr.py:41-66;
-    JAX fused.make_fused_mamdr's dn_phase, :922-927):
+def make_fused_mamdr(train_step, mask, merged_method: str, n_steps: int, batch: int,
+                     domain_regulation_step: int = 0, shuffle: bool = True,
+                     steps_list: Optional[Sequence[int]] = None):
+    """The full MAMDR epoch as two phase functions (reference mamdr.py:41-108;
+    JAX fused.make_fused_mamdr, :886-986). Returns (dn_phase, dr_phase).
 
-        load shared -> sequential pass over `order` -> shared +=
-        (θ_end - shared) * meta_lr.
+    dn_phase(state, shared, block, order, gen, meta_lr) -> (state, shared,
+    losses): load shared -> sequential pass over `order` -> shared +=
+    (θ_end - shared) * meta_lr.
 
-    The DR phase is a later slice. Returns dn_phase(state, shared, block,
-    order, gen, meta_lr) -> (state, shared, losses)."""
-    steps_of = [int(s) for s in steps_list]
+    dr_phase(state, shared, specific_stack, block, order, aux, gen, meta_lr)
+    -> (state, specific_stack), the sequential form: for each query domain q
+    in `order`, for each support domain s in aux[q]: load merge(shared,
+    specific[q]); a full epoch on s; an epoch on q of at most
+    `domain_regulation_step` steps (0: whole); specific[q] += (θ - merged) *
+    meta_lr. Optimizer slots and the step counter chain through the query
+    domains. `order` [D] and `aux` [D, K] are host arrays; specific_stack
+    carries a leading domain axis on masked leaves (stack_specific).
+    """
+    steps_of = None if steps_list is None else [int(s) for s in steps_list]
+
+    def real(dom: int) -> Optional[int]:
+        return None if steps_of is None else steps_of[dom]
 
     def dn_phase(state: TrainState, shared, block, order, gen, meta_lr):
         state = state.replace(params=ops.load_masked(state.params, shared, mask))
@@ -140,4 +187,160 @@ def make_fused_mamdr(train_step, mask, n_steps: int, batch: int,
         shared = ops.reptile_update(shared, state.params, meta_lr, mask)
         return state, shared, losses
 
-    return dn_phase
+    def dr_phase(state: TrainState, shared, specific_stack, block, order, aux, gen,
+                 meta_lr):
+        updated: Dict[int, Tree] = {}  # query domain -> its new specific tree
+        for q, aux_q in zip(order, aux):
+            q = int(q)
+            spec_q = updated.get(q)
+            if spec_q is None:
+                spec_q = trees.tree_map(lambda m, s: s[q] if m else s, mask, specific_stack)
+            query_flat = {k: v[q] for k, v in block.items()}
+            for s_idx in aux_q:
+                s_idx = int(s_idx)
+                merged = ops.merge_weights(shared, spec_q, mask, merged_method)
+                state = state.replace(params=ops.load_masked(state.params, merged, mask))
+                state, _ = _epoch_on_flat(
+                    train_step, state, {k: v[s_idx] for k, v in block.items()}, gen,
+                    n_steps, batch, shuffle=shuffle, real_steps=real(s_idx))
+                state, _ = _epoch_on_flat(
+                    train_step, state, query_flat, gen, n_steps, batch,
+                    cap_steps=domain_regulation_step, shuffle=shuffle,
+                    real_steps=real(q))
+                spec_q = ops.specific_update(spec_q, state.params, merged, meta_lr, mask)
+            updated[q] = spec_q
+        return state, _write_specific(specific_stack, mask, updated)
+
+    return dn_phase, dr_phase
+
+
+def _write_specific(specific_stack: Tree, mask: Tree, updated: Dict[int, Tree]) -> Tree:
+    """A new stack with row q of every masked leaf replaced by updated[q]'s
+    (one out-of-place index_copy per leaf)."""
+    if not updated:
+        return specific_stack
+    doms = list(updated)
+    leaves_of = [updated[q] for q in doms]
+
+    def write(m, st, *new):
+        if not m:
+            return st
+        at = torch.tensor(doms, dtype=torch.long, device=st.device)
+        return st.index_copy(0, at, torch.stack(new))
+
+    return trees.tree_map(write, mask, specific_stack, *leaves_of)
+
+
+def make_lane_state(state: TrainState, sub_params: Tree, mask: Tree,
+                    n_lanes: int) -> TrainState:
+    """`state` broadcast to n_lanes lanes: every lane starts from the same
+    params (`sub_params`: state.params with scalar placeholders at frozen
+    leaves, which get no lane axis), optimizer slots and step counter, each
+    with its own dropout base seed. Broadcasts are views where the first
+    update replaces them anyway: the slots, the step, and the masked leaves
+    (load_masked puts merged weights there before the first step); any other
+    trainable leaf gets its own copy per lane."""
+    def lanes_of(x):
+        return x.expand(n_lanes, *x.shape)
+
+    def param_lanes(m, x):
+        if x.dim() == 0:  # a frozen leaf's placeholder
+            return x
+        return lanes_of(x) if m else lanes_of(x).contiguous()
+
+    return state.replace(
+        params=trees.tree_map(param_lanes, mask, sub_params),
+        opt_state=type(state.opt_state)(*(lanes_of(x) for x in state.opt_state)),
+        seed=lane_seeds(state.seed, n_lanes, state.step.device),
+        step=lanes_of(state.step),
+    )
+
+
+def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
+                           n_steps: int, batch: int, domain_regulation_step: int = 0,
+                           shuffle: bool = True,
+                           steps_list: Optional[Sequence[int]] = None):
+    """The DR phase with every query domain as a lane (JAX
+    fused.make_fused_dr_parallel, :989-1265, single device, unchunked).
+
+    Query q's DR work only reads `shared` and the data block and writes
+    specific[q], so the queries are independent once DN has fixed `shared`.
+    Lane l handles query domain order[l]; every lane starts from the
+    DR-entry params, optimizer slots and step counter (not from the previous
+    query's, as the sequential dr_phase chains them) and gets its own
+    dropout stream (fast_random.lane_seeds). The K support runs are the
+    outer loop and all lanes take each step together through `sub_step`
+    (steps.make_subset_train_step): 2*K epochs of lane-steps instead of
+    D*2*K epochs of steps. With ragged `steps_list` an epoch runs the
+    largest real step count over its lanes; shorter lanes' extra steps are
+    all-pad batches, exact no-ops under the per-lane gate — bit-identical to
+    skipping them. Nothing in the phase waits for the host.
+
+    Against dr_phase the results agree exactly when the inner optimizer has
+    no slots and dropout is off; otherwise the slot and dropout lineages
+    differ as described. The caller gates eligibility (MAMDRStrategy): the
+    meta mask must cover every trainable leaf.
+
+    Returns dr_parallel with dr_phase's signature; the returned state is the
+    last lane's.
+    """
+    steps_of = None if steps_list is None else [int(s) for s in steps_list]
+
+    def longest(doms) -> Optional[int]:
+        return None if steps_of is None else max(steps_of[int(d)] for d in doms)
+
+    def dr_parallel(state: TrainState, shared, specific_stack, block, order, aux, gen,
+                    meta_lr):
+        device = block["weight"].device
+        n_lanes = len(order)
+        order_t = torch.as_tensor(np.asarray(order), dtype=torch.long, device=device)
+        aux_t = torch.as_tensor(np.asarray(aux), dtype=torch.long, device=device)
+        shared_sub = to_sub(shared)
+
+        lane_state = make_lane_state(state, to_sub(state.params), mask, n_lanes)
+        spec_lanes = trees.tree_map(lambda m, s: s[order_t] if m else s,
+                                    mask, specific_stack)
+        query_flats = {k: v[order_t] for k, v in block.items()}  # [L, N_pad]
+
+        for j in range(aux_t.shape[1]):
+            merged = ops.merge_weights(shared_sub, spec_lanes, mask, merged_method)
+            lane_state = lane_state.replace(
+                params=ops.load_masked(lane_state.params, merged, mask))
+            lane_state, _ = _epoch_on_flat(
+                sub_step, lane_state, {k: v[aux_t[:, j]] for k, v in block.items()},
+                gen, n_steps, batch, shuffle=shuffle, real_steps=longest(aux[:, j]))
+            lane_state, _ = _epoch_on_flat(
+                sub_step, lane_state, query_flats, gen, n_steps, batch,
+                cap_steps=domain_regulation_step, shuffle=shuffle,
+                real_steps=longest(order))
+            spec_lanes = ops.specific_update(spec_lanes, lane_state.params, merged,
+                                             meta_lr, mask)
+
+        specific_stack = trees.tree_map(
+            lambda m, st, lanes: st.index_copy(0, order_t, lanes) if m else st,
+            mask, specific_stack, spec_lanes)
+
+        def last(x):
+            return x[-1] if x.dim() > 0 else x  # placeholders carry no lane axis
+
+        final = state.replace(
+            params=combine(trees.tree_map(last, lane_state.params)),
+            opt_state=type(state.opt_state)(*(x[-1] for x in lane_state.opt_state)),
+            step=lane_state.step[-1],
+        )
+        return final, specific_stack
+
+    return dr_parallel
+
+
+def stack_specific(specific_list: List[Tree], mask: Tree) -> Tree:
+    """[per-domain trees] -> one tree with a leading domain axis on masked
+    leaves (unmasked leaves take domain 0's tensor itself: never read)."""
+    return trees.tree_map(
+        lambda m, *leaves: torch.stack(leaves) if m else leaves[0],
+        mask, *specific_list)
+
+
+def unstack_specific(stacked: Tree, mask: Tree, n_domain: int) -> List[Tree]:
+    return [trees.tree_map(lambda m, s: s[i] if m else s, mask, stacked)
+            for i in range(n_domain)]

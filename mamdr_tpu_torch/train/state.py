@@ -5,12 +5,16 @@ folded per step; the port carries a base dropout seed (a python int drawn
 once from the Trainer's generator) and derives per-step seeds on the device
 from it and ``step`` (ops.fast_random.step_seeds). Updates are functional:
 a train step returns a new state and never writes a tensor of the old one.
+
+A lane-stacked state (the DR phase's query-domain lanes) is the same struct
+with a leading lane axis on every trainable leaf and optimizer slot,
+``step`` [L], and ``seed`` an [L] tensor of per-lane base seeds.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Union
 
 import torch
 
@@ -19,8 +23,8 @@ import torch
 class TrainState:
     params: Any          # {'model': flax-named nested dict of tensors}
     opt_state: Any
-    seed: int            # base dropout seed (uint32 value)
-    step: torch.Tensor   # int32 scalar on the device: train steps taken
+    seed: Union[int, torch.Tensor]  # base dropout seed (uint32 value); [L] over lanes
+    step: torch.Tensor   # int32 on the device: train steps taken (scalar, or [L])
 
     @classmethod
     def create(cls, params, opt_state, seed: int, device) -> "TrainState":

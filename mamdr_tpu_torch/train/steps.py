@@ -9,7 +9,10 @@ Counterpart of ``mamdr_tpu/train/steps.py`` for the MLP tower:
     Adam, and the all-pad gate: a batch whose weights sum to 0 leaves
     params, optimizer slots and ``step`` exactly as they were
     (steps.py:148-165). The gate is a ``torch.where`` on the device, so a
-    step never waits for the host.
+    step never waits for the host;
+  - the subset lane step (``make_subset_train_step``, steps.py:171-236): the
+    very same step function over lane-stacked state that carries only
+    trainable leaves, with the gate taken per lane.
 """
 
 from __future__ import annotations
@@ -71,22 +74,32 @@ def make_loss_fn(model, cfg: StepConfig):
     return loss_fn
 
 
-def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = None):
-    """(state, batch) -> (state, data_loss). ``loss_grad`` defaults to the
-    fused kernel path (make_fast_loss_grad)."""
+def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = None,
+                    combine: Optional[Callable] = None):
+    """(state, batch) -> (state, data_loss), for one tower (batch columns
+    [B], ``step`` []) or for L lanes at once (every carried leaf [L, ...],
+    batch columns [L, B], ``step`` and ``seed`` [L]): seeds, loss and
+    gradient, flat Adam and the gate all broadcast over the lane axis, and
+    the gate is taken per lane. ``loss_grad`` defaults to the fused kernel
+    path (make_fast_loss_grad); ``combine`` maps the carried params to the
+    tree the loss reads (make_subset_train_step)."""
     if loss_grad is None:
         loss_grad = make_fast_loss_grad(model, cfg)
     n_layers = len(model.hidden_dim)
 
     def train_step(state: TrainState, batch):
         seeds = step_seeds(state.seed, state.step, n_layers)
-        data_loss, grads = loss_grad(state.params, batch, seeds, train=True)
+        params = state.params if combine is None else combine(state.params)
+        data_loss, grads = loss_grad(params, batch, seeds, train=True)
         updates, new_opt = tx.update(grads, state.opt_state)
         new_params = apply_updates(state.params, updates)
-        has_data = torch.sum(batch["weight"]) > 0.0
+        has_data = torch.sum(batch["weight"], dim=-1) > 0.0  # [] or [L]
 
         def keep(new, old):
-            return old if new is old else torch.where(has_data, new, old)
+            if new is old:  # frozen leaves and their placeholders
+                return old
+            gate = has_data[(...,) + (None,) * (new.dim() - has_data.dim())]
+            return torch.where(gate, new, old)
 
         new_state = state.replace(
             params=trees.tree_map(keep, new_params, state.params),
@@ -96,6 +109,34 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
         return new_state, data_loss
 
     return train_step
+
+
+def make_subset_train_step(model, tx, cfg: StepConfig, frozen_mask, frozen_full,
+                           loss_grad: Optional[Callable] = None):
+    """Train step over L lanes whose carried params hold only the TRAINABLE
+    subset. Returns (train_step, to_sub, combine).
+
+    The carried state is lane-stacked: every trainable leaf [L, ...],
+    optimizer slots [L, n], ``step`` [L], ``seed`` [L]; batch columns [L, B].
+    Frozen leaves (``frozen_mask`` True: the pretrained user/item tables
+    when emb_trainable is false) are captured once from ``frozen_full`` and
+    shared by every lane: ``to_sub(full)`` puts a scalar placeholder in
+    their place, ``combine(sub)`` restores the one shared tensor, so L lanes
+    never hold L copies of a table. ``train_step`` is make_train_step's step
+    reading ``combine(params)``: one call advances all lanes through the
+    lane-batched kernel K1, and a lane whose batch weights sum to 0 keeps
+    its params, slots and step exactly while the others move, with no host
+    sync.
+    """
+
+    def to_sub(full):
+        return trees.tree_map(lambda f, x: x.new_zeros(()) if f else x, frozen_mask, full)
+
+    def combine(sub):
+        return trees.tree_map(lambda f, fr, x: fr if f else x,
+                              frozen_mask, frozen_full, sub)
+
+    return make_train_step(model, tx, cfg, loss_grad, combine), to_sub, combine
 
 
 def make_optimizer(name: str, learning_rate: float, params,

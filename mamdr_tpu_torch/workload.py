@@ -20,20 +20,22 @@ BENCH = dict(n_domain=30, n_uid=100_000, n_pid=100_000, n_per_domain=20_000,
              batch_size=1024, emb_dim=128)
 
 
-def bench_config() -> ExperimentConfig:
+def bench_config(dr_parallel: str = "auto") -> ExperimentConfig:
     return ExperimentConfig.from_dict({
         "model": {"name": "mlp_meta_mamdr_finetune", "user_dim": 128, "item_dim": 128,
                   "domain_dim": 128, "hidden_dim": [256, 128, 64], "dropout": 0.5},
         "train": {"load_pretrain_emb": True, "emb_trainable": False,
                   "learning_rate": 1e-3, "meta_learning_rate": 0.1,
                   "merged_method": "plus", "sample_num": 5, "add_query_domain": True,
-                  "shuffle_sequence": True, "epoch": 1},
+                  "shuffle_sequence": True, "epoch": 1,
+                  "dr_parallel": dr_parallel},
         "dataset": {"name": "synthetic", "batch_size": BENCH["batch_size"], "seed": 123},
     })
 
 
-def build_bench_strategy(device=None):
-    """(trainer, strategy) for the bench workload, fused phases prepared."""
+def build_bench_strategy(device=None, dr_parallel: str = "auto"):
+    """(trainer, strategy) for the bench workload, fused phases prepared.
+    ``dr_parallel`` "off" gives the sequential DR phase instead of the lanes."""
     b = BENCH
     ds = make_synthetic_dataset(
         n_domain=b["n_domain"], n_uid=b["n_uid"], n_pid=b["n_pid"],
@@ -43,7 +45,7 @@ def build_bench_strategy(device=None):
     rng = np.random.default_rng(0)
     ds.user_emb = rng.normal(0, 0.1, (b["n_uid"], b["emb_dim"])).astype(np.float32)
     ds.item_emb = rng.normal(0, 0.1, (b["n_pid"], b["emb_dim"])).astype(np.float32)
-    trainer = Trainer(bench_config(), ds, device=device)
+    trainer = Trainer(bench_config(dr_parallel), ds, device=device)
     strat = MAMDRStrategy(trainer)
     strat.prepare_fused()
     return trainer, strat

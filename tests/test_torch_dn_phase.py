@@ -139,8 +139,8 @@ def test_dn_phase_trajectory_matches_jax(tmp_path, long_tail):
     assert t_steps == n_steps
     for k in tblock:
         np.testing.assert_array_equal(tblock[k].numpy(), np.asarray(jblock[k]))
-    tdn = fused.make_fused_mamdr(tt.train_step_fn(), ts.mask, t_steps, BATCH,
-                                 steps_list=tt.steps_per_domain(), shuffle=False)
+    tdn, _ = fused.make_fused_mamdr(tt.train_step_fn(), ts.mask, "plus", t_steps, BATCH,
+                                    steps_list=tt.steps_per_domain(), shuffle=False)
     shared0 = ts.shared
     tstate, tshared, tlosses = tdn(tt.state, ts.shared, tblock, order, tt.gen, 0.1)
 

@@ -7,6 +7,12 @@ the port's ``make_fast_loss_grad`` against ``maybe_make_fast_loss_grad``
 package's own CPU bound for this kernel, tests/test_fused_mlp_step.py):
 both run float32 matmuls, summed in different orders.
 
+The lane-batched plain version (``tower_grad_reference_lanes``, what K1 with a
+lane axis is held to): lane l bit-equal to the single-lane plain version and
+within the same tolerance of the Pallas kernel run per lane, with a partial
+and an all-pad lane in one call; two lanes at the same step get different
+dropout masks (``lane_seeds``).
+
 Kernel K1 against the plain version on the card: test_torch_kernels_gpu.py.
 """
 
@@ -24,11 +30,15 @@ from mamdr_tpu.train.steps import StepConfig as JStepConfig
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.convert import params_from_jax
 from mamdr_tpu_torch.models.zoo import build_model
+from mamdr_tpu_torch.ops.fast_random import dropout_mask, lane_seeds, step_seeds
 from mamdr_tpu_torch.ops.fused_mlp_step import (
+    fused_tower_grad_lanes,
     make_fast_loss_grad,
+    tower_forward_reference,
     tower_grad_reference,
 )
 from mamdr_tpu_torch.train.steps import StepConfig
+from mamdr_tpu_torch.utils.kernel_check import relu_flip_rows
 from mamdr_tpu_torch.utils import trees
 
 RTOL, ATOL = 2e-5, 1e-7
@@ -152,3 +162,88 @@ def test_fast_loss_grad_matches_jax(emb_trainable, dropout):
                                    rtol=RTOL, atol=ATOL, err_msg=name)
         checked += 1
     assert checked == (8 if emb_trainable else 6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_lane_batched_reference(rate):
+    """Lanes 0..3: mixed, partial, all-pad, mixed; each with its own weights,
+    data and seeds. On CPU tensors fused_tower_grad_lanes is the plain
+    lane-batched version."""
+    dims = (24, 32, 16)
+    per = [tower_inputs(dims, 32, seed=l, partial=l == 1, all_pad=l == 2) for l in range(4)]
+    for l, p in enumerate(per):  # distinct seeds per lane
+        p[3][:] = (p[3].astype(np.uint64) + 1000 * l).astype(np.uint32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    stack = lambda i: t(np.stack([p[i] for p in per]))
+    dense = tuple(t(np.stack([p[4][i] for p in per])) for i in range(len(per[0][4])))
+    seeds = t(np.stack([p[3] for p in per]).astype(np.int64))
+    loss, dx, grads = fused_tower_grad_lanes(stack(0), stack(1), stack(2), seeds, dense,
+                                             dims, rate)
+    assert loss.shape == (4,) and dx.shape == (4, 32, 24)
+    assert [g.shape for g in grads] == [d.shape for d in dense]
+    for l, p in enumerate(per):
+        l1, dx1, g1 = run_port_tower(tower_grad_reference, *p, dims, rate)
+        assert loss[l].item() == l1  # bit-equal to the single-lane plain version
+        np.testing.assert_array_equal(dx[l].numpy(), dx1)
+        for a, b in zip(grads, g1):
+            np.testing.assert_array_equal(a[l].numpy(), b)
+        lj, dxj, gj = run_jax_tower(*p, dims, rate)  # the Pallas kernel, this lane
+        np.testing.assert_allclose(loss[l].item(), lj, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(dx[l].numpy(), dxj, rtol=RTOL, atol=ATOL)
+        for a, b in zip(grads, gj):
+            np.testing.assert_allclose(a[l].numpy(), b.reshape(a[l].shape), rtol=RTOL,
+                                       atol=ATOL)
+    assert loss[2].item() == 0.0 and not dx[2].any() and not any(g[2].any() for g in grads)
+
+
+def test_lanes_at_the_same_step_get_different_masks():
+    base = lane_seeds(0xC0FFEE, 3, "cpu")
+    assert len(set(base.tolist())) == 3 and int(base.max()) < 2**32 and int(base.min()) >= 0
+    step = torch.full((3,), 7, dtype=torch.int32)
+    seeds = step_seeds(base, step, n_layers=2)
+    assert seeds.shape == (3, 2)
+    for l in range(3):  # lane l's seeds are the single-lane seeds from its base
+        assert torch.equal(seeds[l], step_seeds(int(base[l]), step[l], 2))
+    masks = [dropout_mask(seeds[l, 0], 0.5, (32, 16)) for l in range(3)]
+    assert not torch.equal(masks[0], masks[1]) and not torch.equal(masks[1], masks[2])
+    # a lane's stream is not the un-laned stream of the same base seed
+    assert not torch.equal(seeds[0], step_seeds(0xC0FFEE, step[0], 2))
+
+
+def test_relu_edge_units_are_found_and_a_wrong_preactivation_refused():
+    """relu_flip_rows: what a card check uses to hold kernel K1 to the
+    independent plain version. Two evaluations whose z differ only by
+    rounding at 0 give the rows of those units and their count; a sign
+    difference away from 0 raises. With those rows' weights 0 the step's
+    gradients do not depend on which way the units fall."""
+    dims = (24, 16)
+    x, label, weight, seeds, dense = tower_inputs(dims, 32)
+    t = torch.from_numpy
+    args = (t(x), t(seeds.astype(np.int64)), tuple(t(a) for a in dense), dims, 0.5)
+    zs = tower_forward_reference(*args)[0]
+    assert len(zs) == 1 and zs[0].shape == (32, 16)
+    assert torch.equal(zs[0], t(x) @ t(dense[0]) + t(dense[1]))
+    rows, count = relu_flip_rows(zs, zs)
+    assert count == 0 and rows.shape == (32,) and not rows.any()
+    other = zs[0].clone()
+    scale = float(zs[0].abs().max())
+    other[3, 5] = -1e-7 * scale if zs[0][3, 5] > 0 else 1e-7 * scale
+    other[9, 0] = -1e-7 * scale if zs[0][9, 0] > 0 else 1e-7 * scale
+    nudged = zs[0].clone()
+    nudged[3, 5], nudged[9, 0] = -other[3, 5], -other[9, 0]
+    rows, count = relu_flip_rows([nudged], [other])
+    assert count == 2 and rows.nonzero().flatten().tolist() == [3, 9]
+    lanes_rows, lanes_count = relu_flip_rows([torch.stack([nudged, zs[0]])],
+                                             [torch.stack([other, zs[0]])])
+    assert lanes_count == 2 and lanes_rows.shape == (2, 32) and not lanes_rows[1].any()
+    with pytest.raises(ValueError, match="not within rounding"):
+        relu_flip_rows(zs, [-zs[0]])
+    # rows set aside carry no gradient: flip a unit of row 3 by hand
+    w0 = torch.where(rows, 0.0, t(weight))
+    run = lambda xx: tower_grad_reference(xx, t(label), w0, args[1], args[2], dims, 0.5)
+    x2 = t(x).clone()
+    x2[3] += 0.5  # moves row 3's units across 0; no other row changes
+    (l1, dx1, g1), (l2, dx2, g2) = run(t(x)), run(x2)
+    keep = ~rows
+    assert torch.equal(dx1[keep], dx2[keep]) and not dx2[3].any()
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))

@@ -6,18 +6,34 @@ that has only PyTorch (the repo's conftest imports JAX; skip it there):
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
-Matmuls of the plain versions run in full float32 (TF32 off).
+Matmuls of the plain versions run in full float32 (TF32 off). K1 is held to
+its plain version by ``kernel_check.k1_vs_plain``: the plain version is
+independent of the kernel, and rows holding a ReLU unit that the two put on
+different sides of 0 (within rounding of 0, else it raises) are set aside.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mamdr_tpu_torch.config import ExperimentConfig
+from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
 from mamdr_tpu_torch.ops.embedding_lookup import (
     embedding_lookup,
     embedding_lookup_reference,
+    gather_rows_pipelined,
 )
-from mamdr_tpu_torch.ops.fused_mlp_step import fused_tower_grad, tower_grad_reference
+from mamdr_tpu_torch.ops.fused_mlp_step import (
+    fused_tower_grad,
+    fused_tower_grad_lanes,
+    table_rows,
+    tower_grad_reference,
+    tower_grad_reference_lanes,
+)
+from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
+from mamdr_tpu_torch.train.trainer import Trainer
+from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils.kernel_check import k1_vs_plain
 
 K1_REL_TOL = 1e-4  # of each output's largest magnitude: float32 sums over
                    # up to 1024 rows, taken in another order
@@ -63,15 +79,10 @@ def test_tower_kernel_matches_plain(cuda_device, rate, case, dims, batch):
     cut through every tile."""
     args = _tower_inputs(dims, batch, case, cuda_device)
     before = fused_tower_grad.launches
-    lk, dxk, gk = fused_tower_grad(*args, dims, rate)
-    assert fused_tower_grad.launches == before + 1
-    lp, dxp, gp = tower_grad_reference(*args, dims, rate)
-    torch.cuda.synchronize()
-    assert len(gk) == len(gp) == 2 * (len(dims) - 1) + 1
-    for a, b in [(lk, lp), (dxk, dxp), *zip(gk, gp)]:
-        assert a.shape == b.shape
-        scale = max(float(b.abs().max()), 1e-30)
-        assert float((a - b).abs().max()) <= K1_REL_TOL * scale
+    r = k1_vs_plain(fused_tower_grad, tower_grad_reference, *args, dims, rate, K1_REL_TOL)
+    assert fused_tower_grad.launches == before + 1 + bool(r["flips"])
+    lk, dxk, gk = r["out"]
+    assert len(gk) == 2 * (len(dims) - 1) + 1
     # no atomics: a second call gives the same bits
     lk2, dxk2, gk2 = fused_tower_grad(*args, dims, rate)
     for a, b in [(lk, lk2), (dxk, dxk2), *zip(gk, gk2)]:
@@ -95,3 +106,155 @@ def test_gather_kernel_matches_plain(cuda_device):
         embedding_lookup(table, ids.long())  # the kernel takes int32 ids only
     with pytest.raises(ValueError):
         embedding_lookup(table[:, :6].contiguous(), ids)  # D % 4 != 0
+
+
+@pytest.mark.gpu
+def test_gather_kernel_at_the_lane_steps_shapes(cuda_device):
+    """K2 with 30 lanes x 1024 ids in one launch, built as the lane step
+    builds them: the shared table, and a lane-stacked domain table as its
+    [L*N, D] view with every lane's own out-of-range ids. Exact."""
+    rng = np.random.default_rng(1)
+    lanes, b, d = 30, 1024, 128
+    for n, stacked in ((100_000, False), (30, True)):
+        shape = (lanes, n, d) if stacked else (n, d)
+        table = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda_device)
+        ids_np = rng.integers(0, n, (lanes, b)).astype(np.int32)
+        ids_np[:, :5] = [-1, -(2**31), n, n + 1, 2**31 - 1]
+        ids = torch.from_numpy(ids_np).to(cuda_device)
+        before = embedding_lookup.launches
+        rows, flat = table_rows(table, ids, embedding_lookup)
+        assert embedding_lookup.launches == before + 1 and flat.numel() == lanes * b
+        clipped = ids.long().clamp(0, n - 1)
+        alone = (table[torch.arange(lanes, device=cuda_device)[:, None], clipped]
+                 if stacked else table[clipped])
+        assert torch.equal(rows, alone)
+        assert torch.equal(rows, table_rows(table, ids, embedding_lookup_reference)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("dims,batch,lanes", [((384, 256, 128, 64), 1024, 30),
+                                              ((24, 32, 16), 37, 5)])
+def test_tower_kernel_lanes(cuda_device, rate, dims, batch, lanes):
+    """K1 with a lane axis: against the lane-batched plain version (a partial
+    and an all-pad lane in the call), lane l bit-equal to the single-lane
+    call, and the same bits from a second call."""
+    per = [_tower_inputs(dims, batch, {1: "partial", 2: "all_pad"}.get(l, "mixed"),
+                         cuda_device, seed=l) for l in range(lanes)]
+    x, label, weight = (torch.stack([p[i] for p in per]) for i in range(3))
+    dense = tuple(torch.stack([p[4][i] for p in per]) for i in range(len(per[0][4])))
+    seeds = torch.stack([p[3] + 1000 * l for l, p in enumerate(per)])
+    before = fused_tower_grad_lanes.launches
+    r = k1_vs_plain(fused_tower_grad_lanes, tower_grad_reference_lanes,
+                    x, label, weight, seeds, dense, dims, rate, K1_REL_TOL)
+    assert fused_tower_grad_lanes.launches == before + 1 + bool(r["flips"])
+    lk, dxk, gk = r["out"]
+    assert float(lk[2]) == 0.0 and not bool(dxk[2].any())
+    for l in range(lanes):
+        l1, dx1, g1 = fused_tower_grad(x[l], label[l], weight[l], seeds[l],
+                                       tuple(t[l] for t in dense), dims, rate)
+        assert torch.equal(l1, lk[l]) and torch.equal(dx1, dxk[l])
+        assert all(torch.equal(a, b[l]) for a, b in zip(g1, gk))
+    lk2, dxk2, gk2 = fused_tower_grad_lanes(x, label, weight, seeds, dense, dims, rate)
+    assert torch.equal(lk, lk2) and torch.equal(dxk, dxk2)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk2))
+
+
+@pytest.mark.gpu
+def test_ring_gather_kernel(cuda_device):
+    """K3 exact against K2 and the plain version for k 32 and 128 (and odd
+    depths and sizes); a ring that does not fit shared memory raises."""
+    rng = np.random.default_rng(0)
+    n, d, b = 100_000, 128, 1024
+    table = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32)).to(cuda_device)
+    ids_np = rng.integers(0, n, b).astype(np.int32)
+    ids_np[:4] = [-1, n, -(2**31), 2**31 - 1]
+    ids = torch.from_numpy(ids_np).to(cuda_device)
+    want = embedding_lookup(table, ids)
+    assert torch.equal(want, embedding_lookup_reference(table, ids))
+    for k in (32, 128, 1, 5, 300):
+        before = gather_rows_pipelined.launches
+        got = gather_rows_pipelined(table, ids, k=k)
+        torch.cuda.synchronize()
+        assert gather_rows_pipelined.launches == before + 1
+        assert torch.equal(got, want), k
+    for rows in (1, 7, 129, 1000):  # ragged last block, k = min(k, B)
+        assert torch.equal(gather_rows_pipelined(table, ids[:rows], k=32), want[:rows])
+    small = table[:50, :8].contiguous()
+    assert torch.equal(gather_rows_pipelined(small, ids[:100], k=16),
+                       embedding_lookup_reference(small, ids[:100]))
+    with pytest.raises(ValueError, match="shared memory"):
+        gather_rows_pipelined(table, ids, k=1024)  # 512 KB of ring
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_mixed_devices_and_wrong_types(cuda_device):
+    dims, batch = (24, 32, 16), 8
+    x, label, weight, seeds, dense = _tower_inputs(dims, batch, "mixed", cuda_device)
+    lane = lambda t: t[None].contiguous()
+    lanes_args = (lane(x), lane(label), lane(weight), lane(seeds), tuple(lane(t) for t in dense))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_tower_grad(x, label.cpu(), weight, seeds, dense, dims, 0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_tower_grad_lanes(lanes_args[0], lanes_args[1], lanes_args[2], lanes_args[3],
+                               (lanes_args[4][0].cpu(), *lanes_args[4][1:]), dims, 0.0)
+    with pytest.raises(ValueError, match="float32"):
+        fused_tower_grad_lanes(lanes_args[0].double(), *lanes_args[1:], dims, 0.0)
+    with pytest.raises(ValueError, match="lanes"):
+        fused_tower_grad_lanes(*lanes_args[:4], tuple(t[0] for t in lanes_args[4]), dims, 0.0)
+    table = torch.zeros((10, 8), device=cuda_device)
+    ids = torch.zeros((4,), dtype=torch.int32, device=cuda_device)
+    for gather in (embedding_lookup, gather_rows_pipelined):
+        with pytest.raises(ValueError, match="CUDA"):
+            gather(table, ids.cpu())
+        with pytest.raises(ValueError, match="int32"):
+            gather(table, ids.long())
+        with pytest.raises(ValueError, match="float32"):
+            gather(table.half(), ids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dr_parallel", ["off", "on"])
+@pytest.mark.parametrize("emb_trainable", [False, True])
+def test_epoch_on_the_card_small(cuda_device, dr_parallel, emb_trainable):
+    """One whole epoch at a small size through the kernels: the sequential
+    dr_phase through single-lane K1, the lanes through K1-lanes, with frozen
+    (shared) and trainable (lane-stacked) tables; launch counts, finite
+    results, every specific updated."""
+    cfg = ExperimentConfig.from_dict({
+        "model": {"name": "mlp_meta_mamdr_finetune", "user_dim": 8, "item_dim": 8,
+                  "domain_dim": 8, "hidden_dim": [32, 16], "dropout": 0.5},
+        "train": {"load_pretrain_emb": True, "emb_trainable": emb_trainable,
+                  "sample_num": 2, "meta_learning_rate": 0.1, "dr_parallel": dr_parallel},
+        "dataset": {"name": "synthetic", "batch_size": 32, "seed": 5},
+    })
+    ds = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=300, seed=5,
+                                long_tail=True, batch_size=32)
+    rng = np.random.default_rng(0)
+    ds.user_emb = rng.normal(0, 0.1, (50, 8)).astype(np.float32)
+    ds.item_emb = rng.normal(0, 0.1, (60, 8)).astype(np.float32)
+    trainer = Trainer(cfg, ds)  # no device named: the card
+    strat = MAMDRStrategy(trainer)
+    strat.prepare_fused()
+    assert strat.dr_lanes == (dr_parallel == "on")
+    spec0 = list(strat.specific)
+    fused_tower_grad.launches = fused_tower_grad_lanes.launches = 0
+    losses = strat.run_fused_epoch()
+    torch.cuda.synchronize()
+    spd = trainer.steps_per_domain()
+    dn_steps = sum(spd)
+    if strat.dr_lanes:
+        lane_steps = sum(max(spd[s] for s in strat.aux[:, j]) + max(spd)
+                         for j in range(strat.aux.shape[1]))
+        assert fused_tower_grad.launches == dn_steps
+        assert fused_tower_grad_lanes.launches == lane_steps
+    else:
+        dr_steps = sum(spd[s] + spd[q] for q, row in zip(strat.order, strat.aux) for s in row)
+        assert fused_tower_grad.launches == dn_steps + dr_steps
+        assert fused_tower_grad_lanes.launches == 0
+        assert int(trainer.state.step) == dn_steps + dr_steps
+    assert np.all(np.isfinite(losses))
+    for new, old in zip(strat.specific, spec0):
+        for m, a, b in zip(trees.leaves(strat.mask), trees.leaves(new), trees.leaves(old)):
+            if m:
+                assert bool(torch.isfinite(a).all()) and not torch.equal(a, b)

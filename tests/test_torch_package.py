@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import mamdr_tpu_torch
-from mamdr_tpu_torch import resolve_device
+from mamdr_tpu_torch import probe_gather, resolve_device
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
 from mamdr_tpu_torch.train.trainer import Trainer
@@ -46,6 +46,7 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     paths = list(_port_sources())
     assert len(paths) > 15 and os.path.exists(paths[-1])
+    assert any(p.endswith(os.path.join("mamdr_tpu_torch", "probe_gather.py")) for p in paths)
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -66,4 +67,6 @@ def test_entry_points_need_the_card_unless_told_cpu():
                                 batch_size=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg, ds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe_gather.run()  # the gather probe measures the card: no CPU route
     assert Trainer(cfg, ds, device="cpu").device == torch.device("cpu")

@@ -12,6 +12,11 @@
   mu 1e-8 against gradients of order 1e-3, and params 1e-5 = lr/1000 —
   Adam divides by sqrt(nu), so a table row whose gradient is almost only
   its l2 term still takes a step of order lr, steered by the last bits.
+- the subset lane step (``make_subset_train_step``: lane-stacked trainable
+  state, frozen tables shared) vs the JAX ``make_subset_train_step`` under
+  ``jax.vmap`` over 3 lanes, each with its own weights and batches; the
+  per-lane all-pad gate leaves that lane's params, slots and step exactly as
+  they were while the other lanes move. Same tolerances.
 """
 
 import jax
@@ -26,13 +31,20 @@ from mamdr_tpu.train.flat_optimizer import flat_adam as jax_flat_adam
 from mamdr_tpu.train.state import TrainState as JState
 from mamdr_tpu.train.steps import StepConfig as JStepConfig
 from mamdr_tpu.train.steps import make_optimizer as jax_make_optimizer
+from mamdr_tpu.train.steps import make_subset_train_step as jax_make_subset_train_step
 from mamdr_tpu.train.steps import make_train_step as jax_make_train_step
+from mamdr_tpu.utils import trees as jtrees
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.convert import params_from_jax
 from mamdr_tpu_torch.models.zoo import build_model
 from mamdr_tpu_torch.train.flat_optimizer import apply_updates, flat_adam
 from mamdr_tpu_torch.train.state import TrainState
-from mamdr_tpu_torch.train.steps import StepConfig, make_optimizer, make_train_step
+from mamdr_tpu_torch.train.steps import (
+    StepConfig,
+    make_optimizer,
+    make_subset_train_step,
+    make_train_step,
+)
 from mamdr_tpu_torch.utils import trees
 
 
@@ -134,3 +146,86 @@ def test_train_steps_match_jax_and_all_pad_gate(emb_trainable):
     for name, leaf in trees.leaves_with_names(ts.params):
         np.testing.assert_allclose(leaf.numpy(), np.asarray(jnamed[name]),
                                    rtol=2e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("emb_trainable", [False, True])
+def test_subset_lane_step_matches_jax_vmap(emb_trainable):
+    d = {
+        "model": {"name": "mlp", "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                  "hidden_dim": [32, 16], "dropout": 0.0},
+        "train": {"emb_trainable": emb_trainable, "learning_rate": 1e-2},
+        "dataset": {"name": "synthetic"},
+    }
+    n_uid, n_pid, n_dom, batch, lanes = 50, 60, 3, 32, 3
+    rng = np.random.default_rng(0)
+    # steps x lanes batches; step 1 is all-pad in lane 1 only; one batch holds
+    # out-of-range domain ids, which clip per lane
+    steps = [[_batch(rng, n_uid, n_pid, batch, l, all_pad=(s == 1 and l == 1))
+              for l in range(lanes)] for s in range(3)]
+    steps[2][0]["domain"][:4] = [-3, 7, n_dom, 2**31 - 1]
+    stacked = [{k: np.stack([b[k] for b in row]) for k in row[0]} for row in steps]
+
+    jmodel = jax_build_model(JConfig.from_dict(d), n_uid, n_pid, n_dom)
+    jb0 = {k: jnp.asarray(v) for k, v in steps[0][0].items()}
+    jparams = {"model": jmodel.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(0)},
+        jb0["uid"], jb0["pid"], jb0["domain"], train=False)["params"]}
+    frozen = jtrees.named_tree_map(
+        lambda n, x: (not emb_trainable) and ("user_emb" in n or "item_emb" in n), jparams)
+    jtx = jax_make_optimizer("adam", 1e-2, jparams, emb_trainable, flat=True)
+    jstep, jto_sub, jcombine = jax_make_subset_train_step(
+        jmodel, jtx, JStepConfig(l2_emb=1e-5, emb_trainable=emb_trainable), frozen, jparams)
+    # lane l's trainable weights: the initial ones scaled by (1 + l/10)
+    lane_scale = np.asarray([1.0, 1.1, 1.2], np.float32)
+    jsub = jax.tree_util.tree_map(
+        lambda f, x: jnp.zeros((lanes,), x.dtype) if f
+        else x[None] * lane_scale.reshape(-1, *([1] * x.ndim)), frozen, jparams)
+    jopt = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (lanes,) + x.shape),
+                                  jtx.init(jparams))
+    js = JState(params=jsub, opt_state=jopt, batch_stats={},
+                rng=jax.random.split(jax.random.PRNGKey(1), lanes),
+                step=jnp.zeros((lanes,), jnp.int32))
+    jvstep = jax.jit(jax.vmap(jstep))
+
+    tmodel = build_model(ExperimentConfig.from_dict(d), n_uid, n_pid, n_dom)
+    tfull = params_from_jax(jax.device_get(jparams))
+    tfrozen = trees.tree_map(bool, jax.device_get(frozen))
+    ttx = make_optimizer("adam", 1e-2, tfull, emb_trainable, flat=True)
+    tstep, to_sub, combine = make_subset_train_step(
+        tmodel, ttx, StepConfig(1e-5, emb_trainable), tfrozen, tfull)
+    tsub = trees.tree_map(
+        lambda f, x: x if f else x[None] * torch.from_numpy(lane_scale).reshape(
+            -1, *([1] * x.dim())), tfrozen, to_sub(tfull))
+    opt0 = ttx.init(tfull)
+    ts = TrainState(params=tsub, seed=torch.arange(lanes),
+                    opt_state=type(opt0)(*(x.expand(lanes, *x.shape) for x in opt0)),
+                    step=torch.zeros((lanes,), dtype=torch.int32))
+    if not emb_trainable:  # placeholders in, the one shared table out
+        assert tsub["model"]["embedding"]["user_emb"].dim() == 0
+        assert (combine(tsub)["model"]["embedding"]["user_emb"]
+                is tfull["model"]["embedding"]["user_emb"])
+
+    for i, b in enumerate(stacked):
+        js, jl = jvstep(js, {k: jnp.asarray(v) for k, v in b.items()})
+        before = ts
+        ts, tl = tstep(ts, {k: torch.from_numpy(v) for k, v in b.items()})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-5, atol=1e-7)
+        if i == 1:  # lane 1 saw an all-pad batch: an exact no-op there only
+            assert ts.step.tolist() == [2, 1, 2]
+            for a, b_ in zip(trees.leaves(ts.params), trees.leaves(before.params)):
+                if a.dim() > 0:
+                    assert torch.equal(a[1], b_[1]) and not torch.equal(a[0], b_[0])
+            for a, b_ in zip(ts.opt_state, before.opt_state):
+                assert torch.equal(a[1], b_[1]) and not torch.equal(a[2], b_[2])
+    assert ts.step.tolist() == np.asarray(js.step).tolist() == [3, 2, 3]
+    assert ts.opt_state.count.tolist() == np.asarray(js.opt_state.count).tolist()
+    np.testing.assert_allclose(ts.opt_state.mu.numpy(), np.asarray(js.opt_state.mu),
+                               rtol=2e-5, atol=1e-8)
+    np.testing.assert_allclose(ts.opt_state.nu.numpy(), np.asarray(js.opt_state.nu),
+                               rtol=2e-5, atol=1e-12)
+    jnamed = dict(zip(trees.param_names(jax.device_get(js.params)),
+                      jax.tree_util.tree_leaves(js.params)))
+    for name, leaf in trees.leaves_with_names(ts.params):
+        if leaf.dim() > 0:
+            np.testing.assert_allclose(leaf.numpy(), np.asarray(jnamed[name]),
+                                       rtol=2e-5, atol=1e-5, err_msg=name)
