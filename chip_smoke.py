@@ -11,7 +11,9 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      nvcc -Xptxas -v register / shared-memory use per kernel);
   3. kernel K1 (fused MLP tower step) against its plain PyTorch version at
      the main path's shapes — dropout 0.5, dropout 0, a partial batch, an
-     all-pad batch — and its time beside the plain version's; then K1 over
+     all-pad batch — then at a batch that is no multiple of its row slab and
+     at narrow dims that cut through every tile, the CUDA launches one call
+     issues, and its time beside the plain version's; then K1 over
      30 lanes (the DR phase's shape) against the lane-batched plain version
      (independent of the kernel: ReLU units whose pre-activation the two put
      on different sides of 0 are counted and their rows set aside),
@@ -22,9 +24,11 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      and torch.nn.functional.embedding's (a yardstick the port never calls);
      the same at the DR lane-step's shapes (30720 ids flattened over 30
      lanes, on the shared table and on a lane-stacked domain table);
-     kernel K3 (the ring gather) exact against both at k 32 and k 128, its
-     time, and the gather probe (mamdr_tpu_torch.probe_gather), the one path
-     that runs K3, with K3's launches on it;
+     kernel K3 (the ring gather) exact against both at k 32 and k 128, at
+     1024 ids and at 30720 ids (where a block's ring turns) with ids out of
+     range, and at a k larger than a block's rows; its time at both sizes,
+     and the gather probe (mamdr_tpu_torch.probe_gather), the one path that
+     runs K3, with K3's launches on it at each depth and size;
   5. the slice: Trainer + MAMDRStrategy at bench.py's shapes (30 domains,
      100k users and items, frozen 128-d tables, MLP 384-256-128-64-1,
      dropout 0.5, batch 1024, flat Adam): one train step through the kernels
@@ -53,7 +57,12 @@ import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet, at the full 700 W limit)
 FP32_FLOPS = 67e12   # float32 outside the tensor cores
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
 HBM_BYTES = 3.35e12  # bytes/s
+# Kernel K1 and K3 as they were before their redesign for this card (K1 a
+# chain of 24 launches of float32 SIMT products, K3 one ring per block of
+# 4k rows), timed by this script on an NVIDIA H100 80GB HBM3 at 700 W:
+EARLIER_US = {"K1 one lane": 129.2, "K1 30 lanes": 1680.3, "K3 k 32": 12.12, "K3 k 128": 17.33}
 K1_REL_TOL = 1e-4    # of each output's largest magnitude (float32 sums over
                      # up to 1024 rows, taken in another order)
 
@@ -75,10 +84,13 @@ def main() -> int:
         embedding_lookup,
         embedding_lookup_reference,
         gather_rows_pipelined,
+        ring_plan,
     )
     from mamdr_tpu_torch.ops.fused_mlp_step import (
         fused_tower_grad,
         fused_tower_grad_lanes,
+        k1_cuda_launches,
+        k1_launch_plan,
         make_fast_loss_grad,
         table_rows,
         tower_grad_reference,
@@ -121,7 +133,7 @@ def main() -> int:
     batch = 1024
     rng = np.random.default_rng(0)
 
-    def tower_inputs(case):
+    def tower_inputs(case, dims=dims, batch=batch):
         x = torch.from_numpy(rng.normal(0, 0.1, (batch, dims[0])).astype(np.float32)).to(dev)
         label = torch.from_numpy(rng.integers(0, 2, batch).astype(np.float32)).to(dev)
         w = np.ones(batch, np.float32)
@@ -137,7 +149,8 @@ def main() -> int:
             dense.append(rng.normal(0, 0.05, dims[i + 1]).astype(np.float32))
         dense.append(rng.normal(0, 0.2, (dims[-1], 1)).astype(np.float32))
         dense = tuple(torch.from_numpy(a).to(dev) for a in dense)
-        seeds = torch.tensor([0xDEADBEEF, 12345, 2**31 + 7], dtype=torch.int64, device=dev)
+        seeds = torch.tensor([0xDEADBEEF, 12345, 2**31 + 7][: len(dims) - 1],
+                             dtype=torch.int64, device=dev)
         return x, label, weight, seeds, dense
 
     # The plain version is independent of the kernel. Where the two take a
@@ -156,7 +169,21 @@ def main() -> int:
         k1_err, k1_flips = max(k1_err, r["err"]), k1_flips + r["flips"]
         print(f"K1 fused_tower_grad vs plain [{case}, rate {rate}]: loss "
               f"{float(r['out'][0]):.6f}, {report(r)}")
+    # a batch that is no multiple of the row slab (its last slab ragged), and
+    # narrow dims whose edges cut through every tile of both launches
+    for d, b in ((dims, 1000), ((24, 32, 16), 32)):
+        for rate in (0.5, 0.0):
+            r = k1_vs_plain(fused_tower_grad, tower_grad_reference,
+                            *tower_inputs("mixed", d, b), d, rate, K1_REL_TOL)
+            k1_err, k1_flips = max(k1_err, r["err"]), k1_flips + r["flips"]
+            print(f"K1 fused_tower_grad vs plain [dims {'-'.join(map(str, d))}, B {b}, rate "
+                  f"{rate}; slabs of {k1_launch_plan(d, b, 1).slab_rows} rows]: {report(r)}")
     args = tower_inputs("mixed")
+    before = k1_cuda_launches()
+    fused_tower_grad(*args, dims, 0.5)
+    k1_cuda = k1_cuda_launches() - before
+    if not 1 <= k1_cuda <= 4 or k1_cuda != k1_launch_plan(dims, batch, 1).launches:
+        fail(f"one K1 call issued {k1_cuda} CUDA launches")
     k1_ms = device_ms(lambda: fused_tower_grad(*args, dims, 0.5))
     k1_plain_ms = device_ms(lambda: tower_grad_reference(*args, dims, 0.5))
     k1_eager_ms = eager_ms(lambda: fused_tower_grad(*args, dims, 0.5))
@@ -164,11 +191,17 @@ def main() -> int:
     n_par = sum_mn + sum(dims[1:]) + dims[-1]
     k1_flops = 6 * batch * sum_mn + 4 * batch * dims[-1]
     k1_bytes = 4 * (2 * batch * dims[0] + 2 * batch + len(dims) - 1 + 2 * n_par + 1)
-    k1_bound = max(k1_flops / FP32_FLOPS, k1_bytes / HBM_BYTES) * 1e3
-    print(f"K1 time: {k1_ms * 1e3:.1f} us/call on the device (CUDA graph), "
-          f"{k1_eager_ms * 1e3:.1f} us/call issued eagerly; plain {k1_plain_ms * 1e3:.1f} us; "
-          f"bound {k1_bound * 1e3:.2f} us ({k1_flops / 1e9:.3f} GFLOP, "
-          f"{k1_bytes / 1e6:.2f} MB); {card}")
+    # K1's products run on the tensor cores as three TF32 products each
+    k1_bound = max(3 * k1_flops / TF32_FLOPS, k1_bytes / HBM_BYTES) * 1e3
+    k1_simt_bound = k1_flops / FP32_FLOPS * 1e3
+    print(f"K1 time: {k1_ms * 1e3:.1f} us/call on the device (CUDA graph) in {k1_cuda} CUDA "
+          f"launches, {k1_eager_ms * 1e3:.1f} us/call issued eagerly; plain "
+          f"{k1_plain_ms * 1e3:.1f} us; bound {k1_bound * 1e3:.2f} us ({k1_flops / 1e9:.3f} "
+          f"GFLOP as 3 TF32 products at {TF32_FLOPS / 1e12:.0f} TFLOP/s; {k1_bytes / 1e6:.2f} "
+          f"MB; {k1_simt_bound * 1e3:.2f} us at the float32 rate outside the tensor cores); "
+          f"{card}")
+    print(f"K1 one lane, before and after its redesign: {EARLIER_US['K1 one lane']:.1f} us "
+          f"(recorded, 24 launches) -> {k1_ms * 1e3:.1f} us ({k1_cuda} launches); {card}")
 
     # ---- 3b. K1 over 30 lanes (the DR phase's shape) ----
     lanes = 30
@@ -205,12 +238,21 @@ def main() -> int:
     k1l_ms = device_ms(lambda: fused_tower_grad_lanes(*args, dims, 0.5), inner=5)
     k1l_plain_ms = device_ms(lambda: tower_grad_reference_lanes(*args, dims, 0.5), inner=2)
     k1l_eager_ms = eager_ms(lambda: fused_tower_grad_lanes(*args, dims, 0.5), iters=20)
+    before = k1_cuda_launches()
+    fused_tower_grad_lanes(*args, dims, 0.5)
+    k1l_cuda = k1_cuda_launches() - before
+    if not 1 <= k1l_cuda <= 4:
+        fail(f"one K1-lanes call issued {k1l_cuda} CUDA launches")
     k1l_bound = lanes * k1_bound
-    print(f"K1 lanes time: {k1l_ms * 1e3:.1f} us/call on the device (CUDA graph), "
-          f"{k1l_eager_ms * 1e3:.1f} us/call launched eagerly "
+    print(f"K1 lanes time: {k1l_ms * 1e3:.1f} us/call on the device (CUDA graph) in "
+          f"{k1l_cuda} CUDA launches, {k1l_eager_ms * 1e3:.1f} us/call launched eagerly "
           f"({k1l_ms / lanes * 1e3:.1f} us a lane; single-lane K1 {k1_ms * 1e3:.1f} us); "
           f"plain {k1l_plain_ms * 1e3:.1f} us; bound {k1l_bound * 1e3:.1f} us "
-          f"({lanes * k1_flops / 1e9:.2f} GFLOP, {lanes * k1_bytes / 1e6:.1f} MB); {card}")
+          f"({lanes * k1_flops / 1e9:.2f} GFLOP as 3 TF32 products, "
+          f"{lanes * k1_bytes / 1e6:.1f} MB; {lanes * k1_simt_bound * 1e3:.1f} us at the "
+          f"float32 rate); {card}")
+    print(f"K1 {lanes} lanes, before and after its redesign: "
+          f"{EARLIER_US['K1 30 lanes']:.1f} us (recorded) -> {k1l_ms * 1e3:.1f} us; {card}")
     del args, lk, dxk, gk, r
 
     # ---- 4. K2 vs its plain version ----
@@ -309,35 +351,77 @@ def main() -> int:
           f"in L2), {k2l_dom_ms * 1e3:.2f} us on the {lanes * n_dom}-row view; plain "
           f"{k2l_plain_ms * 1e3:.2f} us; F.embedding {k2l_lib_ms * 1e3:.2f} us; bound "
           f"{k2l_bound * 1e3:.3f} us ({k2l_bytes / 1e6:.3f} MB); {card}")
-    del id_sets, long_sets
     del dom_stack, dom_view, rows_k, rows_p, alone
 
     # ---- 4b. K3 vs its plain version and vs K2 ----
-    k3_err = 0.0
+    # k3_err[(k, ids)]: that launch against the plain version and against K2
+    k3_err = {}
     for k in probe_gather.RING_DEPTHS:
         ring = gather_rows_pipelined(table, ids, k=k)
         torch.cuda.synchronize()
-        k3_err = max(k3_err, float((ring - want).abs().max()),
-                     float((ring - got).abs().max()))
+        k3_err[k, batch] = max(float((ring - want).abs().max()),
+                               float((ring - got).abs().max()))
     short = gather_rows_pipelined(table, ids[:5], k=32)  # k = min(k, B)
-    k3_err = max(k3_err, float((short - want[:5]).abs().max()))
-    if k3_err != 0.0:
-        fail(f"K3 differs from the plain gather or from K2: max abs err {k3_err}")
+    k3_err[32, 5] = float((short - want[:5]).abs().max())
+    # 30720 ids, 6 a lane out of range: a block owns more rows than a ring of
+    # 32 has slots, so its ring turns; and k larger than a block's rows
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big_ids = lane_ids.reshape(-1)
+    big_want = embedding_lookup_reference(table, big_ids)
+    big_k2 = embedding_lookup(table, big_ids)
+    plans = {k: ring_plan(big_ids.numel(), k, dim, sms) for k in (32, 128, 10_000)}
+    if plans[32].rows_per_block <= plans[32].slots or plans[10_000].slots >= 10_000:
+        fail(f"K3 at {big_ids.numel()} ids: the ring does not turn at k 32, or k 10000 "
+             f"was not cut to a block's rows: {plans}")
+    for k in plans:
+        ring = gather_rows_pipelined(table, big_ids, k=k)
+        torch.cuda.synchronize()
+        k3_err[k, big_ids.numel()] = max(float((ring - big_want).abs().max()),
+                                         float((ring - big_k2).abs().max()))
+    plan_1024 = ring_plan(batch, 32, dim, sms)
+    if any(k3_err.values()) or plan_1024.blocks < 64:
+        fail(f"K3 differs from the plain gather or from K2 (max abs err by (k, ids) "
+             f"{k3_err}), or its grid is too small ({plan_1024})")
+    same_1024 = len({ring_plan(batch, k, dim, sms) for k in probe_gather.RING_DEPTHS}) == 1
     print(f"K3 gather_rows_pipelined vs plain and vs K2 [k {list(probe_gather.RING_DEPTHS)}, "
-          f"the same ids; and 5 ids with k 32]: max abs err {k3_err} (tol 0)")
+          f"the same {batch} ids on {plan_1024.blocks} blocks of {plan_1024.rows_per_block} "
+          f"rows, a ring of {plan_1024.slots}"
+          f"{' at either k: one and the same launch' if same_1024 else ''}; 5 ids with k 32; "
+          f"{big_ids.numel()} ids, 6 a lane out of range or at the edge, at k 32 "
+          f"({plans[32].blocks} blocks of {plans[32].rows_per_block} rows, a ring of "
+          f"{plans[32].slots}), k 128 and k 10000 (cut to {plans[10_000].slots})]: "
+          f"max abs err {max(k3_err.values())} (tol 0)")
     k3_ms = {k: device_ms(lambda k=k: gather_rows_pipelined(table, ids, k=k), inner=50)
              for k in probe_gather.RING_DEPTHS}
-    print("K3 time: " + ", ".join(f"k {k}: {v * 1e3:.2f} us/call" for k, v in k3_ms.items())
+    print("K3 time at 1024 ids: "
+          + ", ".join(f"k {k}: {v * 1e3:.2f} us/call" for k, v in k3_ms.items())
           + f"; K2 {k2_ms * 1e3:.2f} us; F.embedding {k2_lib_ms * 1e3:.2f} us; "
           f"bound {k2_bound * 1e3:.3f} us; {card}")
+    k3l_ms = {k: device_ms(
+        lambda k=k: in_turn(lambda i: gather_rows_pipelined(table, i, k=k), id_sets), inner=48)
+        for k in probe_gather.RING_DEPTHS}
+    print(f"K3 time at {lanes * batch} ids (4 id sets in turn): "
+          + ", ".join(f"k {k}: {v * 1e3:.2f} us/call" for k, v in k3l_ms.items())
+          + f"; K2 {k2l_ms * 1e3:.2f} us; F.embedding {k2l_lib_ms * 1e3:.2f} us; "
+          f"bound {k2l_bound * 1e3:.3f} us; {card}")
+    print("K3 at 1024 ids, before and after its redesign: "
+          + ", ".join(f"k {k}: {EARLIER_US[f'K3 k {k}']:.2f} us (recorded) -> "
+                      f"{k3_ms[k] * 1e3:.2f} us" for k in probe_gather.RING_DEPTHS)
+          + f"; {card}")
+    del id_sets, long_sets, big_want, big_k2
     # K3's path is the gather probe, as in the JAX package: drive it and
-    # count K3's launches on it.
+    # count K3's launches on it, per ring depth and size.
     gather_rows_pipelined.launches = 0
     probe_rows = probe_gather.run()
-    k3_launches = gather_rows_pipelined.launches
-    if k3_launches == 0 or not all(np.isfinite(ns) and ns > 0 for _, ns in probe_rows):
-        fail(f"the gather probe launched K3 {k3_launches}x: {probe_rows}")
-    print(f"gather probe: K3 launched {k3_launches}x")
+    k3_launches = {(r.k, r.ids): r.k3_launches for r in probe_rows if r.k is not None}
+    if (min(k3_launches.values()) < 1
+            or sum(k3_launches.values()) != gather_rows_pipelined.launches
+            or set(k3_launches) != {(k, n) for k in probe_gather.RING_DEPTHS
+                                    for n in (batch, lanes * batch)}
+            or not all(np.isfinite(r.ns_per_row) and r.ns_per_row > 0 for r in probe_rows)):
+        fail(f"the gather probe launched K3 {k3_launches} (k, ids): {probe_rows}")
+    print(f"gather probe: K3 launched {gather_rows_pipelined.launches}x; by (k, ids) "
+          f"{ {f'k {k}, {n} ids': v for (k, n), v in k3_launches.items()} }")
     del table, got, want, ring
 
     # ---- 5. the slice at bench.py's shapes ----
@@ -559,12 +643,23 @@ def main() -> int:
          "launches": k2_dr_launches, "max_abs_err": k2l_err,
          "ms": k2l_ms, "plain_ms": k2l_plain_ms, "bound_ms": k2l_bound,
          "bound_by": "bytes", "library_ms": k2l_lib_ms},
-        {"name": "gather_rows_pipelined", "route": "cuda",
-         "source": "mamdr_tpu_torch/csrc/gather_rows_pipelined.cu",
-         "replaces": "mamdr_tpu/ops/embedding_lookup.py:103",
-         "launches": k3_launches, "max_abs_err": k3_err,
-         "ms": k3_ms[32], "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": "bytes", "library_ms": k2_lib_ms},
+        # K3's path is the gather probe, which runs it at both sizes: each
+        # entry has the launches the probe counted at its depth and size, and
+        # the error of its own comparison in 4b. At 1024 ids both depths plan
+        # one and the same launch (a block owns fewer rows than either k).
+        *[{"name": f"gather_rows_pipelined (k {k}, {batch} ids)", "route": "cuda",
+           "source": "mamdr_tpu_torch/csrc/gather_rows_pipelined.cu",
+           "replaces": "mamdr_tpu/ops/embedding_lookup.py:103",
+           "launches": k3_launches[k, batch], "max_abs_err": k3_err[k, batch],
+           "ms": k3_ms[k], "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+           "bound_by": "bytes", "library_ms": k2_lib_ms} for k in probe_gather.RING_DEPTHS],
+        *[{"name": f"gather_rows_pipelined (k {k}, {lanes * batch} ids)", "route": "cuda",
+           "source": "mamdr_tpu_torch/csrc/gather_rows_pipelined.cu",
+           "replaces": "mamdr_tpu/ops/embedding_lookup.py:103",
+           "launches": k3_launches[k, lanes * batch],
+           "max_abs_err": k3_err[k, lanes * batch],
+           "ms": k3l_ms[k], "plain_ms": k2l_plain_ms, "bound_ms": k2l_bound,
+           "bound_by": "bytes", "library_ms": k2l_lib_ms} for k in probe_gather.RING_DEPTHS],
     ]}))
     # ---- 7. ----
     print(json.dumps({"ok": True, "device": {

@@ -1,152 +1,178 @@
-// Kernel K3: embedding row gather through a ring of k row copies in flight.
+// Kernel K3: embedding row gather through rings of bulk row copies in flight.
 //
 //   out[b, :] = table[clamp(ids[b], 0, n_rows - 1), :]
 //
 // Replaces the Pallas kernel mamdr_tpu/ops/embedding_lookup.py:103
-// (pallas_gather_rows_pipelined, call :149): one grid step that starts k
-// HBM->VMEM row DMAs on k semaphores and then, as copy i completes,
-// re-issues copy i+k on the freed slot, the whole [B, D] output staying
-// VMEM-resident. It is a probe of the gather's cost (the rate of starting copies, or
-// the depth in flight?), run by mamdr_tpu_torch/probe_gather.py and by no
-// training path, as in the JAX package.
+// (pallas_gather_rows_pipelined, call :149): one grid step on one core that
+// starts k HBM->VMEM row DMAs on k semaphores and then, as copy i completes,
+// re-issues copy i+k on the freed slot. It is a probe of the gather's cost
+// (the rate of starting copies, or the depth in flight?), run by
+// mamdr_tpu_torch/probe_gather.py and by no training path, as in the JAX
+// package.
 //
 // Bound on an H100 SXM: bytes, as K2's: a 1024-row lookup of 128-d float32
 // rows moves about 1.05 MB, 0.31 us at 3.35 TB/s, and does no arithmetic.
+// What a gather of this size really pays is latency: a launch, an id load,
+// a row load and a row store, each dependent on the one before.
 //
-// Design. The ring is k slots of one row each in dynamic shared memory,
-// filled by asynchronous global->shared copies (cp.async, 16 bytes a
-// thread) and drained to the output in device memory: the TPU kernel's
-// VMEM-resident output (512 KB at the probe's shapes) has no counterpart in
-// 227 KB of shared memory, so the output streams out as slots complete. A
-// block owns kRounds*k consecutive rows: row i of the block lands in slot
-// i % k, and when the copy of row i has completed the slot is written out and
-// re-armed with row i + k — wait(i), start(i + k), as the Pallas loop does.
-// The slots are dealt round-robin to the block's warps (at most 32), and a
-// warp drives its slots as its own ring: each lane copies the same 16-byte
-// pieces of a row that it later reads back and stores, so a copy's
-// completion (cp.async.wait_group, which counts a thread's own copy groups)
-// is all the synchronisation the ring needs, with no barrier between warps.
-// One commit group per row keeps group i and row i aligned; past the end of
-// the block's rows the groups are empty. Unlike the Pallas kernel, which does
-// not clip (an out-of-range id is an out-of-bounds DMA there), ids are
-// clamped as K2 clamps them.
+// Design. The TPU kernel's single ring is one core's; this card has 132
+// SMs and a copy engine on each, so the ring is dealt over the card: the
+// grid has a few blocks per SM (four, as the wrapper plans it: with one,
+// 30720 ids took 24 us, with four 11), a block owns a contiguous run of rows
+// and a ring of min(k, its rows) one-row slots in dynamic shared memory,
+// each slot with its own mbarrier. k is the depth in flight PER BLOCK. The
+// copies belong to the copy engine (the counterpart of
+// pltpu.make_async_copy on a DMA semaphore): a row comes in as one
+// cp.async.bulk.shared::cluster.global copy that completes on the slot's
+// mbarrier (armed with mbarrier.arrive.expect_tx for the row's bytes), and
+// when the barrier flips the same thread sends the slot out with one
+// cp.async.bulk.global.shared::cta store to out[i]; once that store has read
+// the slot (cp.async.bulk.wait_group.read) the slot is re-armed with row
+// i + slots -- wait(i), start(i + k), as the Pallas loop does. No row passes
+// through registers. The block is a few issuing threads (kIssuers: 128);
+// thread t drives slots t, t + 128, ... as its own ring
+// (bulk groups and the waits on them are per thread), so a block's copies
+// are started side by side and no barrier between threads is needed after
+// the mbarriers are set up. Unlike the Pallas kernel, which does not clip (an
+// out-of-range id is an out-of-bounds DMA there), ids are clamped as K2
+// clamps them.
 //
 // C interface for ctypes: returns the cudaError_t of the launch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRounds = 4;      // rows per block = kRounds * k: each slot is re-armed 3 times
-constexpr int kMaxWarps = 32;
+// Issuing threads a block. 128 measured best of 1, 32 and 128 on an H100
+// (mamdr_tpu_torch/probe_gather.py --sweep, which builds the other two with -D).
+#ifndef MAMDR_K3_ISSUERS
+#define MAMDR_K3_ISSUERS 128
+#endif
+constexpr int kIssuers = MAMDR_K3_ISSUERS;
 constexpr int kMaxSharedBytes = 232448;  // 227 KB: the most a block may opt into on sm_90
 
-__device__ __forceinline__ void cp_async_16(float4* smem_dst, const float4* src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-// Wait until at most `pending` of this thread's newest copy groups are still
-// in flight. The instruction takes an immediate; waiting for more than asked
-// (the default) is always correct.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-#define MAMDR_WAIT_CASE(n) \
-  case n:                  \
-    asm volatile("cp.async.wait_group " #n ";\n" ::: "memory"); \
-    break;
-    MAMDR_WAIT_CASE(1)
-    MAMDR_WAIT_CASE(2)
-    MAMDR_WAIT_CASE(3)
-    MAMDR_WAIT_CASE(4)
-    MAMDR_WAIT_CASE(5)
-    MAMDR_WAIT_CASE(6)
-    MAMDR_WAIT_CASE(7)
-    MAMDR_WAIT_CASE(8)
-    MAMDR_WAIT_CASE(9)
-    MAMDR_WAIT_CASE(10)
-    MAMDR_WAIT_CASE(11)
-    MAMDR_WAIT_CASE(12)
-    MAMDR_WAIT_CASE(13)
-    MAMDR_WAIT_CASE(14)
-    MAMDR_WAIT_CASE(15)
-#undef MAMDR_WAIT_CASE
-    default:
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Spin until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
 }
 
-__global__ void gather_rows_pipelined_kernel(const float4* __restrict__ table,
-                                             const int* __restrict__ ids,
-                                             float4* __restrict__ out, int n_rows,
-                                             int d4, int batch, int k) {
-  extern __shared__ float4 ring[];  // [k][d4]
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int n_warps = blockDim.x / 32;
-  const int row0 = blockIdx.x * kRounds * k;
-  const int rows = min(batch - row0, kRounds * k);  // this block's rows
-  // this warp's slots: warp, warp + n_warps, ... below k
-  const int my_slots = (k - warp + n_warps - 1) / n_warps;
-  if (my_slots <= 0) return;
-  const int my_rows_max = kRounds * my_slots;
+// One row, device memory -> the slot; completes on the slot's mbarrier.
+__device__ __forceinline__ void bulk_load(void* slot, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(slot)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
-  // The warp's t-th row: round t / my_slots, its slot number t % my_slots.
-  auto slot_of = [&](int t) { return warp + (t % my_slots) * n_warps; };
-  auto row_of = [&](int t) { return (t / my_slots) * k + slot_of(t); };
-  auto start = [&](int t) {
-    const int r = t < my_rows_max ? row_of(t) : rows;
-    if (r < rows) {
-      int id = ids[row0 + r];
-      id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
-      const float4* src = table + static_cast<long long>(id) * d4;
-      float4* dst = ring + static_cast<long long>(slot_of(t)) * d4;
-      for (int c = lane; c < d4; c += 32) cp_async_16(dst + c, src + c);
-    }
-    cp_async_commit();  // one group per row, empty past the end
+// The slot -> one row of the output; one bulk group per store.
+__device__ __forceinline__ void bulk_store(void* dst, const void* slot, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(slot)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// ring: [slots][row_bytes] of rows, then [slots] mbarriers (8-byte aligned:
+// row_bytes is a multiple of 16).
+__global__ void __launch_bounds__(kIssuers)
+gather_rows_pipelined_kernel(const char* __restrict__ table, const int* __restrict__ ids,
+                             char* __restrict__ out, int n_rows, int row_bytes, int batch,
+                             int rows_per_block, int slots) {
+  extern __shared__ __align__(128) char ring[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + static_cast<size_t>(slots) * row_bytes);
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * rows_per_block;
+  const int rows = min(batch - row0, rows_per_block);  // this block's rows
+
+  for (int s = t; s < slots; s += kIssuers) mbar_init(&bars[s], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  auto start = [&](int r) {  // row r of the block into slot r % slots
+    const int s = r % slots;
+    int id = ids[row0 + r];
+    id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
+    mbar_expect_tx(&bars[s], row_bytes);
+    bulk_load(ring + static_cast<size_t>(s) * row_bytes,
+              table + static_cast<size_t>(id) * row_bytes, row_bytes, &bars[s]);
   };
 
-  for (int t = 0; t < my_slots; ++t) start(t);
-  for (int t = 0; t < my_rows_max; ++t) {
-    const int r = row_of(t);
-    if (r >= rows) break;  // rows only grow with t within a round; later rounds too
-    cp_async_wait(my_slots - 1);  // the copy of row t has landed
-    const float4* src = ring + static_cast<long long>(slot_of(t)) * d4;
-    float4* dst = out + static_cast<long long>(row0 + r) * d4;
-    for (int c = lane; c < d4; c += 32) dst[c] = src[c];
-    start(t + my_slots);  // the freed slot takes the row k further on
+  // this thread's slots, each with its first row
+  for (int s = t; s < slots && s < rows; s += kIssuers) start(s);
+  // then its rows in order: turn 0 of each of its slots, turn 1, ...
+  for (int turn = 0; turn * slots < rows; ++turn) {
+    for (int s = t; s < slots; s += kIssuers) {
+      const int r = turn * slots + s;
+      if (r >= rows) break;
+      mbar_wait(&bars[s], turn & 1);  // row r has landed
+      bulk_store(out + static_cast<size_t>(row0 + r) * row_bytes,
+                 ring + static_cast<size_t>(s) * row_bytes, row_bytes);
+      if (r + slots < rows) {
+        // the store must have read the slot before the next row lands in it
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        start(r + slots);
+      }
+    }
   }
-  cp_async_wait(0);
+  // the ring must outlive the stores that read it
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace
 
-// The ring takes k * dim * 4 bytes of shared memory; a k that does not fit a
-// block's 227 KB is refused (the wrapper raises before it gets here).
+// The wrapper plans the launch (ring_plan in ops/embedding_lookup.py): a
+// block owns rows_per_block consecutive rows and a ring of `slots` rows,
+// slots * (dim * 4 + 8) bytes of shared memory, refused if it does not fit a
+// block's 227 KB. A row's byte length must be a multiple of 16.
 extern "C" int mamdr_gather_rows_pipelined(const void* table, const void* ids,
-                                           void* out, int n_rows, int dim,
-                                           int batch, int k, void* stream) {
-  const long long smem = static_cast<long long>(k) * dim * 4;
-  if (k < 1 || smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+                                           void* out, int n_rows, int dim, int batch,
+                                           int rows_per_block, int slots, void* stream) {
+  const long long row_bytes = static_cast<long long>(dim) * 4;
+  const long long smem = static_cast<long long>(slots) * (row_bytes + 8);
+  if (slots < 1 || rows_per_block < slots || batch < 1 || row_bytes % 16 != 0 ||
+      smem > kMaxSharedBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         gather_rows_pipelined_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  // about four slots a warp, at most 32 warps
-  int warps = (k + 3) / 4;
-  warps = warps > kMaxWarps ? kMaxWarps : warps;
-  const int rows_per_block = kRounds * k;
   const int blocks = (batch + rows_per_block - 1) / rows_per_block;
-  gather_rows_pipelined_kernel<<<blocks, warps * 32, static_cast<size_t>(smem),
+  gather_rows_pipelined_kernel<<<blocks, kIssuers, static_cast<size_t>(smem),
                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(table), static_cast<const int*>(ids),
-      static_cast<float4*>(out), n_rows, dim / 4, batch, k);
+      static_cast<const char*>(table), static_cast<const int*>(ids),
+      static_cast<char*>(out), n_rows, static_cast<int>(row_bytes), batch, rows_per_block,
+      slots);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,8 @@ On one CUDA card, from the repository root. Prints
 
   1. for kernel K1 (fused_tower_grad) at the main path's shapes (B 1024,
      dims 384-256-128-64, dropout 0.5): the device microseconds per call of
-     each CUDA kernel it launches;
+     each CUDA kernel it launches (the row-slab kernel and the weight-gradient
+     kernel, and PyTorch's few elementwise kernels for the seeds);
   2. for the Domain-Negotiation phase at bench.py's shapes (360 train
      steps): the wall time per step without the profiler, the device busy
      time per step (the sum of kernel times in a profiled run), the idle
@@ -133,8 +134,7 @@ def main() -> int:
     for name, (n, us) in sorted(kt.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {us / lane_steps:8.2f} us/lane-step  {n / lane_steps:5.1f}x/lane-step  "
               f"{_short(name)}")
-    k1_kernels = ("gemm_kernel", "finish_kernel", "head_rows_kernel", "head_grad_kernel",
-                  "colsum_kernel")  # csrc/fused_mlp_step.cu
+    k1_kernels = ("slab_kernel", "dw_kernel")  # csrc/fused_mlp_step.cu
     k1 = sum(us for name, (_, us) in kt.items()
              if any(k in name for k in k1_kernels)) / lane_steps
     print(f"K1 over {trainer.dataset.n_domain} lanes: {k1:.1f} us of the lane-step's device "

@@ -14,13 +14,14 @@ turns a non-zero code into an exception.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -35,6 +36,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_variant: List[str] = []  # extra nvcc flags of a diagnostic build (see build_variant)
 # What the last build printed (nvcc's -Xptxas -v register / shared-memory
 # report per kernel) and how long it took; chip_smoke.py prints both.
 build_log: Dict[str, str] = {}
@@ -50,8 +52,19 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS + _variant).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+
+
+def build_variant(extra: Sequence[str]) -> None:
+    """From now on build and load every source with `extra` nvcc flags after
+    the package's own: the -D switches of a timing-only build
+    (``k1_ablation.py``, ``probe_gather.py --sweep``). ``()`` goes back to the
+    port's build. A variant's libraries carry their own hash, so the port's
+    are never overwritten; a caller that caches a bound entry clears it."""
+    with _lock:
+        _variant[:] = list(extra)
+        _libs.clear()
 
 
 def build() -> None:
@@ -67,7 +80,7 @@ def build() -> None:
     for n in todo:
         out = _lib_path(n)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, n + ".cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *_variant, "-o", tmp, os.path.join(CSRC, n + ".cu")]
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed: List[str] = []
@@ -99,6 +112,16 @@ def load(name: str) -> ctypes.CDLL:
 def stream_ptr(device: torch.device) -> int:
     """PyTorch's current CUDA stream on `device`, as an integer handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def check(rc: int, what: str) -> None:

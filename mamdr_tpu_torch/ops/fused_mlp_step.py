@@ -7,7 +7,10 @@ and a bias-free 1-logit head, Dense -> ReLU -> inverted hash dropout per
 layer, the loss sum(w*bce)/max(sum(w), 1), and the backward pass through
 every layer with the dropout masks recomputed, returning the loss, dx and
 every weight gradient. On a CUDA tensor it launches kernel K1
-(``csrc/fused_mlp_step.cu``); on a CPU tensor it runs
+(``csrc/fused_mlp_step.cu``: a row-slab kernel and a weight-gradient kernel,
+their products on the tensor cores as error-compensated TF32; ``tf32_split``
+and ``k1_launch_plan`` are its rounding and its launch plan in plain
+Python); on a CPU tensor it runs
 ``tower_grad_reference``, which repeats ``_make_kernel``'s arithmetic step
 by step in plain PyTorch.
 
@@ -28,9 +31,10 @@ kernel.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,27 +126,115 @@ def tower_grad_reference_lanes(x, label, weight, seeds, dense, dims, rate):
     return loss, dx, grads
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of a float32 tensor as kernel K1 splits its operands
+    (``tf32_split`` in ``csrc/fused_mlp_step.cu``): hi is x rounded to TF32's
+    11 significant bits by Veltkamp's splitting, c = 8193 x, hi = c - (c - x),
+    and lo is x - hi cut to the 19 bits a tensor core reads of a TF32
+    operand. x = hi + lo up to about 2^-21 |x|, and lo1*hi2 + hi1*lo2 +
+    hi1*hi2 is the product K1 accumulates in float32 ("3xTF32")."""
+    c = x * 8193.0
+    hi = c - (c - x)
+    lo = ((x - hi).contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+SHARED_BYTES_MAX = 232448  # 227 KB: the most shared memory a block may opt into
+MAX_LAYERS = 8             # of a tower K1 takes
+# csrc/fused_mlp_step.cu's tiling: the streamed operand's stages, the rows of
+# a loss partial, the weight-gradient tile, columns of a column-sum block
+_W_TILE_FLOATS, _X_ROW_FLOATS, _STAGES, _LOSS_ROWS, _DW_TILE, _SUM_COLS = 128 * 36, 36, 3, 16, 64, 8
+
+
+class K1Plan(NamedTuple):
+    """How kernel K1 runs one call (see ``k1_launch_plan``)."""
+    slab_rows: int         # rows of a lane one block of the first launch keeps on chip
+    slabs: int             # of a lane: the first launch's grid is (slabs, lanes)
+    shared_bytes: int      # of a block of the first launch
+    dw_blocks: int         # of a lane: the second launch's grid is (dw_blocks, lanes)
+    workspace_floats: int  # h, dz, dlogits and loss partials of all lanes
+    launches: int          # CUDA launches a call issues
+
+
+def _up4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def k1_launch_plan(dims: Sequence[int], batch: int, lanes: int,
+                   sm_count: int = 132) -> K1Plan:
+    """Kernel K1's two launches for a tower of ``dims`` on ``lanes`` lanes of
+    ``batch`` rows, as ``csrc/fused_mlp_step.cu`` lays them out: the slab, its
+    shared memory, the second launch's blocks and the workspace. A slab is
+    64, 32 or 16 rows: the largest whose hidden activations and stages fit a
+    block's 227 KB of shared memory and whose blocks still cover the card's
+    ``sm_count`` SMs (30 lanes of 1024 rows: 480 blocks of 64 rows), else 16
+    (one lane of 1024 rows: 64 blocks on 132 SMs). The slab changes no
+    result: every row is computed alike and the loss is summed per 16 rows
+    either way. Raises ``ValueError`` for a tower too wide for any slab
+    (there is no other route for a CUDA tensor)."""
+    dims = tuple(int(d) for d in dims)
+    n_layers = len(dims) - 1
+    if not 1 <= n_layers <= MAX_LAYERS or min(dims) < 1 or batch < 1 or lanes < 1:
+        raise ValueError(f"K1 takes 1..{MAX_LAYERS} layers of positive width and batch, "
+                         f"lanes >= 1; got dims {dims}, batch {batch}, lanes {lanes}")
+    # a row of every hidden activation, padded to whole 32-deep k-tiles plus 4
+    # floats (against bank conflicts); a stage is a weight tile and a k-tile
+    # of the slab's x
+    row_floats = sum((d + 31) // 32 * 32 + 4 for d in dims[1:])
+    for slab_rows in (64, 32, 16):
+        shared = 4 * (slab_rows * row_floats
+                      + _STAGES * (_W_TILE_FLOATS + slab_rows * _X_ROW_FLOATS)
+                      + 2 * slab_rows + 12)
+        if shared <= SHARED_BYTES_MAX and (
+                slab_rows == 16 or lanes * -(-batch // slab_rows) >= sm_count):
+            break
+    else:
+        raise ValueError(f"a tower of dims {dims} is too wide for K1: 16 rows of its "
+                         f"activations need {shared} bytes of shared memory, more than a "
+                         f"block's {SHARED_BYTES_MAX}")
+    tiles = lambda n: -(-n // _DW_TILE)
+    dw_blocks = -(-dims[-1] // _SUM_COLS) + sum(
+        tiles(dims[i]) * tiles(dims[i + 1]) + -(-dims[i + 1] // _SUM_COLS)
+        for i in range(n_layers))
+    per_lane = (2 * sum(_up4(batch * d) for d in dims[1:]) + _up4(batch)
+                + _up4(-(-batch // _LOSS_ROWS) + 1))
+    return K1Plan(slab_rows, -(-batch // slab_rows), shared, dw_blocks, lanes * per_lane, 2)
+
+
 @functools.lru_cache(maxsize=None)
 def _bind():
-    """(kernel entry, scratch-size query) of the built library, bound once."""
+    """(kernel entry, workspace-size query, shared-memory query, launch
+    counter) of the built library, bound once."""
     lib = _cuda.load("fused_mlp_step")
     fn = lib.mamdr_fused_tower_grad
     vp, ip = ctypes.c_void_p, ctypes.c_int
     ptrs = ctypes.POINTER(ctypes.c_void_p)
+    dims_p = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [
-        ip, ip, ctypes.POINTER(ctypes.c_int), ip,  # lanes, n_layers, dims, batch
-        vp, vp, vp, vp,                           # x, label, weight, seeds
-        ptrs, ptrs, vp,                           # W[], b[], Wl
-        ctypes.c_float, ctypes.c_float,           # rate, scale
-        vp, vp, ptrs, ptrs, vp,                   # loss, dx, dW[], db[], dWl
-        ptrs, ptrs, ptrs, vp,                     # z[], h[], dz[], dlogits
-        vp, vp,                                   # split-K scratch, stream
+        ip, ip, dims_p, ip, ip,          # lanes, n_layers, dims, batch, slab rows
+        vp, vp, vp, vp,                  # x, label, weight, seeds
+        ptrs, ptrs, vp,                  # W[], b[], Wl
+        ctypes.c_float, ctypes.c_float,  # rate, scale
+        vp, vp, ptrs, ptrs, vp,          # loss, dx, dW[], db[], dWl
+        ptrs, vp, ctypes.c_longlong, vp,  # z[] or null, workspace, its floats, stream
     ]
     fn.restype = ctypes.c_int
     scratch = lib.mamdr_fused_tower_scratch
-    scratch.argtypes = [ip, ctypes.POINTER(ctypes.c_int), ip]
+    scratch.argtypes = [ip, dims_p, ip]
     scratch.restype = ctypes.c_longlong
-    return fn, scratch
+    shared = lib.mamdr_fused_tower_shared
+    shared.argtypes = [ip, dims_p, ip]
+    shared.restype = ctypes.c_longlong
+    count = lib.mamdr_fused_tower_launch_count
+    count.argtypes = []
+    count.restype = ctypes.c_int
+    return fn, scratch, shared, count
+
+
+def k1_cuda_launches() -> int:
+    """CUDA launches kernel K1's library has issued so far in this process (a
+    call of either wrapper adds ``k1_launch_plan(...).launches``)."""
+    return _bind()[3]()
 
 
 def _ptr_array(tensors):
@@ -155,11 +247,15 @@ def _seeds_as_int32(seeds: torch.Tensor) -> torch.Tensor:
     return (s - ((s & 0x80000000) << 1)).to(torch.int32).contiguous()
 
 
-def _launch_k1(x, label, weight, seeds, dense, dims, rate):
-    """Check lane-stacked CUDA operands ([L, ...] each), allocate outputs and
-    scratch, and launch kernel K1's chain once for all L lanes. Returns
-    (loss, dx, grads, zs); zs are the per-layer pre-activations [L, B, h] the
-    chain leaves in its scratch."""
+def _launch_k1(x, label, weight, seeds, dense, dims, rate, want_z=False):
+    """Check lane-stacked CUDA operands ([L, ...] each), allocate the outputs
+    and launch kernel K1 once for all L lanes. The workspace (what the first
+    launch leaves for the second: h, dz, dlogits, loss partials) comes from
+    ``_workspace``: one tensor per (device, L, B, dims), used again by every
+    later call of that shape, so calls of one shape belong on one stream.
+    Returns (loss, dx, grads, zs); zs are the per-layer pre-activations
+    [L, B, h] when ``want_z`` (a check's request), else None.
+    """
     dims = tuple(int(d) for d in dims)
     n_layers = len(dims) - 1
     if n_layers < 1 or len(dense) != 2 * n_layers + 1:
@@ -188,6 +284,7 @@ def _launch_k1(x, label, weight, seeds, dense, dims, rate):
     _cuda.require_cuda(wl, "Wl", torch.float32)
     if wl.shape[0] != lanes or wl.numel() != lanes * dims[-1]:
         raise ValueError(f"Wl must hold {lanes} x {dims[-1]} values, got {tuple(wl.shape)}")
+    plan = k1_launch_plan(dims, b, lanes, _cuda.sm_count(x.device))  # raises: tower too wide
 
     f32 = dict(dtype=torch.float32, device=x.device)
     loss = torch.empty((lanes,), **f32)
@@ -195,37 +292,66 @@ def _launch_k1(x, label, weight, seeds, dense, dims, rate):
     dws = [torch.empty((lanes, dims[i], dims[i + 1]), **f32) for i in range(n_layers)]
     dbs = [torch.empty((lanes, dims[i + 1]), **f32) for i in range(n_layers)]
     dwl = torch.empty(tuple(wl.shape), **f32)
-    zs = [torch.empty((lanes, b, dims[i + 1]), **f32) for i in range(n_layers)]
-    hs = [torch.empty((lanes, b, dims[i + 1]), **f32) for i in range(n_layers)]
-    dzs = [torch.empty((lanes, b, dims[i + 1]), **f32) for i in range(n_layers)]
-    dlog = torch.empty((lanes, b), **f32)
+    zs = ([torch.empty((lanes, b, dims[i + 1]), **f32) for i in range(n_layers)]
+          if want_z else None)
+    workspace = _workspace(x.device, lanes, b, dims)
     seeds32 = _seeds_as_int32(seeds)
     scale = _dropout_scale(rate) if rate > 0.0 else 1.0
 
-    fn, scratch_floats = _bind()
-    dims_c = (ctypes.c_int * len(dims))(*dims)
-    split = torch.empty((lanes * scratch_floats(n_layers, dims_c, b),), **f32)
-    rc = fn(
-        lanes, n_layers, dims_c, b,
+    rc = _bind()[0](
+        lanes, n_layers, (ctypes.c_int * len(dims))(*dims), b, plan.slab_rows,
         x.data_ptr(), label.data_ptr(), weight.data_ptr(), seeds32.data_ptr(),
         _ptr_array(dense[0 : 2 * n_layers : 2]), _ptr_array(dense[1 : 2 * n_layers : 2]),
         wl.data_ptr(),
         rate, scale,
         loss.data_ptr(), dx.data_ptr(), _ptr_array(dws), _ptr_array(dbs), dwl.data_ptr(),
-        _ptr_array(zs), _ptr_array(hs), _ptr_array(dzs), dlog.data_ptr(),
-        split.data_ptr(), _cuda.stream_ptr(x.device),
+        _ptr_array(zs) if want_z else None, workspace.data_ptr(), workspace.numel(),
+        _cuda.stream_ptr(x.device),
     )
     _cuda.check(rc, "fused_tower_grad")
     grads = [g for i in range(n_layers) for g in (dws[i], dbs[i])]
     return loss, dx, (*grads, dwl), zs
 
 
+WORKSPACES_KEPT = 4  # shapes whose workspace stays allocated (a DN step's, a lane-step's, ...)
+
+
+def _workspace(device, lanes: int, batch: int, dims: Tuple[int, ...]) -> torch.Tensor:
+    """Kernel K1's workspace for this shape, sized by the built library's own
+    layout (``mamdr_fused_tower_scratch``; the C entry is told the length and
+    refuses a shorter one). The ``WORKSPACES_KEPT`` shapes used last keep
+    theirs; an older one is released. A shape's first call must not fall
+    inside a CUDA-graph capture, whose private pool would then own a tensor
+    that later eager calls use: warm up before capturing, as
+    ``utils.timing.device_ms`` does."""
+    key = (device, lanes, batch, dims)
+    kept = _workspace.kept
+    workspace = kept.get(key)
+    if workspace is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"K1's first call for {lanes} lanes of {batch} rows, dims {dims}, falls inside "
+                f"a CUDA-graph capture: call it once before capturing")
+        per_lane = _bind()[1](len(dims) - 1, (ctypes.c_int * len(dims))(*dims), batch)
+        if per_lane < 0:
+            raise ValueError(f"K1 does not take dims {dims} at batch {batch}")
+        workspace = kept[key] = torch.empty((lanes * per_lane,), dtype=torch.float32,
+                                            device=device)
+        while len(kept) > WORKSPACES_KEPT:
+            kept.popitem(last=False)
+    kept.move_to_end(key)
+    return workspace
+
+
+_workspace.kept = collections.OrderedDict()
+
+
 def fused_tower_grad(x, label, weight, seeds, dense, dims, rate):
     """Fused tower step; see tower_grad_reference for the contract.
 
     CUDA tensors launch kernel K1 as its one-lane case (counted once per
-    call in ``fused_tower_grad.launches``, however many CUDA launches it
-    takes); CPU tensors run the plain version.
+    call in ``fused_tower_grad.launches``; a call is two CUDA launches, see
+    ``k1_launch_plan``); CPU tensors run the plain version.
     """
     if x.device.type == "cpu":
         return tower_grad_reference(x, label, weight, seeds, dense, dims, rate)
@@ -251,8 +377,8 @@ def fused_tower_grad_lanes(x, label, weight, seeds, dense, dims, rate):
     """Fused tower step of L independent lanes in one call; see
     tower_grad_reference_lanes for the contract.
 
-    CUDA tensors launch kernel K1 with the lane as a grid dimension of every
-    launch of its chain (counted once per call in
+    CUDA tensors launch kernel K1 with the lane as a grid dimension of both
+    of its launches (counted once per call in
     ``fused_tower_grad_lanes.launches``); lane l's results are bit-equal to
     ``fused_tower_grad`` on lane l's operands. CPU tensors run the plain
     version.

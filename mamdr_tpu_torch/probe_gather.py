@@ -3,75 +3,164 @@
     python3 -m mamdr_tpu_torch.probe_gather
 
 Counterpart of ``scripts/probe_gather.py``. On one CUDA card, from the
-repository root, at the bench workload's lookup (1024 ids into a
-[100000, 128] float32 table), it times by CUDA-graph replay
+repository root, at the bench workload's lookups into a [100000, 128]
+float32 table — a step's 1024 ids, and a lane-step's 30720 (four id sets
+taken in turn, so that a replay does not find its rows in L2) — it times by
+CUDA-graph replay
 
   - kernel K2, ``embedding_lookup`` (one warp per row);
-  - kernel K3, ``gather_rows_pipelined``, at k 32 and k 128 (a ring of k row
-    copies in flight: does depth in flight buy anything over K2?);
+  - kernel K3, ``gather_rows_pipelined``, at k 32 and k 128 (rings of bulk
+    row copies dealt over the card's SMs, k deep in each block: does depth in
+    flight, or handing the copies to the copy engine, buy anything over K2?);
+    its launch plan is printed beside its time. At 1024 ids a block owns
+    fewer rows than either k, so both depths plan the same launch and no ring
+    turns; at 30720 ids a block's ring of 32 turns and one of 128 does not;
   - the plain version (PyTorch advanced indexing);
   - ``torch.nn.functional.embedding``, a yardstick the port calls nowhere else;
-  - the contiguous-slice floor: a [1024, 128] slice copy, no gather at all;
+  - the contiguous-slice floor: a slice copy of as many rows, no gather at all;
 
 checks that every gather agrees exactly with the plain version, and prints
 ns per gathered row with the card's name and power limit on every line. It
 raises without a card. The XLA-specific variants of the JAX script (bf16
 table, one-hot matmul, combined 200k table) are not kernels and are left out.
+
+    python3 -m mamdr_tpu_torch.probe_gather --sweep
+
+times kernel K3 under other launch plans than ``ring_plan``'s — 1 to 8 blocks
+per SM at both sizes, and builds of the kernel with 1 and 32 issuing threads
+a block beside its own 128 — which is how the plan's four blocks per SM and
+the kernel's 128 threads were chosen.
 """
 
 from __future__ import annotations
 
 import sys
-from typing import List, Tuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from mamdr_tpu_torch import resolve_device
+from mamdr_tpu_torch.ops import _cuda
 from mamdr_tpu_torch.ops.embedding_lookup import (
+    _bind_pipelined,
     embedding_lookup,
     embedding_lookup_reference,
     gather_rows_pipelined,
+    ring_plan,
 )
 from mamdr_tpu_torch.utils.timing import card_line, device_ms
 
 B, N_ROWS, DIM = 1024, 100_000, 128
+LANES = 30               # the lane-step's lookup is LANES * B ids
 RING_DEPTHS = (32, 128)  # scripts/probe_gather.py:100-103
+ID_SETS = 4
 
 
-def run(seed: int = 0, inner: int = 50, verbose: bool = True) -> List[Tuple[str, float]]:
-    """Time every variant; returns [(name, ns per row)]."""
+class Row(NamedTuple):
+    """One timed variant of ``run``."""
+    name: str
+    ids: int             # ids a call gathers
+    k: Optional[int]     # K3's ring depth; None for every other variant
+    ns_per_row: float
+    k3_launches: int     # calls of K3's wrapper this variant made (0 unless K3)
+
+
+def run(seed: int = 0, inner: int = 48, verbose: bool = True) -> List[Row]:
+    """Time every variant at both sizes."""
     dev = resolve_device(None)  # the card, or raise
     card = card_line()
+    sms = _cuda.sm_count(dev)
     rng = np.random.default_rng(seed)
     table = torch.from_numpy(rng.normal(0, 0.1, (N_ROWS, DIM)).astype(np.float32)).to(dev)
-    ids = torch.from_numpy(rng.integers(0, N_ROWS, B).astype(np.int32)).to(dev)
-    ids_long = ids.long()
-    offset = int(rng.integers(0, N_ROWS - B))
-    want = embedding_lookup_reference(table, ids)
-
-    variants = [
-        ("K2 gather_rows (warp per row)", lambda: embedding_lookup(table, ids)),
-        *[(f"K3 gather_rows_pipelined k={k}",
-           lambda k=k: gather_rows_pipelined(table, ids, k=k)) for k in RING_DEPTHS],
-        ("plain version (table[ids])", lambda: embedding_lookup_reference(table, ids)),
-        ("F.embedding (yardstick)", lambda: torch.nn.functional.embedding(ids_long, table)),
-    ]
     rows = []
-    for name, fn in variants:
-        if not torch.equal(fn(), want):
-            raise RuntimeError(f"probe_gather: {name} differs from the plain gather")
-        rows.append((name, device_ms(fn, inner=inner) * 1e6 / B))
-    rows.append(("contiguous slice copy [1024,128]",
-                 device_ms(lambda: table[offset : offset + B].clone(), inner=inner)
-                 * 1e6 / B))
-    if verbose:
-        for name, ns in rows:
-            print(f"{name:34s}: {ns * B / 1e3:7.2f} us/call, {ns:6.2f} ns/row "
-                  f"({DIM * 4 / ns:6.1f} GB/s of rows); {card}")
+    for b in (B, LANES * B):
+        n_sets = 1 if b == B else ID_SETS
+        id_sets = [torch.from_numpy(rng.integers(0, N_ROWS, b).astype(np.int32)).to(dev)
+                   for _ in range(n_sets)]
+        long_sets = [i.long() for i in id_sets]
+        offset = int(rng.integers(0, N_ROWS - b))
+        want = embedding_lookup_reference(table, id_sets[0])
+        turn = [0]
+
+        def in_turn(fn, sets):
+            turn[0] += 1
+            return fn(sets[turn[0] % len(sets)])
+
+        variants = [
+            ("K2 gather_rows (warp per row)", None,
+             lambda i: embedding_lookup(table, i), id_sets),
+            *[(f"K3 gather_rows_pipelined k={k}", k,
+               lambda i, k=k: gather_rows_pipelined(table, i, k=k), id_sets)
+              for k in RING_DEPTHS],
+            ("plain version (table[ids])", None,
+             lambda i: embedding_lookup_reference(table, i), id_sets),
+            ("F.embedding (yardstick)", None,
+             lambda i: torch.nn.functional.embedding(i, table), long_sets),
+        ]
+        for name, k, fn, sets in variants:
+            before = gather_rows_pipelined.launches
+            if not torch.equal(fn(sets[0]), want):
+                raise RuntimeError(f"probe_gather: {name} differs from the plain gather")
+            ms = device_ms(lambda: in_turn(fn, sets), inner=inner)
+            rows.append(Row(name, b, k, ms * 1e6 / b, gather_rows_pipelined.launches - before))
+        rows.append(Row(f"contiguous slice copy [{b},{DIM}]", b, None,
+                        device_ms(lambda: table[offset : offset + b].clone(), inner=inner)
+                        * 1e6 / b, 0))
+        if verbose:
+            for k in RING_DEPTHS:
+                plan = ring_plan(b, k, DIM, sms)
+                print(f"K3 k={k}, {b} ids: {plan.blocks} blocks, {plan.rows_per_block} rows and "
+                      f"a ring of {plan.slots} slots a block, {plan.shared_bytes} bytes of "
+                      f"shared memory")
+            for r in rows:
+                if r.ids == b:
+                    print(f"{r.name:34s} {b:5d} ids: {r.ns_per_row * b / 1e3:7.2f} us/call, "
+                          f"{r.ns_per_row:6.2f} ns/row ({DIM * 4 / r.ns_per_row:6.1f} GB/s of "
+                          f"rows); {card}")
     return rows
 
 
+def sweep(seed: int = 0, inner: int = 48) -> None:
+    """Time K3's kernel under plans of 1, 2, 4 and 8 blocks per SM, in builds
+    with 1, 32 and 128 issuing threads a block, k 32 and 128, at 1024 and
+    30720 ids (four id sets in turn)."""
+    dev = resolve_device(None)
+    card = card_line()
+    sms = _cuda.sm_count(dev)
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(0, 0.1, (N_ROWS, DIM)).astype(np.float32)).to(dev)
+    try:
+        for issuers in (1, 32, 128):
+            _cuda.build_variant([f"-DMAMDR_K3_ISSUERS={issuers}"])
+            _bind_pipelined.cache_clear()
+            kernel = _bind_pipelined()
+            for b in (B, LANES * B):
+                id_sets = [torch.from_numpy(rng.integers(0, N_ROWS, b).astype(np.int32)).to(dev)
+                           for _ in range(ID_SETS)]
+                out = torch.empty((b, DIM), dtype=torch.float32, device=dev)
+                turn = [0]
+
+                def launch(rows_per_block, slots):
+                    turn[0] += 1
+                    ids = id_sets[turn[0] % len(id_sets)]
+                    _cuda.check(kernel(table.data_ptr(), ids.data_ptr(), out.data_ptr(), N_ROWS,
+                                       DIM, b, rows_per_block, slots, _cuda.stream_ptr(dev)),
+                                "gather_rows_pipelined")
+
+                for per_sm in (1, 2, 4, 8):
+                    rows_per_block = -(-b // (per_sm * sms))
+                    for k in RING_DEPTHS:
+                        slots = min(k, rows_per_block)
+                        us = device_ms(lambda: launch(rows_per_block, slots), inner=inner) * 1e3
+                        print(f"K3 {b:5d} ids, {per_sm} blocks an SM ({rows_per_block:3d} rows "
+                              f"a block), ring of {slots:3d}, {issuers:3d} issuing threads: "
+                              f"{us:6.2f} us/call; {card}")
+    finally:
+        _cuda.build_variant(())
+        _bind_pipelined.cache_clear()
+
+
 if __name__ == "__main__":
-    run()
+    sweep() if "--sweep" in sys.argv[1:] else run()
     sys.exit(0)

@@ -49,15 +49,15 @@ def relu_flip_rows(zs_a, zs_b, tol: float = RELU_EDGE_TOL):
 def k1_flip_rows(x, label, weight, seeds, dense, dims, rate):
     """``relu_flip_rows`` between kernel K1 and the plain version on the
     operands of ``fused_tower_grad`` (x [B, in]) or ``fused_tower_grad_lanes``
-    (x [L, B, in]), on the card. K1's pre-activations are read from the
-    scratch its chain leaves behind; the launch is not counted."""
+    (x [L, B, in]), on the card. K1 is asked to write its pre-activations
+    out, which it does not do otherwise; the launch is not counted."""
     from mamdr_tpu_torch.ops.fused_mlp_step import _launch_k1, tower_forward_reference
 
     single = x.dim() == 2
     if single:
         x, label, weight, seeds = x[None], label[None], weight[None], seeds[None]
         dense = tuple(t[None] for t in dense)
-    zs_k = _launch_k1(x, label, weight, seeds, dense, dims, rate)[3]
+    zs_k = _launch_k1(x, label, weight, seeds, dense, dims, rate, want_z=True)[3]
     per_lane = [tower_forward_reference(x[l], seeds[l], tuple(t[l] for t in dense),
                                         dims, rate)[0] for l in range(x.shape[0])]
     zs_p = [torch.stack([z[i] for z in per_lane]) for i in range(len(dims) - 1)]

@@ -6,8 +6,9 @@ the plain version on the card: test_torch_kernels_gpu.py.
 
 ``gather_rows_pipelined`` (kernel K3's wrapper) on CPU tensors against the
 Pallas ring gather it replaces, run in interpret mode: exact, for any ring
-depth k, including k > B. (In-range ids only: the Pallas kernel does not
-clip; the port's clamp is held to ``embedding_lookup``.)
+depth k, including k 1 and k > B. (In-range ids only: the Pallas kernel does
+not clip; the port's clamp is held to ``embedding_lookup``.) ``ring_plan`` is
+kernel K3's launch in plain Python: how the rows are dealt over the card.
 """
 
 import jax.numpy as jnp
@@ -17,7 +18,12 @@ import torch
 
 from mamdr_tpu.ops.embedding_lookup import embedding_lookup as jax_lookup
 from mamdr_tpu.ops.embedding_lookup import pallas_gather_rows_pipelined
-from mamdr_tpu_torch.ops.embedding_lookup import embedding_lookup, gather_rows_pipelined
+from mamdr_tpu_torch.ops.embedding_lookup import (
+    RING_SHARED_BYTES_MAX,
+    embedding_lookup,
+    gather_rows_pipelined,
+    ring_plan,
+)
 
 
 def _inputs(n=100, d=16, b=64, seed=0):
@@ -45,6 +51,43 @@ def test_pipelined_gather_matches_pallas_ring(k):
         jnp.asarray(table), jnp.asarray(ids), k=k, interpret=True))
     got = gather_rows_pipelined(torch.from_numpy(table), torch.from_numpy(ids), k=k)
     np.testing.assert_array_equal(got.numpy(), want)  # a gather: exact
+
+
+@pytest.mark.parametrize("k", [1, 49, 1000])
+@pytest.mark.parametrize("b", [1, 48])
+def test_pipelined_gather_depth_one_and_beyond_the_batch(b, k):
+    """k 1 (one copy in flight) and k larger than B (cut to B), down to a
+    single id: exact against the Pallas ring in interpret mode."""
+    rng = np.random.default_rng(100 * b + k)
+    table = rng.normal(0, 1, (64, 128)).astype(np.float32)
+    ids = rng.integers(0, 64, b).astype(np.int32)
+    want = np.asarray(pallas_gather_rows_pipelined(
+        jnp.asarray(table), jnp.asarray(ids), k=k, interpret=True))
+    got = gather_rows_pipelined(torch.from_numpy(table), torch.from_numpy(ids), k=k)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("batch,k,blocks,rows,slots", [
+    (1024, 32, 512, 2, 2), (1024, 128, 512, 2, 2), (30720, 32, 521, 59, 32),
+    (30720, 128, 521, 59, 59), (1, 1, 1, 1, 1), (5, 32, 5, 1, 1), (30720, 1, 521, 59, 1)])
+def test_ring_plan_deals_the_rows_over_the_card(batch, k, blocks, rows, slots):
+    """Kernel K3's launch on a 132-SM card: a few blocks per SM cover the ids
+    with contiguous runs of rows; a block's ring has min(k, its rows) slots."""
+    plan = ring_plan(batch, k, 128, 132)
+    assert (plan.blocks, plan.rows_per_block, plan.slots) == (blocks, rows, slots)
+    assert plan.blocks * plan.rows_per_block >= batch > (plan.blocks - 1) * plan.rows_per_block
+    assert plan.shared_bytes == slots * (128 * 4 + 8) <= RING_SHARED_BYTES_MAX
+    if batch >= 1024:
+        assert plan.blocks >= 64
+
+
+def test_ring_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ring_plan(1024, 32, 6, 132)       # a 24-byte row is no bulk copy
+    with pytest.raises(ValueError, match="shared memory"):
+        ring_plan(132 * 4 * 450, 450, 128, 132)  # 450 slots of 520 bytes: 234 KB
+    with pytest.raises(ValueError):
+        ring_plan(0, 32, 128, 132)
 
 
 def test_pipelined_gather_clamps_and_checks_k():

@@ -13,6 +13,12 @@ within the same tolerance of the Pallas kernel run per lane, with a partial
 and an all-pad lane in one call; two lanes at the same step get different
 dropout masks (``lane_seeds``).
 
+Kernel K1's arithmetic and launch plan in plain Python: ``tf32_split`` (the
+kernel's operand splitting) gives float32-accurate products from three TF32
+terms where one TF32 term does not, which is why the card tolerance can stay
+where it was; ``k1_launch_plan`` fits a block's shared memory and at most 4
+launches at the shapes the card tests run, and raises for a tower too wide.
+
 Kernel K1 against the plain version on the card: test_torch_kernels_gpu.py.
 """
 
@@ -32,8 +38,11 @@ from mamdr_tpu_torch.convert import params_from_jax
 from mamdr_tpu_torch.models.zoo import build_model
 from mamdr_tpu_torch.ops.fast_random import dropout_mask, lane_seeds, step_seeds
 from mamdr_tpu_torch.ops.fused_mlp_step import (
+    SHARED_BYTES_MAX,
     fused_tower_grad_lanes,
+    k1_launch_plan,
     make_fast_loss_grad,
+    tf32_split,
     tower_forward_reference,
     tower_grad_reference,
 )
@@ -247,3 +256,85 @@ def test_relu_edge_units_are_found_and_a_wrong_preactivation_refused():
     keep = ~rows
     assert torch.equal(dx1[keep], dx2[keep]) and not dx2[3].any()
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def _bench_operands():
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(0, 0.1, (1024, 384)).astype(np.float32))
+    lim = np.sqrt(6.0 / (384 + 256))
+    b = torch.from_numpy(rng.uniform(-lim, lim, (384, 256)).astype(np.float32))
+    return a, b
+
+
+def test_tf32_split_is_exact_and_tf32():
+    """hi carries TF32's 11 significant bits (low 13 mantissa bits clear), lo
+    too, and hi + lo gives x back within 2^-21 |x|."""
+    a, _ = _bench_operands()
+    x = torch.cat([a.flatten(), torch.tensor([0.0, -0.0, 1.0, -1.5, 3e-20, 1e20])])
+    hi, lo = tf32_split(x)
+    assert hi.dtype == lo.dtype == torch.float32 and hi.shape == x.shape
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    assert bool(((hi - x).abs() <= x.abs() * 2.0**-11).all())  # hi: x to 11 bits, to nearest
+    assert bool(((hi.double() + lo.double() - x.double()).abs() <= x.abs().double() * 2.0**-21).all())
+    hi2, lo2 = tf32_split(hi)  # a TF32 value splits into itself and 0
+    assert torch.equal(hi2, hi) and not bool(lo2.any())
+
+
+@pytest.mark.parametrize("terms,within", [(3, True), (1, False)])
+def test_three_tf32_terms_are_float32_accurate_and_one_is_not(terms, within):
+    """At the bench shapes (B 1024, 384 -> 256) the three-term product of
+    split operands is within 2e-6 of the float64 product (relative to its
+    largest entry), as a float32 product is; the single TF32 term is not (it
+    is off by 1e-4 and more), so plain TF32 would not hold the card tests'
+    1e-4 of each output's max and the compensation is what keeps it."""
+    a, b = _bench_operands()
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    want = a.double() @ b.double()
+    got = ah @ bh if terms == 1 else (al @ bh + ah @ bl) + ah @ bh  # small terms first
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    assert (err <= 2e-6) == within, err
+    if terms == 1:
+        assert err > 5e-5
+    else:
+        f32 = float(((a @ b).double() - want).abs().max() / want.abs().max())
+        assert err <= 4 * max(f32, 2.0**-24)  # as good as float32 itself
+
+
+@pytest.mark.parametrize("dims,batch,lanes", [
+    ((384, 256, 128, 64), 1024, 1), ((384, 256, 128, 64), 1024, 30),
+    ((24, 32, 16), 32, 1), ((24, 32, 16), 32, 5), ((384, 256, 128, 64), 1000, 3),
+    ((384, 256, 128, 64), 1, 1), ((1024, 512, 64), 256, 30)])
+def test_k1_launch_plan_fits_the_card(dims, batch, lanes):
+    plan = k1_launch_plan(dims, batch, lanes)
+    assert plan.slab_rows in (16, 32, 64) and plan.slabs == -(-batch // plan.slab_rows)
+    assert 0 < plan.shared_bytes <= SHARED_BYTES_MAX == 232448
+    assert 1 <= plan.launches <= 4
+    # what the first launch leaves for the second: h and dz of every layer,
+    # the dlogits, the loss partials
+    rows_floats = 2 * sum(dims[1:]) + 1
+    assert plan.workspace_floats >= lanes * batch * rows_floats
+    assert plan.workspace_floats <= lanes * (batch * rows_floats + batch // 16 + 8 * len(dims) + 8)
+    # a second-launch block per 64x64 tile of every dW, per 8 columns of every db and of dWl
+    tiles = sum(-(-dims[i] // 64) * -(-dims[i + 1] // 64) for i in range(len(dims) - 1))
+    assert plan.dw_blocks == tiles + sum(-(-d // 8) for d in dims[1:]) + -(-dims[-1] // 8)
+
+
+def test_k1_launch_plan_picks_the_slab_by_how_full_the_card_is():
+    dims = (384, 256, 128, 64)
+    assert k1_launch_plan(dims, 1024, 1).slab_rows == 16   # 64 blocks on 132 SMs
+    assert k1_launch_plan(dims, 1024, 5).slab_rows == 32   # 160 blocks: every SM has one
+    assert k1_launch_plan(dims, 1024, 30).slab_rows == 64  # many waves: the largest slab
+    assert k1_launch_plan(dims, 1024, 1, sm_count=32).slab_rows == 32
+    assert k1_launch_plan((1024, 1024, 64), 1024, 30).slab_rows == 32  # 64 rows do not fit
+    assert k1_launch_plan((1024, 2048, 512), 1024, 30).slab_rows == 16
+
+
+@pytest.mark.parametrize("dims,batch,lanes", [
+    ((384, 8192, 4096, 64), 1024, 1), ((384, 256, 128, 64), 0, 1), ((384, 256, 128, 64), 8, 0),
+    ((384,), 8, 1), ((4,) * 10, 8, 1), ((384, 0, 64), 8, 1)])
+def test_k1_launch_plan_refuses_what_the_kernel_does_not_take(dims, batch, lanes):
+    """A tower too wide for any slab raises (no other route is taken for a
+    CUDA tensor), as do an empty batch, no lane, no layer, too many layers."""
+    with pytest.raises(ValueError):
+        k1_launch_plan(dims, batch, lanes)

@@ -18,14 +18,19 @@ import torch
 
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
+from mamdr_tpu_torch.ops import _cuda
+from mamdr_tpu_torch.ops import fused_mlp_step
 from mamdr_tpu_torch.ops.embedding_lookup import (
     embedding_lookup,
     embedding_lookup_reference,
     gather_rows_pipelined,
+    ring_plan,
 )
 from mamdr_tpu_torch.ops.fused_mlp_step import (
     fused_tower_grad,
     fused_tower_grad_lanes,
+    k1_cuda_launches,
+    k1_launch_plan,
     table_rows,
     tower_grad_reference,
     tower_grad_reference_lanes,
@@ -36,7 +41,10 @@ from mamdr_tpu_torch.utils import trees
 from mamdr_tpu_torch.utils.kernel_check import k1_vs_plain
 
 K1_REL_TOL = 1e-4  # of each output's largest magnitude: float32 sums over
-                   # up to 1024 rows, taken in another order
+                   # up to 1024 rows, taken in another order, of products that
+                   # K1 forms as three TF32 terms (float32-accurate; one TF32
+                   # term alone would miss this tolerance)
+BENCH_DIMS = (384, 256, 128, 64)
 
 
 @pytest.fixture
@@ -133,12 +141,15 @@ def test_gather_kernel_at_the_lane_steps_shapes(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, 0.5])
-@pytest.mark.parametrize("dims,batch,lanes", [((384, 256, 128, 64), 1024, 30),
-                                              ((24, 32, 16), 37, 5)])
+@pytest.mark.parametrize("dims", [BENCH_DIMS, (24, 32, 16)])
+@pytest.mark.parametrize("batch", [1, 32, 37, 1000, 1024])
+@pytest.mark.parametrize("lanes", [1, 3, 5, 30])
 def test_tower_kernel_lanes(cuda_device, rate, dims, batch, lanes):
-    """K1 with a lane axis: against the lane-batched plain version (a partial
+    """K1 with a lane axis, over lane counts, batches (one row; no multiple of
+    a slab; the main path's) and dims (the main path's; narrow ones that cut
+    through every tile): against the lane-batched plain version (a partial
     and an all-pad lane in the call), lane l bit-equal to the single-lane
-    call, and the same bits from a second call."""
+    call, the same bits from a second call, at most 4 CUDA launches a call."""
     per = [_tower_inputs(dims, batch, {1: "partial", 2: "all_pad"}.get(l, "mixed"),
                          cuda_device, seed=l) for l in range(lanes)]
     x, label, weight = (torch.stack([p[i] for p in per]) for i in range(3))
@@ -149,21 +160,106 @@ def test_tower_kernel_lanes(cuda_device, rate, dims, batch, lanes):
                     x, label, weight, seeds, dense, dims, rate, K1_REL_TOL)
     assert fused_tower_grad_lanes.launches == before + 1 + bool(r["flips"])
     lk, dxk, gk = r["out"]
-    assert float(lk[2]) == 0.0 and not bool(dxk[2].any())
+    if lanes > 2:
+        assert float(lk[2]) == 0.0 and not bool(dxk[2].any())
+        assert not any(bool(g[2].any()) for g in gk)
     for l in range(lanes):
         l1, dx1, g1 = fused_tower_grad(x[l], label[l], weight[l], seeds[l],
                                        tuple(t[l] for t in dense), dims, rate)
         assert torch.equal(l1, lk[l]) and torch.equal(dx1, dxk[l])
         assert all(torch.equal(a, b[l]) for a, b in zip(g1, gk))
+    issued = k1_cuda_launches()
     lk2, dxk2, gk2 = fused_tower_grad_lanes(x, label, weight, seeds, dense, dims, rate)
+    assert 1 <= k1_cuda_launches() - issued <= 4
     assert torch.equal(lk, lk2) and torch.equal(dxk, dxk2)
     assert all(torch.equal(a, b) for a, b in zip(gk, gk2))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dims,batch,lanes", [(BENCH_DIMS, 1024, 1), (BENCH_DIMS, 1024, 30),
+                                              ((24, 32, 16), 32, 1), (BENCH_DIMS, 1000, 3),
+                                              ((1024, 1024, 64), 100, 2)])
+def test_tower_launch_plan_matches_the_library(cuda_device, dims, batch, lanes):
+    """The Python plan and csrc/fused_mlp_step.cu lay out the same workspace
+    and the same shared memory, and a call issues the plan's launches."""
+    import ctypes
+
+    _, scratch, shared, _ = fused_mlp_step._bind()
+    plan = k1_launch_plan(dims, batch, lanes, _cuda.sm_count(cuda_device))
+    dims_c = (ctypes.c_int * len(dims))(*dims)
+    assert scratch(len(dims) - 1, dims_c, batch) * lanes == plan.workspace_floats
+    assert shared(len(dims) - 1, dims_c, plan.slab_rows) == plan.shared_bytes
+    assert plan.shared_bytes <= 232448 and plan.launches <= 4
+    per = [_tower_inputs(dims, batch, "mixed", cuda_device, seed=l) for l in range(lanes)]
+    x, label, weight, seeds = (torch.stack([p[i] for p in per]) for i in range(4))
+    dense = tuple(torch.stack([p[4][i] for p in per]) for i in range(len(per[0][4])))
+    issued = k1_cuda_launches()
+    fused_tower_grad_lanes(x, label, weight, seeds, dense, dims, 0.5)
+    torch.cuda.synchronize()
+    assert k1_cuda_launches() - issued == plan.launches
+
+
+@pytest.mark.gpu
+def test_tower_entry_refuses_a_short_workspace(cuda_device, monkeypatch):
+    """The C entry is told the workspace's length and refuses one shorter than
+    its own layout needs, instead of writing past it."""
+    dims, batch = (24, 32, 16), 32
+    args = _tower_inputs(dims, batch, "mixed", cuda_device)
+    fused_tower_grad(*args, dims, 0.5)
+    full = fused_mlp_step._workspace(args[0].device, 1, batch, dims)
+    assert full.numel() == k1_launch_plan(dims, batch, 1).workspace_floats
+    monkeypatch.setattr(fused_mlp_step, "_workspace", lambda *a: full[:-4])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_tower_grad(*args, dims, 0.5)
+
+
+@pytest.mark.gpu
+def test_tower_workspaces_are_bounded_and_never_made_under_capture(cuda_device):
+    """Only the shapes used last keep a workspace, the same tensor serves a
+    shape's later calls, and a shape's first call inside a CUDA-graph capture
+    raises (the graph's private pool would own the tensor)."""
+    dims = (24, 32, 16)
+    kept = fused_mlp_step._workspace.kept
+    for batch in range(1, fused_mlp_step.WORKSPACES_KEPT + 3):
+        fused_tower_grad(*_tower_inputs(dims, batch, "mixed", cuda_device), dims, 0.5)
+    assert len(kept) == fused_mlp_step.WORKSPACES_KEPT
+    assert all(key[2] > 2 for key in kept)  # (device, lanes, batch, dims): 1 and 2 went
+    args = _tower_inputs(dims, batch, "mixed", cuda_device)
+    before = fused_mlp_step._workspace(args[0].device, 1, batch, dims)
+    fused_tower_grad(*args, dims, 0.5)
+    assert fused_mlp_step._workspace(args[0].device, 1, batch, dims) is before
+    torch.cuda.synchronize()
+    new = _tower_inputs(dims, 99, "mixed", cuda_device)
+    with torch.cuda.graph(torch.cuda.CUDAGraph()):
+        with pytest.raises(RuntimeError, match="capture"):
+            fused_tower_grad(*new, dims, 0.5)
+        fused_tower_grad(*args, dims, 0.5)  # a shape already seen captures
+
+
+@pytest.mark.gpu
+def test_tower_slab_rows_change_no_bit(cuda_device, monkeypatch):
+    """16-, 32- and 64-row slabs give the same bits, which is what lets the
+    plan pick the slab by how full the card is and lane l still equal the
+    single-lane call."""
+    args = _tower_inputs(BENCH_DIMS, 1024, "mixed", cuda_device)
+    plan = fused_mlp_step.k1_launch_plan
+    outs = {}
+    for rows in (16, 32, 64):
+        monkeypatch.setattr(
+            fused_mlp_step, "k1_launch_plan",
+            lambda d, b, l, sms=132, rows=rows: plan(d, b, l, sms)._replace(
+                slab_rows=rows, slabs=-(-b // rows)))
+        loss, dx, grads = fused_tower_grad(*args, BENCH_DIMS, 0.5)
+        outs[rows] = [loss, dx, *grads]
+    for rows in (32, 64):
+        assert all(torch.equal(a, b) for a, b in zip(outs[16], outs[rows]))
+
+
+@pytest.mark.gpu
 def test_ring_gather_kernel(cuda_device):
     """K3 exact against K2 and the plain version for k 32 and 128 (and odd
-    depths and sizes); a ring that does not fit shared memory raises."""
+    depths and sizes); its grid covers the card; a ring that does not fit
+    shared memory raises."""
     rng = np.random.default_rng(0)
     n, d, b = 100_000, 128, 1024
     table = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32)).to(cuda_device)
@@ -183,8 +279,33 @@ def test_ring_gather_kernel(cuda_device):
     small = table[:50, :8].contiguous()
     assert torch.equal(gather_rows_pipelined(small, ids[:100], k=16),
                        embedding_lookup_reference(small, ids[:100]))
+    sms = _cuda.sm_count(cuda_device)
+    assert ring_plan(b, 32, d, sms).blocks >= 64
+    many = torch.zeros((sms * 4 * 450,), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
-        gather_rows_pipelined(table, ids, k=1024)  # 512 KB of ring
+        gather_rows_pipelined(table, many, k=450)  # 450 rows a block: 234 KB of ring
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 32, 128, "B+1"])
+@pytest.mark.parametrize("b", [1, 1024, 30720])
+def test_ring_gather_kernel_grid(cuda_device, b, k):
+    """K3 exact against the plain version and K2 with ids out of range, from
+    one id to the lane step's 30720 (where a block's ring turns), for ring
+    depths below, at and beyond a block's rows."""
+    rng = np.random.default_rng(b)
+    n, d = 100_000, 128
+    table = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32)).to(cuda_device)
+    ids_np = rng.integers(0, n, b).astype(np.int32)
+    edge = [-1, n, -(2**31), 2**31 - 1, n + 7]
+    ids_np[-min(b, 5):] = edge[: min(b, 5)]
+    ids = torch.from_numpy(ids_np).to(cuda_device)
+    before = gather_rows_pipelined.launches
+    got = gather_rows_pipelined(table, ids, k=b + 1 if k == "B+1" else k)
+    torch.cuda.synchronize()
+    assert gather_rows_pipelined.launches == before + 1
+    assert torch.equal(got, embedding_lookup_reference(table, ids))
+    assert torch.equal(got, embedding_lookup(table, ids))
 
 
 @pytest.mark.gpu
