@@ -19,11 +19,16 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      on different sides of 0 are counted and their rows set aside),
      with a partial and an all-pad lane in the same call, each lane bit-equal
      to the single-lane call, and its time;
-  4. kernel K2 (row gather) against its plain version on a [100000, 128]
-     table with out-of-range ids, and its time beside the plain version's
-     and torch.nn.functional.embedding's (a yardstick the port never calls);
-     the same at the DR lane-step's shapes (30720 ids flattened over 30
-     lanes, on the shared table and on a lane-stacked domain table);
+  4. kernel K2 (the field gather: three tables' rows into the tower input x
+     in one launch) exactly against its plain version at the DN step's shape
+     (3 fields x 1024 ids, two [100000, 128] tables with out-of-range ids, a
+     [30, 128] domain table with one id) and at the DR lane-step's (3 x 30720
+     ids over 30 lanes, a lane-stacked [30, 30, 128] domain table, ids out of
+     range in every lane), with the row ids it writes; its time at both over
+     4 id sets in turn beside the route it replaces (three one-field
+     launches and torch.cat), the plain version, and torch.cat of three
+     torch.nn.functional.embedding calls (a yardstick the port never calls),
+     and its bound from the rows the ids touch; its one-field case timed too;
      kernel K3 (the ring gather) exact against both at k 32 and k 128, at
      1024 ids and at 30720 ids (where a block's ring turns) with ids out of
      range, and at a k larger than a block's rows; its time at both sizes,
@@ -83,8 +88,11 @@ def main() -> int:
     from mamdr_tpu_torch.ops.embedding_lookup import (
         embedding_lookup,
         embedding_lookup_reference,
+        gather_fields,
+        gather_fields_reference,
         gather_rows_pipelined,
         ring_plan,
+        table_rows,
     )
     from mamdr_tpu_torch.ops.fused_mlp_step import (
         fused_tower_grad,
@@ -92,7 +100,6 @@ def main() -> int:
         k1_cuda_launches,
         k1_launch_plan,
         make_fast_loss_grad,
-        table_rows,
         tower_grad_reference,
         tower_grad_reference_lanes,
     )
@@ -255,103 +262,179 @@ def main() -> int:
           f"{EARLIER_US['K1 30 lanes']:.1f} us (recorded) -> {k1l_ms * 1e3:.1f} us; {card}")
     del args, lk, dxk, gk, r
 
-    # ---- 4. K2 vs its plain version ----
-    n_rows, dim = 100_000, 128
-    table = torch.from_numpy(rng.normal(0, 0.1, (n_rows, dim)).astype(np.float32)).to(dev)
-    ids_np = rng.integers(0, n_rows, batch).astype(np.int32)
-    ids_np[:6] = [-1, -(2**31), n_rows, n_rows + 5, 2**31 - 1, n_rows - 1]
-    ids = torch.from_numpy(ids_np).to(dev)
+    # ---- 4. K2, the field gather, vs its plain version ----
+    # The DN step's shapes: user and item tables [100000, 128], the domain
+    # table [30, 128], 1024 ids of each, every domain id one and the same (a
+    # batch is one domain's); uid and pid with ids out of range or at the edge.
+    n_rows, dim, n_dom = 100_000, 128, 30
+    mask = (False, False, True)  # what the train step marks: the domain table trains
+
+    def rand_table(shape, scale=0.1):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    def rand_ids(n, shape, edges=True):
+        a = rng.integers(0, n, shape).astype(np.int32)
+        if edges:
+            a[..., :6] = [-1, -(2**31), n, n + 5, 2**31 - 1, n - 1]
+        return torch.from_numpy(a).to(dev)
+
+    table, item_table, dom_table = (rand_table((n_rows, dim)), rand_table((n_rows, dim)),
+                                    rand_table((n_dom, dim), 1e-4))
+    dn_tables = (table, item_table, dom_table)
+    ids = rand_ids(n_rows, batch)
+    dn_ids = (ids, rand_ids(n_rows, batch), torch.full((batch,), 7, dtype=torch.int32,
+                                                       device=dev))
+    x_k, flats_k = gather_fields(dn_tables, dn_ids, train_mask=(True, True, True))
+    x_p, flats_p = gather_fields_reference(dn_tables, dn_ids, train_mask=(True, True, True))
+    torch.cuda.synchronize()
+    k2_err = float((x_k - x_p).abs().max())
+    if k2_err != 0.0 or not all(torch.equal(a, b) for a, b in zip(flats_k, flats_p)):
+        fail(f"K2 differs from the plain field gather at the DN step's shape: max abs err "
+             f"{k2_err}, row ids equal {[torch.equal(a, b) for a, b in zip(flats_k, flats_p)]}")
+    print(f"K2 gather_fields vs plain [3 fields x {batch} ids: two {n_rows}x{dim} tables with 6 "
+          f"ids out of range or at the edge, a {n_dom}x{dim} domain table with one id]: x "
+          f"{tuple(x_k.shape)}, max abs err {k2_err} (tol 0: a gather is exact); the row ids "
+          f"it wrote equal table_rows'")
+    # K2's one-field case, which K3 is held to and timed beside (4b)
     got = embedding_lookup(table, ids)
     want = embedding_lookup_reference(table, ids)
     torch.cuda.synchronize()
-    k2_err = float((got - want).abs().max())
-    # the domain table's shape on the main path: [30, 128], one id per batch
-    dom_table = torch.from_numpy(rng.normal(0, 1e-4, (30, dim)).astype(np.float32)).to(dev)
-    dom_ids = torch.full((batch,), 7, dtype=torch.int32, device=dev)
-    dom_err = float((embedding_lookup(dom_table, dom_ids)
-                     - embedding_lookup_reference(dom_table, dom_ids)).abs().max())
-    if k2_err != 0.0 or dom_err != 0.0:
-        fail(f"K2 differs from the plain gather: max abs err {k2_err}, {dom_err}")
-    print(f"K2 gather_rows vs plain [{n_rows}x{dim} table, {batch} ids, 6 out of range "
-          f"or at the edge; and a 30x{dim} domain table]: max abs err {k2_err}, "
-          f"{dom_err} (tol 0: a gather is exact)")
-    ids_long = ids.long().clamp(0, n_rows - 1)
-    k2_ms = device_ms(lambda: embedding_lookup(table, ids), inner=50)
-    k2_plain_ms = device_ms(lambda: embedding_lookup_reference(table, ids), inner=50)
-    k2_lib_ms = device_ms(lambda: torch.nn.functional.embedding(ids_long, table), inner=50)
-    k2_bytes = 4 * batch + 2 * 4 * batch * dim
-    k2_bound = k2_bytes / HBM_BYTES * 1e3
-    print(f"K2 time: {k2_ms * 1e3:.2f} us/call; plain {k2_plain_ms * 1e3:.2f} us; "
-          f"F.embedding {k2_lib_ms * 1e3:.2f} us; bound {k2_bound * 1e3:.3f} us "
-          f"({k2_bytes / 1e6:.3f} MB); {card}")
+    one_err = float((got - want).abs().max())
+    if one_err != 0.0:
+        fail(f"K2's one-field case differs from the plain gather: max abs err {one_err}")
 
-    # ---- 4a. K2 at the DR lane-step's shapes ----
-    # 30 lanes x 1024 ids flattened into one launch, built as the lane step
-    # builds them (table_rows): on the table every lane shares, and on a
-    # lane-stacked [30, 30, 128] domain table gathered as its [900, 128] view,
-    # every lane with ids below 0 and past its own rows. Held exactly against
-    # the plain gather through the same builder and against indexing each
-    # lane's table on its own.
-    lane_ids_np = rng.integers(0, n_rows, (lanes, batch)).astype(np.int32)
-    lane_ids_np[:, :6] = [-1, -(2**31), n_rows, n_rows + 5, 2**31 - 1, n_rows - 1]
-    lane_ids = torch.from_numpy(lane_ids_np).to(dev)
-    n_dom = 30
-    dom_stack = torch.from_numpy(
-        rng.normal(0, 1e-2, (lanes, n_dom, dim)).astype(np.float32)).to(dev)
-    dom_ids_np = rng.integers(0, n_dom, (lanes, batch)).astype(np.int32)
-    dom_ids_np[:, :6] = [-1, -(2**31), n_dom, n_dom + 1, 2**31 - 1, n_dom - 1]
-    dom_lane_ids = torch.from_numpy(dom_ids_np).to(dev)
-    before = embedding_lookup.launches
-    k2l_err = 0.0
-    for tab, lids, alone in (
-            (table, lane_ids, table[lane_ids.long().clamp(0, n_rows - 1)]),
-            (dom_stack, dom_lane_ids,
-             dom_stack[torch.arange(lanes, device=dev)[:, None],
-                       dom_lane_ids.long().clamp(0, n_dom - 1)])):
-        rows_k, flat_k = table_rows(tab, lids, embedding_lookup)
-        rows_p, _ = table_rows(tab, lids, embedding_lookup_reference)
-        torch.cuda.synchronize()
-        if rows_k.shape != (lanes, batch, dim) or flat_k.numel() != lanes * batch:
-            fail(f"K2 over lanes: rows {tuple(rows_k.shape)}")
-        k2l_err = max(k2l_err, float((rows_k - rows_p).abs().max()),
-                      float((rows_k - alone).abs().max()))
-    if k2l_err != 0.0 or embedding_lookup.launches != before + 2:
-        fail(f"K2 at the lane step's shapes differs from the plain gather: {k2l_err}")
-    print(f"K2 gather_rows vs plain [{lanes * batch} ids over {lanes} lanes, 6 a lane out of "
-          f"range or at the edge: the shared {n_rows}x{dim} table and a lane-stacked "
-          f"{lanes}x{n_dom}x{dim} table as its {lanes * n_dom}x{dim} view]: max abs err "
-          f"{k2l_err} (tol 0)")
-    # Timed over 4 id sets taken in turn, so that a replay does not find the
-    # rows it read last time in the 50 MB L2 (one call moves 31.6 MB; on the
-    # main path 2 ms of K1 run between two gathers). With one id set replayed,
-    # the time falls below the device-memory bound.
-    id_sets = [torch.from_numpy(rng.integers(0, n_rows, lanes * batch).astype(np.int32)).to(dev)
-               for _ in range(4)]
-    long_sets = [i.long() for i in id_sets]
+    def replaced_route(tables, field_ids):
+        """What a step did before K2 gathered fields: one launch a field
+        (for a lane-stacked table the lane's clamp and offset first, on the
+        host path), then torch.cat."""
+        parts = []
+        for t, i in zip(tables, field_ids):
+            if t.dim() == 3:
+                i = i.clamp(0, t.shape[1] - 1) + torch.arange(
+                    t.shape[0], dtype=i.dtype, device=dev)[:, None] * t.shape[1]
+            parts.append(embedding_lookup(t.reshape(-1, t.shape[-1]), i.reshape(-1))
+                         .reshape(*i.shape, -1))
+        return torch.cat(parts, dim=-1)
+
     turn = [0]
 
     def in_turn(fn, sets):
         turn[0] += 1
         return fn(sets[turn[0] % len(sets)])
 
-    _, dom_flat = table_rows(dom_stack, dom_lane_ids, embedding_lookup_reference)
-    dom_view = dom_stack.reshape(lanes * n_dom, dim)
-    k2l_ms = device_ms(lambda: in_turn(lambda i: embedding_lookup(table, i), id_sets),
-                       inner=48)
-    k2l_same_ms = device_ms(lambda: embedding_lookup(table, id_sets[0]), inner=48)
-    k2l_dom_ms = device_ms(lambda: embedding_lookup(dom_view, dom_flat), inner=48)
-    k2l_plain_ms = device_ms(
+    def field_timings(tables, sets):
+        """Device ms a call over id sets taken in turn (so that a replay does
+        not find the rows it read last time in the 50 MB L2; on the main path
+        K1 runs between two gathers): K2, the route it replaces, the plain
+        version, and the library composite (torch.cat of F.embedding calls
+        on the clamped flat ids, made beforehand)."""
+        views = [t.reshape(-1, t.shape[-1]) for t in tables]
+        long_sets = [[table_rows(t, i)[1].long() for t, i in zip(tables, s)] for s in sets]
+        library = lambda ls: torch.cat(  # noqa: E731
+            [torch.nn.functional.embedding(i, v) for i, v in zip(ls, views)], dim=-1)
+        return {
+            "k2": device_ms(lambda: in_turn(
+                lambda s: gather_fields(tables, s, train_mask=mask), sets), inner=48),
+            "route": device_ms(lambda: in_turn(lambda s: replaced_route(tables, s), sets),
+                               inner=48),
+            "plain": device_ms(lambda: in_turn(
+                lambda s: gather_fields_reference(tables, s, train_mask=mask), sets), inner=48),
+            "library": device_ms(lambda: in_turn(library, long_sets), inner=48),
+        }
+
+    def field_bound(tables, sets):
+        """The least bytes a call moves, averaged over the id sets: every
+        table row its ids touch read once, the ids read, x and the marked
+        fields' row ids written; and the rule that counts a row for every id
+        (every row read, x written, the ids read)."""
+        least = every = 0
+        for s in sets:
+            n_ids, width = s[0].numel(), sum(t.shape[-1] for t in tables)
+            io = 4 * n_ids * (len(s) + width)
+            least += io + 4 * n_ids * sum(mask) + sum(
+                4 * t.shape[-1] * int(torch.unique(table_rows(t, i)[1]).numel())
+                for t, i in zip(tables, s))
+            every += io + 4 * n_ids * width
+        return least / len(sets), every / len(sets)
+
+    def timing_line(what, t, least, every):
+        return (f"K2 time at {what} (4 id sets in turn): {t['k2'] * 1e3:.2f} us/call; the route "
+                f"it replaces (3 one-field launches + torch.cat) {t['route'] * 1e3:.2f} us "
+                f"({t['route'] / t['k2']:.2f}x K2); plain {t['plain'] * 1e3:.2f} us; torch.cat "
+                f"of 3 F.embedding {t['library'] * 1e3:.2f} us; bound "
+                f"{least / HBM_BYTES * 1e6:.3f} us ({least / 1e6:.3f} MB: rows touched once, "
+                f"ids, x, row ids; {least / HBM_BYTES * 1e3 / t['k2'] * 100:.1f}% of it), "
+                f"{every / HBM_BYTES * 1e6:.3f} us counting a row for every id "
+                f"({every / 1e6:.3f} MB); {card}")
+
+    dn_sets = [(rand_ids(n_rows, batch, False), rand_ids(n_rows, batch, False),
+                torch.full((batch,), d, dtype=torch.int32, device=dev)) for d in (3, 11, 19, 27)]
+    dn_t = field_timings(dn_tables, dn_sets)
+    dn_least, dn_every = field_bound(dn_tables, dn_sets)
+    k2_bound = dn_least / HBM_BYTES * 1e3
+    print(timing_line(f"the DN step's shape ({batch} ids)", dn_t, dn_least, dn_every))
+    # the one-field case at 1024 ids, for K3's comparison (4b)
+    ids_long = ids.long().clamp(0, n_rows - 1)
+    one_ms = device_ms(lambda: embedding_lookup(table, ids), inner=50)
+    one_plain_ms = device_ms(lambda: embedding_lookup_reference(table, ids), inner=50)
+    one_lib_ms = device_ms(lambda: torch.nn.functional.embedding(ids_long, table), inner=50)
+    one_bytes = 4 * batch + 2 * 4 * batch * dim
+    one_bound = one_bytes / HBM_BYTES * 1e3
+    print(f"K2 one field, {batch} ids: {one_ms * 1e3:.2f} us/call; plain "
+          f"{one_plain_ms * 1e3:.2f} us; F.embedding {one_lib_ms * 1e3:.2f} us; bound "
+          f"{one_bound * 1e3:.3f} us ({one_bytes / 1e6:.3f} MB); {card}")
+
+    # ---- 4a. K2 at the DR lane-step's shapes ----
+    # 30 lanes x 1024 ids of three fields in one launch: the user and item
+    # tables every lane shares, and a lane-stacked [30, 30, 128] domain table
+    # (a lane's own), every lane with ids below 0 and past its own rows. Held
+    # exactly against the plain version and against indexing each lane's
+    # table on its own.
+    lane_ids = rand_ids(n_rows, (lanes, batch))
+    dom_stack = rand_table((lanes, n_dom, dim), 1e-2)
+    dr_tables = (table, item_table, dom_stack)
+    dr_ids = (lane_ids, rand_ids(n_rows, (lanes, batch)), rand_ids(n_dom, (lanes, batch)))
+    before = gather_fields.launches
+    x_k, flats_k = gather_fields(dr_tables, dr_ids, train_mask=(True, True, True))
+    x_p, flats_p = gather_fields_reference(dr_tables, dr_ids, train_mask=(True, True, True))
+    lane_of = torch.arange(lanes, device=dev)[:, None]
+    alone = torch.cat([table[dr_ids[0].long().clamp(0, n_rows - 1)],
+                       item_table[dr_ids[1].long().clamp(0, n_rows - 1)],
+                       dom_stack[lane_of, dr_ids[2].long().clamp(0, n_dom - 1)]], dim=-1)
+    torch.cuda.synchronize()
+    k2l_err = max(float((x_k - x_p).abs().max()), float((x_k - alone).abs().max()))
+    if (k2l_err != 0.0 or gather_fields.launches != before + 1
+            or x_k.shape != (lanes, batch, 3 * dim)
+            or not all(torch.equal(a, b) for a, b in zip(flats_k, flats_p))):
+        fail(f"K2 at the lane step's shape differs from the plain field gather: {k2l_err}")
+    print(f"K2 gather_fields vs plain [3 fields x {lanes * batch} ids over {lanes} lanes, 6 a "
+          f"lane out of range or at the edge: two shared {n_rows}x{dim} tables and a "
+          f"lane-stacked {lanes}x{n_dom}x{dim} domain table]: x {tuple(x_k.shape)}, max abs "
+          f"err {k2l_err} (tol 0), also against indexing each lane's table; the row ids equal")
+    # timed as the lane step runs it: a lane's batch is one domain's
+    dr_sets = [(rand_ids(n_rows, (lanes, batch), False), rand_ids(n_rows, (lanes, batch), False),
+                rand_ids(n_dom, (lanes, 1), False).expand(lanes, batch).contiguous())
+               for _ in range(4)]
+    dr_t = field_timings(dr_tables, dr_sets)
+    dr_least, dr_every = field_bound(dr_tables, dr_sets)
+    k2l_bound = dr_least / HBM_BYTES * 1e3
+    print(timing_line(f"the DR lane-step's shape ({lanes * batch} ids)", dr_t, dr_least,
+                      dr_every))
+    # the one-field case at 30720 ids, for K3's comparison (4b)
+    id_sets = [s[0].reshape(-1) for s in dr_sets]
+    long_sets = [i.long() for i in id_sets]
+    one_l_ms = device_ms(lambda: in_turn(lambda i: embedding_lookup(table, i), id_sets),
+                         inner=48)
+    one_l_plain_ms = device_ms(
         lambda: in_turn(lambda i: embedding_lookup_reference(table, i), id_sets), inner=48)
-    k2l_lib_ms = device_ms(
+    one_l_lib_ms = device_ms(
         lambda: in_turn(lambda i: torch.nn.functional.embedding(i, table), long_sets), inner=48)
-    k2l_bytes = 4 * lanes * batch + 2 * 4 * lanes * batch * dim
-    k2l_bound = k2l_bytes / HBM_BYTES * 1e3
-    print(f"K2 time at {lanes * batch} ids: {k2l_ms * 1e3:.2f} us/call on the shared table "
-          f"(4 id sets in turn; {k2l_same_ms * 1e3:.2f} us with one id set replayed, its rows "
-          f"in L2), {k2l_dom_ms * 1e3:.2f} us on the {lanes * n_dom}-row view; plain "
-          f"{k2l_plain_ms * 1e3:.2f} us; F.embedding {k2l_lib_ms * 1e3:.2f} us; bound "
-          f"{k2l_bound * 1e3:.3f} us ({k2l_bytes / 1e6:.3f} MB); {card}")
-    del dom_stack, dom_view, rows_k, rows_p, alone
+    one_l_bytes = 4 * lanes * batch + 2 * 4 * lanes * batch * dim
+    one_l_bound = one_l_bytes / HBM_BYTES * 1e3
+    print(f"K2 one field, {lanes * batch} ids (4 id sets in turn): {one_l_ms * 1e3:.2f} us/call; "
+          f"plain {one_l_plain_ms * 1e3:.2f} us; F.embedding {one_l_lib_ms * 1e3:.2f} us; bound "
+          f"{one_l_bound * 1e3:.3f} us ({one_l_bytes / 1e6:.3f} MB); {card}")
+    del dom_stack, x_k, x_p, alone, flats_k, flats_p, dn_sets, dr_sets
 
     # ---- 4b. K3 vs its plain version and vs K2 ----
     # k3_err[(k, ids)]: that launch against the plain version and against K2
@@ -395,15 +478,15 @@ def main() -> int:
              for k in probe_gather.RING_DEPTHS}
     print("K3 time at 1024 ids: "
           + ", ".join(f"k {k}: {v * 1e3:.2f} us/call" for k, v in k3_ms.items())
-          + f"; K2 {k2_ms * 1e3:.2f} us; F.embedding {k2_lib_ms * 1e3:.2f} us; "
-          f"bound {k2_bound * 1e3:.3f} us; {card}")
+          + f"; K2's one-field case {one_ms * 1e3:.2f} us; F.embedding "
+          f"{one_lib_ms * 1e3:.2f} us; bound {one_bound * 1e3:.3f} us; {card}")
     k3l_ms = {k: device_ms(
         lambda k=k: in_turn(lambda i: gather_rows_pipelined(table, i, k=k), id_sets), inner=48)
         for k in probe_gather.RING_DEPTHS}
     print(f"K3 time at {lanes * batch} ids (4 id sets in turn): "
           + ", ".join(f"k {k}: {v * 1e3:.2f} us/call" for k, v in k3l_ms.items())
-          + f"; K2 {k2l_ms * 1e3:.2f} us; F.embedding {k2l_lib_ms * 1e3:.2f} us; "
-          f"bound {k2l_bound * 1e3:.3f} us; {card}")
+          + f"; K2's one-field case {one_l_ms * 1e3:.2f} us; F.embedding "
+          f"{one_l_lib_ms * 1e3:.2f} us; bound {one_l_bound * 1e3:.3f} us; {card}")
     print("K3 at 1024 ids, before and after its redesign: "
           + ", ".join(f"k {k}: {EARLIER_US[f'K3 k {k}']:.2f} us (recorded) -> "
                       f"{k3_ms[k] * 1e3:.2f} us" for k in probe_gather.RING_DEPTHS)
@@ -422,7 +505,7 @@ def main() -> int:
         fail(f"the gather probe launched K3 {k3_launches} (k, ids): {probe_rows}")
     print(f"gather probe: K3 launched {gather_rows_pipelined.launches}x; by (k, ids) "
           f"{ {f'k {k}, {n} ids': v for (k, n), v in k3_launches.items()} }")
-    del table, got, want, ring
+    del table, item_table, dn_tables, dr_tables, got, want, ring
 
     # ---- 5. the slice at bench.py's shapes ----
     t0 = time.perf_counter()
@@ -434,7 +517,7 @@ def main() -> int:
 
     def hold_step(build, kernel, plain, state, cols):
         """One step through the kernels against the same step through the
-        independent plain versions; build(tower_grad, lookup) -> step. Rows
+        independent plain versions; build(tower_grad, gather) -> step. Rows
         where K1 and the plain version take a ReLU unit differently (counted,
         each at 0 within rounding) get weight 0 in both. Compared: the loss
         and the optimizer's new moments mu, nu (linear and quadratic in the
@@ -450,8 +533,8 @@ def main() -> int:
         def moments(s, loss):
             return [loss, s.opt_state.mu, s.opt_state.nu]
 
-        step_p = build(plain, embedding_lookup_reference)
-        s_k, l_k = build(spy, embedding_lookup)(state, cols)
+        step_p = build(plain, gather_fields_reference)
+        s_k, l_k = build(spy, gather_fields)(state, cols)
         s_p, l_p = step_p(state, cols)
         _, rel = worst_errors(moments(s_k, l_k), moments(s_p, l_p))
         note = ""
@@ -460,7 +543,7 @@ def main() -> int:
             note = (f"{flips} ReLU units on the edge in {int(rows.sum())} rows set aside "
                     f"(with none set aside: {rel:.2e})")
             cols = {**cols, "weight": torch.where(rows, 0.0, cols["weight"])}
-            s_k, l_k = build(kernel, embedding_lookup)(state, cols)
+            s_k, l_k = build(kernel, gather_fields)(state, cols)
             s_p, l_p = step_p(state, cols)
             _, rel = worst_errors(moments(s_k, l_k), moments(s_p, l_p))
         if not rel <= K1_REL_TOL:
@@ -471,10 +554,10 @@ def main() -> int:
     # One train step on the first batch of domain 0.
     batch0 = {k: v[0, :batch].contiguous() for k, v in strat._block.items()}
     s_k, l_k, l_p, step_err, _, step_note = hold_step(
-        lambda tower, lookup: make_train_step(
+        lambda tower, gather: make_train_step(
             trainer.model, trainer.tx, trainer.step_cfg,
             loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
-                                          tower_grad=tower, lookup=lookup)),
+                                          tower_grad=tower, gather=gather)),
         fused_tower_grad, tower_grad_reference, trainer.state, batch0)
     if int(s_k.step) != 1 or not all(bool(torch.isfinite(p).all())
                                      for p in trees.leaves(s_k.params)):
@@ -487,16 +570,16 @@ def main() -> int:
     steps = sum(trainer.steps_per_domain())
     n_examples = sum(s.n for s in ds.train)
     fused_tower_grad.launches = 0
-    embedding_lookup.launches = 0
+    gather_fields.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = strat.run_dn_phase()  # ends in the phase's one host sync
     dn_s = time.perf_counter() - t0
     k1_launches = fused_tower_grad.launches
-    k2_launches = embedding_lookup.launches
-    if k1_launches != steps or k2_launches != 3 * steps:
+    k2_launches = gather_fields.launches  # one field gather a step writes x
+    if k1_launches != steps or k2_launches != steps:
         fail(f"DN phase launched K1 {k1_launches}x and K2 {k2_launches}x, "
-             f"expected {steps} and {3 * steps}")
+             f"expected {steps} and {steps}")
     if losses.shape != (n_domain,) or not np.all(np.isfinite(losses)):
         fail(f"DN losses not {n_domain} finite values: {losses}")
     if int(trainer.state.step) != steps:
@@ -536,19 +619,19 @@ def main() -> int:
     frozen0 = {n: x for n, x in trees.leaves_with_names(trainer.state.params)
                if "user_emb" in n or "item_emb" in n}
     fused_tower_grad.launches = fused_tower_grad_lanes.launches = 0
-    embedding_lookup.launches = 0
+    gather_fields.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     strat.run_dr_phase()
     torch.cuda.synchronize()
     dr_s = time.perf_counter() - t0
     k1l_launches = fused_tower_grad_lanes.launches
-    k2_dr_launches = embedding_lookup.launches
-    if (k1l_launches != lane_steps or k2_dr_launches != 3 * lane_steps
+    k2_dr_launches = gather_fields.launches  # one field gather a lane-step writes x
+    if (k1l_launches != lane_steps or k2_dr_launches != lane_steps
             or fused_tower_grad.launches != 0):
         fail(f"DR phase launched K1-lanes {k1l_launches}x, K2 {k2_dr_launches}x and "
              f"single-lane K1 {fused_tower_grad.launches}x; expected {lane_steps}, "
-             f"{3 * lane_steps} and 0")
+             f"{lane_steps} and 0")
     if int(trainer.state.step) != entry_step + last_lane_steps:
         fail(f"state.step {int(trainer.state.step)} after DR, expected "
              f"{entry_step} + {last_lane_steps}")
@@ -599,10 +682,10 @@ def main() -> int:
     lane_batch = {k: v[:, :batch].contiguous() for k, v in strat._block.items()}
     k1l_before = fused_tower_grad_lanes.launches
     s_k, l_k, l_p, lane_step_err, lane_step_flips, lane_step_note = hold_step(
-        lambda tower, lookup: make_subset_train_step(
+        lambda tower, gather: make_subset_train_step(
             trainer.model, trainer.tx, trainer.step_cfg, frozen_mask, trainer.state.params,
             loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
-                                          tower_grad=tower, lookup=lookup))[0],
+                                          tower_grad=tower, gather=gather))[0],
         fused_tower_grad_lanes, tower_grad_reference_lanes, lane_state, lane_batch)
     if fused_tower_grad_lanes.launches != k1l_before + 1 + bool(lane_step_flips):
         fail("the DR lane-step did not launch K1-lanes exactly once")
@@ -629,20 +712,24 @@ def main() -> int:
          "launches": k1l_launches, "max_abs_err": k1l_err, "relu_edge_units": k1l_flips,
          "ms": k1l_ms, "plain_ms": k1l_plain_ms, "bound_ms": k1l_bound,
          "bound_by": "operations", "library_ms": None},
-        # K2 twice: the DN step's shape (1024 ids) with the DN phase's launches,
-        # and the DR lane-step's (30720 ids) with the DR phase's
-        {"name": "gather_rows", "route": "cuda",
+        # K2 twice: the DN step's shape (3 fields x 1024 ids) with the DN
+        # phase's launches, and the DR lane-step's (3 x 30720) with the DR
+        # phase's; library_ms is torch.cat of three F.embedding calls, and
+        # replaced_route_ms the three one-field launches and torch.cat
+        {"name": f"gather_fields (3 fields x {batch} ids, the DN step)", "route": "cuda",
          "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
          "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": "bytes", "library_ms": k2_lib_ms},
-        {"name": f"gather_rows ({lanes * batch} ids, the DR lane-step)", "route": "cuda",
-         "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": dn_t["library"],
+         "replaced_route_ms": dn_t["route"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, the DR lane-step)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
          "launches": k2_dr_launches, "max_abs_err": k2l_err,
-         "ms": k2l_ms, "plain_ms": k2l_plain_ms, "bound_ms": k2l_bound,
-         "bound_by": "bytes", "library_ms": k2l_lib_ms},
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"],
+         "replaced_route_ms": dr_t["route"]},
         # K3's path is the gather probe, which runs it at both sizes: each
         # entry has the launches the probe counted at its depth and size, and
         # the error of its own comparison in 4b. At 1024 ids both depths plan
@@ -651,15 +738,15 @@ def main() -> int:
            "source": "mamdr_tpu_torch/csrc/gather_rows_pipelined.cu",
            "replaces": "mamdr_tpu/ops/embedding_lookup.py:103",
            "launches": k3_launches[k, batch], "max_abs_err": k3_err[k, batch],
-           "ms": k3_ms[k], "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-           "bound_by": "bytes", "library_ms": k2_lib_ms} for k in probe_gather.RING_DEPTHS],
+           "ms": k3_ms[k], "plain_ms": one_plain_ms, "bound_ms": one_bound,
+           "bound_by": "bytes", "library_ms": one_lib_ms} for k in probe_gather.RING_DEPTHS],
         *[{"name": f"gather_rows_pipelined (k {k}, {lanes * batch} ids)", "route": "cuda",
            "source": "mamdr_tpu_torch/csrc/gather_rows_pipelined.cu",
            "replaces": "mamdr_tpu/ops/embedding_lookup.py:103",
            "launches": k3_launches[k, lanes * batch],
            "max_abs_err": k3_err[k, lanes * batch],
-           "ms": k3l_ms[k], "plain_ms": k2l_plain_ms, "bound_ms": k2l_bound,
-           "bound_by": "bytes", "library_ms": k2l_lib_ms} for k in probe_gather.RING_DEPTHS],
+           "ms": k3l_ms[k], "plain_ms": one_l_plain_ms, "bound_ms": one_l_bound,
+           "bound_by": "bytes", "library_ms": one_l_lib_ms} for k in probe_gather.RING_DEPTHS],
     ]}))
     # ---- 7. ----
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ On one CUDA card, from the repository root. Prints
   2. for the Domain-Negotiation phase at bench.py's shapes (360 train
      steps): the wall time per step without the profiler, the device busy
      time per step (the sum of kernel times in a profiled run), the idle
-     share, and the kernels that take the most device time;
+     share, CUDA launches per step, and the kernels that take the most
+     device time;
   3. for the Domain-Regularization phase of the same epoch, run as 30
      query-domain lanes (144 lane-steps): the same per lane-step — wall
      time, device busy time, idle share, CUDA launches per lane-step, the
@@ -103,8 +104,10 @@ def main() -> int:
         torch.cuda.synchronize()
     kt = _kernel_times(prof)
     busy = sum(us for _, us in kt.values()) / steps
+    launches = sum(n for n, _ in kt.values()) / steps
     print(f"DN step: {wall * 1e6:.1f} us wall without the profiler, {busy:.1f} us device "
-          f"busy, idle share {1 - busy / (wall * 1e6):.3f}; {steps} steps ({smi})")
+          f"busy, idle share {1 - busy / (wall * 1e6):.3f}, {launches:.0f} CUDA launches; "
+          f"{steps} steps ({smi})")
     for name, (n, us) in sorted(kt.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {us / steps:8.2f} us/step  {n / steps:5.1f}x/step  {_short(name)}")
 

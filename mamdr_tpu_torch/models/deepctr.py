@@ -45,9 +45,7 @@ class MLP(nn.Module):
     def forward(self, uid, pid, domain, seeds=None) -> torch.Tensor:
         """Logits [B]. seeds: per-layer uint32 dropout seeds (training) or
         None (evaluation)."""
-        u, p, d = self.embedding(uid, pid, domain)
-        x = torch.cat([u, p, d], dim=-1)
-        return self.logit(self.dnn(x, seeds))
+        return self.logit(self.dnn(self.embedding(uid, pid, domain), seeds))
 
     def param_tree(self):
         """The module's own parameters as a flax-named nested dict (detached

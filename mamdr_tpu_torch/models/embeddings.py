@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from mamdr_tpu_torch.models.layers import emb_init
-from mamdr_tpu_torch.ops.embedding_lookup import embedding_lookup
+from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 
 
 def _table(pretrained: Optional[np.ndarray], shape, generator) -> nn.Parameter:
@@ -29,7 +29,9 @@ def _table(pretrained: Optional[np.ndarray], shape, generator) -> nn.Parameter:
 
 
 class EmbeddingBlock(nn.Module):
-    """Field embeddings -> (u, p, d), each [B, dim]."""
+    """Field embeddings -> x [B, user_dim + item_dim + domain_dim], the
+    concatenated (u, p, d) rows, by one field gather (kernel K2 on the card,
+    differentiable in the tables)."""
 
     def __init__(self, n_uid: int, n_pid: int, n_domain: int,
                  user_dim: int, item_dim: int, domain_dim: int,
@@ -42,8 +44,5 @@ class EmbeddingBlock(nn.Module):
         self.domain_emb = _table(None, (n_domain, domain_dim), generator)
 
     def forward(self, uid, pid, domain):
-        return (
-            embedding_lookup(self.user_emb, uid),
-            embedding_lookup(self.item_emb, pid),
-            embedding_lookup(self.domain_emb, domain),
-        )
+        return gather_fields((self.user_emb, self.item_emb, self.domain_emb),
+                             (uid, pid, domain))[0]

@@ -1,11 +1,22 @@
-"""Embedding lookup: gather table rows with clip semantics.
+"""Embedding lookups: the field gather that writes the tower input, and the
+row gather, both with clip semantics.
 
 Counterpart of ``mamdr_tpu/ops/embedding_lookup.py::embedding_lookup``
-(``jnp.take(..., mode="clip")``: out-of-range ids are clamped, as TF does).
-On a CUDA tensor it launches the port's row-gather kernel
-(``csrc/gather_rows.cu``, kernel K2), which replaces the Pallas row gather
-``pallas_gather_rows`` (``mamdr_tpu/ops/embedding_lookup.py:56``) and adds
-the clamp inside the kernel. On a CPU tensor it runs the plain version.
+(``jnp.take(..., mode="clip")``: out-of-range ids are clamped, as TF does)
+and of the ``jnp.concatenate`` of field lookups that forms the MLP tower's
+input (``mamdr_tpu/ops/fused_mlp_step.py:252-255``,
+``mamdr_tpu/models/deepctr.py:92-94``). ``gather_fields`` gathers up to four
+fields (tables with their ids, for one tower or for L lanes) straight into
+their column ranges of one output, in ONE launch of kernel K2
+(``csrc/gather_rows.cu``), which replaces the Pallas row gather
+``pallas_gather_rows`` (``mamdr_tpu/ops/embedding_lookup.py:56``) and clamps
+every id to its own lane's rows inside the kernel. It can also return the
+flat row ids it read, which the train step's scatter-add of the gradient
+takes; where a table requires a gradient it is an autograd function whose
+backward is that scatter-add (``jnp.take(mode="clip")``'s gradient).
+``embedding_lookup`` is its one-field case. On CPU tensors both run the
+plain version (``gather_fields_reference``: ``table_rows`` of each field and
+``torch.cat``).
 
 ``gather_rows_pipelined`` is the counterpart of
 ``pallas_gather_rows_pipelined`` (``:103``): the same gather through rings
@@ -19,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,55 +42,248 @@ def embedding_lookup_reference(table: torch.Tensor, ids: torch.Tensor) -> torch.
     return table[ids.long().clamp(0, table.shape[0] - 1)]
 
 
+def table_rows(table, ids):
+    """Rows of one field's table for one tower or for L lanes, by plain
+    indexing: the building block of ``gather_fields_reference``.
+
+    ``table`` [N, D] is one table: the single tower's (ids [B]) or one that
+    every lane reads (ids [L, B], flattened across lanes). ``table``
+    [L, N, D] holds a table per lane and is indexed as its [L*N, D] view,
+    ids [L, B] clipped to the lane's rows before the lane's offset is added,
+    so clip semantics hold per lane. Returns (rows [*ids.shape, D], the flat
+    row ids read: clamped, lane offset added, ids' dtype).
+    """
+    if table.dim() == 2:
+        flat = ids.reshape(-1).clamp(0, table.shape[0] - 1)
+    else:
+        lanes, n = table.shape[:2]
+        offset = torch.arange(lanes, dtype=ids.dtype, device=ids.device)[:, None] * n
+        flat = (ids.clamp(0, n - 1) + offset).reshape(-1)
+    rows = embedding_lookup_reference(table.reshape(-1, table.shape[-1]), flat)
+    return rows.reshape(*ids.shape, -1), flat
+
+
+def scatter_rows(table_shape, flat: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The gradient of a gather with respect to its table: zeros of
+    ``table_shape`` ([N, D], or [L, N, D] as its [L*N, D] view) with each of
+    ``rows`` [..., D] added at its flat row id (``table_rows``' second
+    result). ``jnp.take(mode="clip")``'s gradient (XLA's scatter in the JAX
+    package, not a Pallas kernel; ``index_add_`` here)."""
+    d = table_shape[-1]
+    g = torch.zeros(table_shape, dtype=rows.dtype, device=rows.device)
+    g.view(-1, d).index_add_(0, flat.long(), rows.reshape(-1, d))
+    return g
+
+
+def _mask(train_mask, n: int) -> Tuple[bool, ...]:
+    mask = (False,) * n if train_mask is None else tuple(bool(m) for m in train_mask)
+    if len(mask) != n:
+        raise ValueError(f"train_mask has {len(mask)} entries for {n} fields")
+    return mask
+
+
+def gather_fields_reference(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
+                            train_mask: Optional[Sequence[bool]] = None):
+    """Plain PyTorch version of ``gather_fields``: ``table_rows`` of each
+    field, concatenated. Differentiable through indexing."""
+    parts = [table_rows(t, i) for t, i in zip(tables, ids)]
+    mask = _mask(train_mask, len(parts))
+    x = torch.cat([rows for rows, _ in parts], dim=-1)
+    return x, tuple(flat if m else None for (_, flat), m in zip(parts, mask))
+
+
+K2_MAX_FIELDS = 4       # descriptors the kernel's parameter struct holds
+K2_WARPS_PER_BLOCK = 4  # a block's warps, one an output row (2 and 8 time the same)
+
+
+class FieldPlan(NamedTuple):
+    """Kernel K2's launch for a set of fields (see ``field_plan``)."""
+    lanes: int                  # L (1 for one tower)
+    batch: int                  # ids of one lane
+    rows: int                   # output rows: lanes * batch
+    widths: Tuple[int, ...]     # D of each field
+    offsets: Tuple[int, ...]    # first output column of each field
+    n_rows: Tuple[int, ...]     # rows of one lane's table, each field
+    lane_strides: Tuple[int, ...]  # rows between lanes' tables: 0 shared, N stacked
+    blocks: int                 # grid: one warp an output row
+    threads: int                # a block (the C entry refuses more than 128)
+
+
+def field_plan(table_shapes: Sequence[Tuple[int, ...]], ids_shape: Tuple[int, ...]) -> FieldPlan:
+    """Kernel K2's launch, in plain Python, for fields whose tables have
+    ``table_shapes`` and whose ids all have ``ids_shape``: [B] (one tower,
+    tables [N, D]) or [L, B] (L lanes; a table [N, D] is read by every lane,
+    a table [L, N, D] is one a lane). Fields fill the output's columns in
+    order. Raises ``ValueError`` for what the kernel does not take: no field
+    or more than four, a width no multiple of 4 (a float4 unit), an empty
+    table, a lane-stacked table for one tower or for another number of
+    lanes, and row ids past int32."""
+    shapes = [tuple(int(n) for n in s) for s in table_shapes]
+    if not 1 <= len(shapes) <= K2_MAX_FIELDS:
+        raise ValueError(f"gather_fields takes 1 to {K2_MAX_FIELDS} fields, got {len(shapes)}")
+    if len(ids_shape) not in (1, 2):
+        raise ValueError(f"ids must be [B] or [L, B], got {tuple(ids_shape)}")
+    lanes, batch = (1, ids_shape[0]) if len(ids_shape) == 1 else tuple(ids_shape)
+    widths, offsets, n_rows, strides, off = [], [], [], [], 0
+    for s in shapes:
+        if len(s) == 3 and (len(ids_shape) != 2 or s[0] != lanes):
+            raise ValueError(f"a lane-stacked table {s} needs ids [{s[0]}, B], got "
+                             f"{tuple(ids_shape)}")
+        if len(s) not in (2, 3):
+            raise ValueError(f"a table must be [N, D] or [L, N, D], got {s}")
+        n, d = s[-2:]
+        if n < 1:
+            raise ValueError("empty table")
+        if d < 4 or d % 4 != 0:
+            raise ValueError(f"gather_fields needs D % 4 == 0, got D {d}")
+        if (s[0] if len(s) == 3 else 1) * n >= 2**31:
+            raise ValueError(f"a table of {s} has row ids past int32")
+        widths.append(d)
+        offsets.append(off)
+        n_rows.append(n)
+        strides.append(n if len(s) == 3 else 0)
+        off += d
+    rows = lanes * batch
+    return FieldPlan(lanes, batch, rows, tuple(widths), tuple(offsets), tuple(n_rows),
+                     tuple(strides), -(-rows // K2_WARPS_PER_BLOCK), 32 * K2_WARPS_PER_BLOCK)
+
+
+class _Field(ctypes.Structure):
+    _fields_ = [("table", ctypes.c_void_p), ("ids", ctypes.c_void_p), ("flat", ctypes.c_void_p),
+                ("n_rows", ctypes.c_int), ("lane_stride", ctypes.c_int),
+                ("d4", ctypes.c_int), ("off4", ctypes.c_int)]
+
+
+class _GatherPlan(ctypes.Structure):
+    """The kernel's ``Plan``, passed by pointer and copied by value into the
+    launch's parameters."""
+    _fields_ = [("field", _Field * K2_MAX_FIELDS), ("n_fields", ctypes.c_int),
+                ("batch", ctypes.c_int), ("rows", ctypes.c_int), ("out_d4", ctypes.c_int)]
+
+
 @functools.lru_cache(maxsize=None)
 def _bind():
     """The kernel entry of the built library, bound once."""
-    fn = _cuda.load("gather_rows").mamdr_gather_rows
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    lib = _cuda.load("gather_rows")
+    if lib.mamdr_gather_fields_plan_bytes() != ctypes.sizeof(_GatherPlan):
+        raise RuntimeError("gather_fields: the library's Plan and its ctypes mirror differ")
+    fn = lib.mamdr_gather_fields
+    fn.argtypes = [ctypes.POINTER(_GatherPlan), ctypes.c_int, ctypes.c_int,  # blocks, threads
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _require_gather_operands(table: torch.Tensor, ids: torch.Tensor) -> None:
-    """What both gather kernels take: a contiguous float32 CUDA table [N>=1, D]
-    with D % 4 == 0, 16-byte aligned, and contiguous int32 ids [B] beside it."""
+    """What every gather kernel takes: a contiguous float32 CUDA table,
+    16-byte aligned, and contiguous int32 ids beside it."""
     _cuda.require_cuda(table, "table", torch.float32)
     _cuda.require_cuda(ids, "ids", torch.int32)
     if table.device != ids.device:
         raise ValueError("table and ids must be on the same device")
-    if table.dim() != 2 or ids.dim() != 1:
-        raise ValueError(f"table must be [N, D] and ids [B], got {table.shape}, {ids.shape}")
-    n, d = table.shape
-    if d % 4 != 0 or table.data_ptr() % 16 != 0:
-        raise ValueError("gather_rows needs D % 4 == 0 and a 16-byte aligned table")
-    if n == 0:
-        raise ValueError("empty table")
+    if table.data_ptr() % 16 != 0:
+        raise ValueError("a gather needs a 16-byte aligned table")
+
+
+def _launch_k2(tables, ids, want: Tuple[bool, ...]):
+    """One launch of kernel K2: (x [*ids.shape, sum D], flat int32
+    [fields wanted, L*B] or None)."""
+    for t, i in zip(tables, ids):
+        _require_gather_operands(t, i)
+        if t.device != ids[0].device or i.shape != ids[0].shape:
+            raise ValueError("every field's ids must have one shape, on one device")
+    plan = field_plan([t.shape for t in tables], tuple(ids[0].shape))
+    dev = ids[0].device
+    x = torch.empty((*ids[0].shape, sum(plan.widths)), dtype=torch.float32, device=dev)
+    flat = (torch.empty((sum(want), plan.rows), dtype=torch.int32, device=dev)
+            if any(want) else None)
+    if plan.rows == 0:
+        return x, flat
+    c = _GatherPlan(n_fields=len(tables), batch=plan.batch, rows=plan.rows,
+                    out_d4=sum(plan.widths) // 4)
+    k = 0
+    for f, (t, i, w) in enumerate(zip(tables, ids, want)):
+        c.field[f] = _Field(t.data_ptr(), i.data_ptr(), flat[k].data_ptr() if w else None,
+                            plan.n_rows[f], plan.lane_strides[f], plan.widths[f] // 4,
+                            plan.offsets[f] // 4)
+        k += w
+    _cuda.check(_bind()(ctypes.byref(c), plan.blocks, plan.threads, x.data_ptr(),
+                        _cuda.stream_ptr(dev)), "gather_fields")
+    gather_fields.launches += 1
+    return x, flat
+
+
+class _GatherFields(torch.autograd.Function):
+    """K2 with a gradient for the tables that require one: ``scatter_rows``
+    of each such field's column slice of dx at the clamped flat row ids."""
+
+    @staticmethod
+    def forward(ctx, want, *operands):
+        n = len(operands) // 2
+        tables, ids = operands[:n], operands[n:]
+        x, flat = _launch_k2(tables, ids, want)
+        ctx.want, ctx.shapes = want, [t.shape for t in tables]
+        ctx.save_for_backward(flat)
+        ctx.mark_non_differentiable(flat)
+        return x, flat
+
+    @staticmethod
+    def backward(ctx, gx, _gflat):
+        (flat,) = ctx.saved_tensors
+        grads, k, off = [], 0, 0
+        for f, (shape, w) in enumerate(zip(ctx.shapes, ctx.want)):
+            d = shape[-1]
+            grads.append(scatter_rows(shape, flat[k], gx[..., off:off + d])
+                         if ctx.needs_input_grad[1 + f] else None)
+            k, off = k + w, off + d
+        return (None, *grads, *(None,) * len(grads))
+
+
+def gather_fields(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
+                  train_mask: Optional[Sequence[bool]] = None):
+    """Gather every field's rows into one output: the tower input.
+
+    ``tables[f]`` float32 [N_f, D_f] (one tower, or a table every lane
+    reads) or [L, N_f, D_f] (a table a lane); ``ids[f]`` int32, all of one
+    shape, [B] or [L, B]; at most four fields. Returns (x [*ids.shape,
+    sum D_f], flats): x[..., off_f : off_f + D_f] is field f's rows with ids
+    clamped to the lane's table, and ``flats[f]`` is int32 [L*B], the flat
+    row ids read (``table_rows``' second result), for the fields
+    ``train_mask`` marks, else None.
+
+    CUDA tensors go through kernel K2: one launch, counted in
+    ``gather_fields.launches``, differentiable in the tables that require a
+    gradient. A CUDA call the kernel does not take raises. CPU tensors run
+    the plain version.
+    """
+    tables, ids = tuple(tables), tuple(ids)
+    mask = _mask(train_mask, len(tables))
+    if len(ids) != len(tables):
+        raise ValueError(f"{len(tables)} tables and {len(ids)} id tensors")
+    if all(t.device.type == "cpu" for t in (*tables, *ids)):
+        return gather_fields_reference(tables, ids, mask)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tables)
+    want = tuple(m or (grad and t.requires_grad) for m, t in zip(mask, tables))
+    x, flat = (_GatherFields.apply(want, *tables, *ids) if grad
+               else _launch_k2(tables, ids, want))
+    flats, k = [], 0
+    for w, m in zip(want, mask):  # flat holds a row for each wanted field
+        flats.append(flat[k] if m else None)
+        k += w
+    return x, tuple(flats)
+
+
+gather_fields.launches = 0
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Gather rows: table [N, D] float32, ids [B] int32 -> [B, D].
+    """Gather rows: table [N, D] float32, ids [B] int32 -> [B, D], ids clamped.
 
-    CUDA tensors go through kernel K2 (one launch, counted in
-    ``embedding_lookup.launches``); CPU tensors through the plain version.
+    The one-field case of ``gather_fields``: CUDA tensors go through kernel
+    K2 (one launch, counted in ``gather_fields.launches``), CPU tensors
+    through the plain version.
     """
-    if table.device.type == "cpu" and ids.device.type == "cpu":
-        return embedding_lookup_reference(table, ids)
-    _require_gather_operands(table, ids)
-    (n, d), b = table.shape, ids.shape[0]
-    out = torch.empty((b, d), dtype=table.dtype, device=table.device)
-    if b == 0:
-        return out
-    rc = _bind()(table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, d, b,
-            _cuda.stream_ptr(table.device))
-    _cuda.check(rc, "gather_rows")
-    embedding_lookup.launches += 1
-    return out
-
-
-embedding_lookup.launches = 0
+    return gather_fields((table,), (ids,))[0]
 
 
 RING_SHARED_BYTES_MAX = 232448  # 227 KB: the most shared memory a block may opt into
@@ -151,6 +355,8 @@ def gather_rows_pipelined(table: torch.Tensor, ids: torch.Tensor, k: int = 32) -
     if table.device.type == "cpu" and ids.device.type == "cpu":
         return embedding_lookup_reference(table, ids)
     _require_gather_operands(table, ids)
+    if table.dim() != 2 or ids.dim() != 1 or table.shape[0] == 0:
+        raise ValueError(f"table must be [N>=1, D] and ids [B], got {table.shape}, {ids.shape}")
     (n, d), b = table.shape, ids.shape[0]
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
     if b == 0:

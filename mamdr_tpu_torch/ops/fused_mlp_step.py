@@ -15,11 +15,12 @@ Python); on a CPU tensor it runs
 by step in plain PyTorch.
 
 ``make_fast_loss_grad`` is the counterpart of ``maybe_make_fast_loss_grad``
-(``:217-314``): the three lookups, the concat, the kernel, and the gradient
-tree — dense grads from the kernel, the domain-table scatter-add of dx plus
-its l2 term, and user/item table grads only when the tables train. A frozen
-table gets no gradient at all (``None``), so no table-sized tensor is made
-per step for it.
+(``:217-314``): the three lookups and their concat as one launch of the
+field gather (kernel K2, ``ops/embedding_lookup.py::gather_fields``), the
+tower kernel, and the gradient tree — dense grads from the kernel, the
+domain-table scatter-add of dx plus its l2 term, and user/item table grads
+only when the tables train. A frozen table gets no gradient at all
+(``None``), so no table-sized tensor is made per step for it.
 
 ``fused_tower_grad_lanes`` is the same step over a leading lane axis: L
 independent towers (the query-domain lanes of the Domain-Regularization
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from mamdr_tpu_torch.ops import _cuda
-from mamdr_tpu_torch.ops.embedding_lookup import embedding_lookup
+from mamdr_tpu_torch.ops.embedding_lookup import gather_fields, scatter_rows
 from mamdr_tpu_torch.ops.fast_random import MASK32, dropout_mask
 from mamdr_tpu_torch.utils import trees
 
@@ -416,28 +417,8 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def table_rows(table, ids, lookup: Callable = embedding_lookup):
-    """Rows of an embedding table for one tower or for L lanes, by ONE lookup.
-
-    ``table`` [N, D] is one table: the single tower's (ids [B]) or one that
-    every lane reads (ids [L, B], flattened across lanes). ``table``
-    [L, N, D] holds a table per lane and is gathered as its [L*N, D] view,
-    ids [L, B] clipped to the lane's rows before the lane's offset is added,
-    so clip semantics hold per lane. Returns (rows [*ids.shape, D], the flat
-    row ids handed to ``lookup``).
-    """
-    if table.dim() == 2:
-        flat = ids.reshape(-1)
-    else:
-        lanes, n = table.shape[:2]
-        offset = torch.arange(lanes, dtype=ids.dtype, device=ids.device)[:, None] * n
-        flat = (ids.clamp(0, n - 1) + offset).reshape(-1)
-    rows = lookup(table.reshape(-1, table.shape[-1]), flat)
-    return rows.reshape(*ids.shape, -1), flat
-
-
 def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
-                        lookup: Callable = embedding_lookup):
+                        gather: Callable = gather_fields):
     """Returns f(params, batch, seeds, train=True) -> (data_loss, grads), for
     one tower or for L lanes at once; the shapes of the batch decide.
 
@@ -445,10 +426,12 @@ def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
     L lanes: batch columns [L, B], ``seeds`` [L, n_layers], ``data_loss``
     [L]; every trainable leaf of ``params`` carries a leading lane axis and a
     frozen user/item table is the one [N, D] tensor every lane reads (see
-    ``table_rows``). ``grads`` has the structure of ``params`` with ``None``
-    at frozen tables. ``tower_grad`` defaults to the kernel's wrapper for the
-    batch's shape and ``lookup`` to the gather kernel's; a check on the card
-    passes the plain versions to compare a whole step.
+    ``gather_fields``). ``grads`` has the structure of ``params`` with
+    ``None`` at frozen tables. The tower input x and the row ids of the
+    tables that train come from ONE ``gather`` (kernel K2's wrapper by
+    default). ``tower_grad`` defaults to kernel K1's wrapper for the batch's
+    shape; a check on the card passes the plain versions of both to compare a
+    whole step.
     """
     dims = (
         int(model.user_dim) + int(model.item_dim) + int(model.domain_dim),
@@ -460,22 +443,18 @@ def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
     emb_trainable = bool(cfg.emb_trainable)
 
     def table_grad(table, flat, dx_part):
-        """Scatter-add of dx rows into the table (or the lane-stacked table's
-        [L*N, D] view), plus its l2 term."""
+        """``scatter_rows`` of dx's rows into the table, plus its l2 term."""
         if table.dim() != dx_part.dim():
             raise ValueError("a table that trains needs one copy per lane")
-        d = table.shape[-1]
-        g = torch.zeros_like(table).reshape(-1, d).index_add_(
-            0, flat.long(), dx_part.reshape(-1, d))
-        return g.reshape(table.shape) + 2.0 * l2 * table
+        return scatter_rows(table.shape, flat, dx_part) + 2.0 * l2 * table
 
     def loss_grad(params, batch, seeds, train: bool = True):
         mp = params["model"]
         emb = mp["embedding"]
-        u, u_flat = table_rows(emb["user_emb"], batch["uid"], lookup)
-        p, p_flat = table_rows(emb["item_emb"], batch["pid"], lookup)
-        d, d_flat = table_rows(emb["domain_emb"], batch["domain"], lookup)
-        x = torch.cat([u, p, d], dim=-1)
+        x, (u_flat, p_flat, d_flat) = gather(
+            (emb["user_emb"], emb["item_emb"], emb["domain_emb"]),
+            (batch["uid"], batch["pid"], batch["domain"]),
+            train_mask=(emb_trainable, emb_trainable, True))
 
         paths = dense_paths(mp)
         dense = tuple(_get(mp, path) for path in paths)

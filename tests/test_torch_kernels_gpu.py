@@ -23,15 +23,18 @@ from mamdr_tpu_torch.ops import fused_mlp_step
 from mamdr_tpu_torch.ops.embedding_lookup import (
     embedding_lookup,
     embedding_lookup_reference,
+    field_plan,
+    gather_fields,
+    gather_fields_reference,
     gather_rows_pipelined,
     ring_plan,
+    table_rows,
 )
 from mamdr_tpu_torch.ops.fused_mlp_step import (
     fused_tower_grad,
     fused_tower_grad_lanes,
     k1_cuda_launches,
     k1_launch_plan,
-    table_rows,
     tower_grad_reference,
     tower_grad_reference_lanes,
 )
@@ -105,10 +108,10 @@ def test_gather_kernel_matches_plain(cuda_device):
     ids_np = rng.integers(0, n, b).astype(np.int32)
     ids_np[:4] = [-1, n, -(2**31), 2**31 - 1]
     ids = torch.from_numpy(ids_np).to(cuda_device)
-    before = embedding_lookup.launches
-    got = embedding_lookup(table, ids)
+    before = gather_fields.launches
+    got = embedding_lookup(table, ids)  # K2's one-field case
     torch.cuda.synchronize()
-    assert embedding_lookup.launches == before + 1
+    assert gather_fields.launches == before + 1
     assert torch.equal(got, embedding_lookup_reference(table, ids))  # a gather: exact
     with pytest.raises(ValueError):
         embedding_lookup(table, ids.long())  # the kernel takes int32 ids only
@@ -118,9 +121,10 @@ def test_gather_kernel_matches_plain(cuda_device):
 
 @pytest.mark.gpu
 def test_gather_kernel_at_the_lane_steps_shapes(cuda_device):
-    """K2 with 30 lanes x 1024 ids in one launch, built as the lane step
-    builds them: the shared table, and a lane-stacked domain table as its
-    [L*N, D] view with every lane's own out-of-range ids. Exact."""
+    """K2 with one field of 30 lanes x 1024 ids in one launch: the shared
+    table, and a lane-stacked domain table with every lane's own
+    out-of-range ids, against table_rows (the plain route through the
+    [L*N, D] view) and against indexing each lane's table. Exact."""
     rng = np.random.default_rng(1)
     lanes, b, d = 30, 1024, 128
     for n, stacked in ((100_000, False), (30, True)):
@@ -129,14 +133,15 @@ def test_gather_kernel_at_the_lane_steps_shapes(cuda_device):
         ids_np = rng.integers(0, n, (lanes, b)).astype(np.int32)
         ids_np[:, :5] = [-1, -(2**31), n, n + 1, 2**31 - 1]
         ids = torch.from_numpy(ids_np).to(cuda_device)
-        before = embedding_lookup.launches
-        rows, flat = table_rows(table, ids, embedding_lookup)
-        assert embedding_lookup.launches == before + 1 and flat.numel() == lanes * b
+        before = gather_fields.launches
+        rows, (flat,) = gather_fields((table,), (ids,), train_mask=(True,))
+        assert gather_fields.launches == before + 1 and flat.numel() == lanes * b
         clipped = ids.long().clamp(0, n - 1)
         alone = (table[torch.arange(lanes, device=cuda_device)[:, None], clipped]
                  if stacked else table[clipped])
         assert torch.equal(rows, alone)
-        assert torch.equal(rows, table_rows(table, ids, embedding_lookup_reference)[0])
+        plain, plain_flat = table_rows(table, ids)
+        assert torch.equal(rows, plain) and torch.equal(flat, plain_flat)
 
 
 @pytest.mark.gpu
@@ -253,6 +258,165 @@ def test_tower_slab_rows_change_no_bit(cuda_device, monkeypatch):
         outs[rows] = [loss, dx, *grads]
     for rows in (32, 64):
         assert all(torch.equal(a, b) for a, b in zip(outs[16], outs[rows]))
+
+
+def _field_inputs(lanes, b, widths, stacked, device, seed=0, n_rows=(100_000, 100_000, 30)):
+    """Tables and int32 ids of a field gather; every lane has ids below 0 and
+    past its own table (for a lane-stacked table: past the lane's rows)."""
+    rng = np.random.default_rng(seed)
+    tables, ids = [], []
+    for f, (d, st) in enumerate(zip(widths, stacked)):
+        n = n_rows[f % len(n_rows)]
+        shape = (lanes, n, d) if st else (n, d)
+        tables.append(torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device))
+        i = rng.integers(0, n, (lanes, b)).astype(np.int32)
+        i[:, : min(b, 5)] = [-1, -(2**31), n, n + 5, 2**31 - 1][: min(b, 5)]
+        ids.append(torch.from_numpy(i if lanes > 1 else i[0]).to(device))
+    return tables, ids
+
+
+FIELD_CASES = [  # (widths, lane-stacked per field)
+    ((128, 128, 128), (False, False, True)),  # the main path's fields
+    ((16, 24, 32), (True, False, True)),       # mixed widths
+    ((128,), (True,)),
+    ((24,), (False,)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fields", range(len(FIELD_CASES)))
+@pytest.mark.parametrize("lanes,b", [(1, 1), (1, 37), (1, 1024), (1, 30720),
+                                     (30, 1), (30, 37), (30, 1024)])
+def test_field_gather_kernel_matches_plain(cuda_device, lanes, b, fields):
+    """K2: every field's rows into one output in one launch, exact against
+    the plain version (table_rows of each field and torch.cat), ids out of
+    range in every lane; and the flat row ids it writes for the marked
+    fields, equal to table_rows'."""
+    widths, stacked = FIELD_CASES[fields]
+    if lanes == 1:
+        stacked = (False,) * len(widths)
+    tables, ids = _field_inputs(lanes, b, widths, stacked, cuda_device, seed=b + lanes)
+    mask = tuple(f % 2 == 0 for f in range(len(widths)))
+    before = gather_fields.launches
+    x, flats = gather_fields(tables, ids, train_mask=mask)
+    torch.cuda.synchronize()
+    assert gather_fields.launches == before + 1
+    want, want_flats = gather_fields_reference(tables, ids, train_mask=mask)
+    assert x.shape == (*ids[0].shape, sum(widths)) and torch.equal(x, want)
+    for got, exp in zip(flats, want_flats):
+        assert (got is None) == (exp is None)
+        if got is not None:
+            assert got.dtype == torch.int32 and torch.equal(got, exp)
+
+
+@pytest.mark.gpu
+def test_field_gather_kernel_in_a_cuda_graph(cuda_device):
+    """One K2 call captured in a CUDA graph and replayed on new ids (the
+    descriptors travel by value: nothing is copied or allocated per call)
+    equals an eager call on those ids."""
+    tables, ids = _field_inputs(30, 1024, (128, 128, 128), (False, False, True), cuda_device)
+    static = [i.clone() for i in ids]
+    gather_fields(tables, static, train_mask=(False, False, True))  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x, flats = gather_fields(tables, static, train_mask=(False, False, True))
+    _, new = _field_inputs(30, 1024, (128, 128, 128), (False, False, True), cuda_device, seed=9)
+    for s_, n_ in zip(static, new):
+        s_.copy_(n_)
+    graph.replay()
+    torch.cuda.synchronize()
+    want, want_flats = gather_fields(tables, new, train_mask=(False, False, True))
+    assert torch.equal(x, want) and torch.equal(flats[2], want_flats[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_field_gather_backward_on_the_card_equals_the_cpu(cuda_device, lanes):
+    """The autograd rule: the scatter-add of each trainable field's column
+    slice of dx at the clamped row ids, on the card, against the plain
+    version's gradient on the CPU (index_add_ sums rows in another order:
+    float32 rounding only)."""
+    widths, stacked = (16, 24, 32), (False, False, lanes > 1)
+    tables, ids = _field_inputs(lanes, 64, widths, stacked, cuda_device, seed=lanes,
+                                n_rows=(50, 60, 4))
+    c = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (*ids[0].shape, sum(widths))).astype(np.float32))
+    grads = {}
+    for where in ("cuda", "cpu"):
+        tt = [t.detach().to(where).requires_grad_(f != 1) for f, t in enumerate(tables)]
+        before = gather_fields.launches
+        x, _ = gather_fields(tt, [i.to(where) for i in ids])
+        (x * c.to(where)).sum().backward()
+        assert gather_fields.launches == before + (where == "cuda")
+        assert tt[1].grad is None
+        grads[where] = [tt[0].grad.cpu(), tt[2].grad.cpu()]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_model_loss_gives_the_tables_a_gradient_on_the_card(cuda_device):
+    """MLP.forward through make_loss_fn on the card: autograd gives every
+    table that trains (the domain table above all) the gradient it has on
+    the CPU — the K2 wrapper is differentiable, not a bare kernel output."""
+    from mamdr_tpu_torch.models.zoo import build_model
+    from mamdr_tpu_torch.train.steps import StepConfig, make_loss_fn
+
+    cfg = ExperimentConfig.from_dict({
+        "model": {"name": "mlp", "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                  "hidden_dim": [16, 8], "dropout": 0.0},
+        "dataset": {"name": "synthetic"}})
+    model = build_model(cfg, 20, 30, 4, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    batch = {"uid": rng.integers(-2, 22, 64).astype(np.int32),
+             "pid": rng.integers(0, 30, 64).astype(np.int32),
+             "domain": rng.integers(-1, 5, 64).astype(np.int32),
+             "label": rng.integers(0, 2, 64).astype(np.float32),
+             "weight": np.ones(64, np.float32)}
+    grads = {}
+    for where in ("cuda", "cpu"):
+        params = trees.tree_map(lambda t: t.detach().clone().to(where).requires_grad_(True),
+                                model.param_tree())
+        loss, _ = make_loss_fn(model, StepConfig())(
+            {"model": params}, {k: torch.from_numpy(v).to(where) for k, v in batch.items()})
+        loss.backward()
+        grads[where] = {n: p.grad for n, p in trees.leaves_with_names(params)}
+    assert bool(grads["cuda"]["embedding/domain_emb"].abs().sum() > 0)
+    for name, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][name].cpu(), g, rtol=1e-4, atol=1e-6,
+                                   msg=name)
+
+
+@pytest.mark.gpu
+def test_field_gather_refuses_what_the_kernel_does_not_take(cuda_device, monkeypatch):
+    tables, ids = _field_inputs(1, 8, (8, 8, 8, 8, 8), (False,) * 5, cuda_device,
+                                n_rows=(10,))
+    with pytest.raises(ValueError, match="1 to 4 fields"):
+        gather_fields(tables, ids)
+    with pytest.raises(ValueError, match="one shape"):
+        gather_fields(tables[:2], [ids[0], ids[1][:4]])
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_fields(tables[:2], [ids[0], ids[1].cpu()])
+    with pytest.raises(ValueError, match="D % 4"):
+        gather_fields([tables[0][:, :6].contiguous()], ids[:1])
+    with pytest.raises(ValueError, match="lane-stacked"):
+        gather_fields([tables[0][None].contiguous()], ids[:1])
+    assert field_plan([t.shape for t in tables[:4]], (8,)).blocks == 2
+    # the kernel runs on field_plan's grid: the C entry refuses one that
+    # leaves a row without a warp or a block past its 128 threads
+    from mamdr_tpu_torch.ops import embedding_lookup as k2
+    tables, ids = _field_inputs(1, 37, (8, 16), (False, False), cuda_device)
+    want = gather_fields_reference(tables, ids)[0]
+    plan = k2.field_plan([t.shape for t in tables], (37,))
+    for blocks, threads in ((37, 32), (5, 128), (plan.blocks - 1, 128), (2, 160)):
+        monkeypatch.setattr(k2, "field_plan", lambda *a, b=blocks, t=threads:
+                            plan._replace(blocks=b, threads=t))
+        if blocks * threads // 32 >= 37 and threads <= 128:
+            assert torch.equal(gather_fields(tables, ids)[0], want), (blocks, threads)
+        else:
+            with pytest.raises(RuntimeError, match="gather_fields: CUDA error"):
+                gather_fields(tables, ids)
 
 
 @pytest.mark.gpu
