@@ -44,6 +44,18 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      its launch counts, the update of every domain's `specific`, and its
      time, and one DR lane-step through the kernels against the same
      lane-step through the plain versions;
+  5c. after the epoch, the rest of the flow a user runs, each path with its
+     launch counts asserted: the epoch's tail (merged validation of every
+     domain as a lane, early stop, best snapshot and its checkpoint files in
+     a temporary directory); the validation alone (4 lane-steps through K2,
+     examples/s, macro and weighted AUC), held bit for bit to the same eval
+     through the plain gather; the test with the best snapshot; the finetune
+     stage (30 domains as SGD lanes: 12 lane-steps of K1-lanes and K2 an
+     epoch, then val and test), every domain's best weights moved; one
+     finetune lane-step through the kernels against the plain versions and
+     K1-lanes held to its plain version on its operands; one finetune epoch
+     timed alone; the whole run(); and a small run() on the card against the
+     same run() on the CPU;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -55,7 +67,9 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,7 +117,12 @@ def main() -> int:
         tower_grad_reference,
         tower_grad_reference_lanes,
     )
+    from mamdr_tpu_torch.config import ExperimentConfig
+    from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
     from mamdr_tpu_torch.strategies import ops as weight_ops
+    from mamdr_tpu_torch.strategies import separate
+    from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
+    from mamdr_tpu_torch.train.trainer import Trainer
     from mamdr_tpu_torch.train import fused
     from mamdr_tpu_torch.train.steps import make_subset_train_step, make_train_step
     from mamdr_tpu_torch.utils import trees
@@ -342,7 +361,7 @@ def main() -> int:
             "library": device_ms(lambda: in_turn(library, long_sets), inner=48),
         }
 
-    def field_bound(tables, sets):
+    def field_bound(tables, sets, marked=mask):
         """The least bytes a call moves, averaged over the id sets: every
         table row its ids touch read once, the ids read, x and the marked
         fields' row ids written; and the rule that counts a row for every id
@@ -351,7 +370,7 @@ def main() -> int:
         for s in sets:
             n_ids, width = s[0].numel(), sum(t.shape[-1] for t in tables)
             io = 4 * n_ids * (len(s) + width)
-            least += io + 4 * n_ids * sum(mask) + sum(
+            least += io + 4 * n_ids * sum(marked) + sum(
                 4 * t.shape[-1] * int(torch.unique(table_rows(t, i)[1]).numel())
                 for t, i in zip(tables, s))
             every += io + 4 * n_ids * width
@@ -420,6 +439,17 @@ def main() -> int:
     k2l_bound = dr_least / HBM_BYTES * 1e3
     print(timing_line(f"the DR lane-step's shape ({lanes * batch} ids)", dr_t, dr_least,
                       dr_every))
+    # The eval lane-step's call (5c): the same fields and shapes, under
+    # no_grad, no row ids written.
+    ev_t = {"k2": device_ms(lambda: in_turn(lambda s: gather_fields(dr_tables, s), dr_sets),
+                            inner=48),
+            "plain": device_ms(lambda: in_turn(
+                lambda s: gather_fields_reference(dr_tables, s), dr_sets), inner=48)}
+    ev_least, _ = field_bound(dr_tables, dr_sets, (False, False, False))
+    k2e_bound = ev_least / HBM_BYTES * 1e3
+    print(f"K2 time at the eval lane-step's call ({lanes * batch} ids, no row ids written, 4 "
+          f"id sets in turn): {ev_t['k2'] * 1e3:.2f} us/call; plain {ev_t['plain'] * 1e3:.2f} "
+          f"us; bound {k2e_bound * 1e3:.3f} us ({ev_least / 1e6:.3f} MB); {card}")
     # the one-field case at 30720 ids, for K3's comparison (4b)
     id_sets = [s[0].reshape(-1) for s in dr_sets]
     long_sets = [i.long() for i in id_sets]
@@ -509,21 +539,24 @@ def main() -> int:
 
     # ---- 5. the slice at bench.py's shapes ----
     t0 = time.perf_counter()
-    trainer, strat = build_bench_strategy()  # no device given: the card
+    ckpt_root = tempfile.mkdtemp(prefix="mamdr_chip_smoke_")  # checkpoints of 5c
+    trainer, strat = build_bench_strategy(checkpoint_path=ckpt_root)  # no device: the card
     ds, n_domain = trainer.dataset, trainer.dataset.n_domain
     torch.cuda.synchronize()
     print(f"slice set-up: {time.perf_counter() - t0:.1f} s (dataset, tables, trainer, "
           f"{n_domain} specific draws, device block)")
 
-    def hold_step(build, kernel, plain, state, cols):
+    def hold_step(build, kernel, plain, state, cols, measure=None):
         """One step through the kernels against the same step through the
         independent plain versions; build(tower_grad, gather) -> step. Rows
         where K1 and the plain version take a ReLU unit differently (counted,
         each at 0 within rounding) get weight 0 in both. Compared: the loss
         and the optimizer's new moments mu, nu (linear and quadratic in the
-        gradient). The parameters themselves are Adam's normalisation of
-        mu/nu, which turns last-bit differences of near-zero gradients into
-        steps of order lr, so they are not a measure of the kernels."""
+        gradient), or what ``measure(state, loss)`` picks. The parameters
+        themselves are Adam's normalisation of mu/nu, which turns last-bit
+        differences of near-zero gradients into steps of order lr, so under
+        Adam they are not a measure of the kernels. Also returns K1's
+        operands in the step through the kernels."""
         seen = []
 
         def spy(*a):
@@ -532,6 +565,8 @@ def main() -> int:
 
         def moments(s, loss):
             return [loss, s.opt_state.mu, s.opt_state.nu]
+
+        moments = measure or moments
 
         step_p = build(plain, gather_fields_reference)
         s_k, l_k = build(spy, gather_fields)(state, cols)
@@ -549,11 +584,11 @@ def main() -> int:
         if not rel <= K1_REL_TOL:
             fail(f"step through the kernels and through the plain versions differ by {rel} "
                  f"of a tensor's max; {note}")
-        return s_k, l_k, l_p, rel, flips, note or "no ReLU unit on the edge"
+        return s_k, l_k, l_p, rel, flips, note or "no ReLU unit on the edge", seen
 
     # One train step on the first batch of domain 0.
     batch0 = {k: v[0, :batch].contiguous() for k, v in strat._block.items()}
-    s_k, l_k, l_p, step_err, _, step_note = hold_step(
+    s_k, l_k, l_p, step_err, _, step_note, _ = hold_step(
         lambda tower, gather: make_train_step(
             trainer.model, trainer.tx, trainer.step_cfg,
             loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
@@ -681,7 +716,7 @@ def main() -> int:
         params=weight_ops.load_masked(lane_state.params, merged, strat.mask))
     lane_batch = {k: v[:, :batch].contiguous() for k, v in strat._block.items()}
     k1l_before = fused_tower_grad_lanes.launches
-    s_k, l_k, l_p, lane_step_err, lane_step_flips, lane_step_note = hold_step(
+    s_k, l_k, l_p, lane_step_err, lane_step_flips, lane_step_note, _ = hold_step(
         lambda tower, gather: make_subset_train_step(
             trainer.model, trainer.tx, trainer.step_cfg, frozen_mask, trainer.state.params,
             loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
@@ -697,6 +732,216 @@ def main() -> int:
           f"{float(l_k.mean()):.6f} vs {float(l_p.mean()):.6f}), largest difference in "
           f"loss, mu, nu {lane_step_err:.2e} of the tensor's max (tol {K1_REL_TOL}); "
           f"{lane_step_note}")
+
+    # ---- 5c. after the epoch: validation and best snapshot, test, finetune ----
+    # Each path driven with the launch counts at 0 just before it and read
+    # just after; every domain is a lane in the evals (val and test splits
+    # 4000 rows a domain: 4 lane-steps) and in the finetune (12000 train rows
+    # a domain: 12 lane-steps an epoch, SGD at lr 1e-3).
+    val_rows, test_rows = sum(s.n for s in ds.val), sum(s.n for s in ds.test)
+    val_steps = max(trainer.eval_steps_per_domain("val"))
+    test_steps = max(trainer.eval_steps_per_domain("test"))
+    ft_steps = max(spd)
+
+    def zero_counts():
+        fused_tower_grad.launches = fused_tower_grad_lanes.launches = 0
+        gather_fields.launches = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        torch.cuda.synchronize()
+        return fused_tower_grad.launches, fused_tower_grad_lanes.launches, gather_fields.launches
+
+    def checked(res, mode, what):
+        """(macro AUC, weighted AUC) of a result; every domain's AUC finite
+        in [0, 1] and its loss finite."""
+        avg_loss, avg_auc, dl, da = res
+        if (len(da) != n_domain or len(dl) != n_domain
+                or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in da.values())
+                or not all(np.isfinite(v) for v in dl.values())):
+            fail(f"{what}: losses {dl}, AUCs {da}")
+        return avg_auc, trainer.weighted_auc(mode, da), avg_loss
+
+    zero_counts()
+    t0 = time.perf_counter()
+    stopped = strat.epoch_tail(0)  # validation, early stop, best snapshot
+    tail_s = time.perf_counter() - t0
+    if (counts() != (0, 0, val_steps) or stopped or strat.best_shared is not strat.shared
+            or trainer.best_params is None or not os.path.exists(trainer.checkpoint_path)
+            or not os.path.exists(os.path.join(trainer.checkpoint_dir, "decomposition",
+                                               "meta.json"))):
+        fail(f"epoch tail: launches (K1, K1-lanes, K2) {counts()}, expected (0, 0, "
+             f"{val_steps}); stopped {stopped}; or no best snapshot and checkpoint")
+    print(f"epoch tail (merged validation, early stop, best snapshot and its checkpoint "
+          f"files): {tail_s:.3f} s, K2 launched {val_steps}x, K1 0x; {card}")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    val_res = strat.validate()  # ends in the eval's one host read
+    val_s = time.perf_counter() - t0
+    val_counts = counts()
+    if val_counts != (0, 0, val_steps):
+        fail(f"merged validation launched (K1, K1-lanes, K2) {val_counts}, expected "
+             f"(0, 0, {val_steps})")
+    val_auc, val_wauc, val_loss = checked(val_res, "val", "merged validation")
+    print(f"merged validation: {n_domain} domains as lanes, {val_steps} lane-steps, K2 "
+          f"launched {val_counts[2]}x, K1 0x; {val_s:.3f} s, {val_rows} rows, "
+          f"{val_rows / val_s:.0f} examples/s; macro AUC {val_auc:.6f}, weighted "
+          f"{val_wauc:.6f}, loss {val_loss:.6f}; {card}")
+
+    # The eval through K2 against the same eval through the plain gather: K2
+    # copies rows, the products are the same calls, so bit for bit.
+    spec_stack = fused.stack_specific(strat.specific, strat.mask)
+    lane_params = weight_ops.load_masked(
+        trainer.state.params,
+        weight_ops.merge_weights(strat.shared, spec_stack, strat.mask, tc.merged_method),
+        strat.mask)
+    vblock = trainer.eval_block("val")
+    vb = {k: v[:, 0].contiguous() for k, v in vblock.items()}
+    logits_k = trainer.model.apply_lanes(lane_params["model"], vb["uid"], vb["pid"], vb["domain"])
+    logits_p = trainer.model.apply_lanes(lane_params["model"], vb["uid"], vb["pid"], vb["domain"],
+                                         gather=gather_fields_reference)
+    loss_k, counts_k = fused.make_lane_eval(trainer.model, trainer.step_cfg)(lane_params, vblock)
+    loss_p, counts_p = fused.make_lane_eval(trainer.model, trainer.step_cfg,
+                                            gather=gather_fields_reference)(lane_params, vblock)
+    eval_err = float((logits_k - logits_p).abs().max())
+    if (not torch.equal(logits_k, logits_p) or not torch.equal(loss_k, loss_p)
+            or not all(torch.equal(a, b) for a, b in zip(counts_k, counts_p))
+            or [float(v) for v in loss_k.cpu()] != [val_res[2][str(d)] for d in range(n_domain)]):
+        fail(f"the eval through K2 differs from the eval through the plain gather (logits max "
+             f"abs err {eval_err}) or from validate()")
+    n_pos = int(counts_k.true_positives[:, 0].sum() + counts_k.false_negatives[:, 0].sum())
+    print(f"eval lane-step through K2 vs the plain gather: the logits of a [{n_domain}, {batch}] "
+          f"lane-step, every lane's loss and its 4 x 500 confusion counts over the split "
+          f"({n_pos} positive of {val_rows} rows) bit-equal (tol 0), and equal to validate()'s")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    test_res = strat.test()
+    test_s = time.perf_counter() - t0
+    test_counts = counts()
+    if test_counts != (0, 0, test_steps):
+        fail(f"test launched (K1, K1-lanes, K2) {test_counts}, expected (0, 0, {test_steps})")
+    test_auc, test_wauc, test_loss = checked(test_res, "test", "test")
+    print(f"test with the best snapshot: {test_steps} lane-steps, K2 launched "
+          f"{test_counts[2]}x; {test_s:.3f} s, {test_rows} rows, {test_rows / test_s:.0f} "
+          f"examples/s; macro AUC {test_auc:.6f}, weighted {test_wauc:.6f}, loss "
+          f"{test_loss:.6f}; {card}")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    ft_res = strat.finetune()
+    ft_s = time.perf_counter() - t0
+    ft_counts = counts()
+    want = (0, ft_steps * tc.epoch, (ft_steps + val_steps) * tc.epoch + test_steps)
+    if ft_counts != want:
+        fail(f"finetune launched (K1, K1-lanes, K2) {ft_counts}, expected {want}")
+    ft_auc, ft_wauc, ft_loss = checked(ft_res, "test", "finetune")
+    for d in range(n_domain):
+        with np.load(os.path.join(trainer.checkpoint_dir, f"domain_{d}.npz")) as z:
+            kernel = z["model//dnn//Dense_0//Dense_0//kernel"]
+        start = strat._best_params_fn(d)["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
+        if not np.all(np.isfinite(kernel)) or np.array_equal(kernel, start.cpu().numpy()):
+            fail(f"finetune: domain {d}'s best weights are not finite or did not move")
+    print(f"finetune ({tc.epoch} epoch of {ft_steps} lane-steps, val, test): {ft_s:.3f} s, "
+          f"K1-lanes launched {ft_counts[1]}x, K2 {ft_counts[2]}x, K1 0x; every domain's "
+          f"best weights moved; test macro AUC {ft_auc:.6f}, weighted {ft_wauc:.6f}, loss "
+          f"{ft_loss:.6f}; {card}")
+
+    # One finetune lane-step through the kernels vs the plain versions (SGD
+    # keeps no moments: the loss and the new params are compared; their
+    # change, lr * g, is too small beside the params to subtract out in
+    # float32), and K1 held to its plain version on that lane-step's
+    # operands, which holds the gradients; then one finetune epoch timed on
+    # its own.
+    lanes_ft = separate.make_lanes(trainer, False, strat._best_params_fn)
+    first = {k: v[:, :batch].contiguous() for k, v in lanes_ft.block.items()}
+
+    def sgd_change(s, loss):
+        return [loss, *(a for a in trees.leaves(s.params) if a.dim() > 0)]
+
+    _, _, _, ft_step_err, _, ft_step_note, seen = hold_step(
+        lambda tower, gather: make_subset_train_step(
+            trainer.model, trainer.finetune_tx, trainer.step_cfg, strat._frozen_mask(),
+            trainer.state.params,
+            loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
+                                          tower_grad=tower, gather=gather))[0],
+        fused_tower_grad_lanes, tower_grad_reference_lanes, lanes_ft.states, first,
+        measure=sgd_change)
+    k1f = k1_vs_plain(fused_tower_grad_lanes, tower_grad_reference_lanes, *seen, K1_REL_TOL)
+    print(f"finetune lane-step (SGD), kernels vs plain versions: largest difference in loss "
+          f"and the new params {ft_step_err:.2e} of the tensor's max (tol {K1_REL_TOL}); "
+          f"{ft_step_note}; K1-lanes on its operands: {report(k1f)}")
+    zero_counts()
+    t0 = time.perf_counter()
+    ft_states, ft_losses = lanes_ft.epoch_all(lanes_ft.states, lanes_ft.block, trainer.gen)
+    ft_epoch_counts = counts()
+    ft_epoch_s = time.perf_counter() - t0
+    if ft_epoch_counts != (0, ft_steps, ft_steps) or not bool(torch.isfinite(ft_losses).all()):
+        fail(f"finetune epoch: launches (K1, K1-lanes, K2) {ft_epoch_counts}, expected "
+             f"(0, {ft_steps}, {ft_steps}); losses {ft_losses}")
+    for (n, a), b in zip(trees.leaves_with_names(ft_states.params),
+                         trees.leaves(lanes_ft.states.params)):
+        if a.dim() > 0 and not bool((a != b).flatten(1).any(1).all()):
+            fail(f"finetune epoch: {n} did not move in every lane")
+    _, ft_val = lanes_ft.eval_all(ft_states.params, lanes_ft.val_block, lanes_ft.val_steps)
+    ft_val_auc = {str(d): float(v) for d, v in enumerate(ft_val.cpu())}
+    n_train = sum(s.n for s in ds.train)
+    print(f"finetune epoch: {ft_steps} lane-steps, K1-lanes {ft_epoch_counts[1]}x, K2 "
+          f"{ft_epoch_counts[2]}x; {ft_epoch_s:.3f} s, {n_train} rows, "
+          f"{n_train / ft_epoch_s:.0f} examples/s, {ft_epoch_s / ft_steps * 1e3:.3f} "
+          f"ms/lane-step; every lane's params moved; val macro AUC after it "
+          f"{np.mean(list(ft_val_auc.values())):.6f}, weighted "
+          f"{trainer.weighted_auc('val', ft_val_auc):.6f}; {card}")
+
+    # The whole flow as a user calls it, on a fresh strategy (untimed set-up;
+    # kernels already built): train (tc.epoch epochs, each with its
+    # validation, early stop and best snapshot), test with the best weights,
+    # finetune. With no early-stop history the first validation improves, so
+    # the run writes the snapshot once.
+    del lanes_ft, ft_states, lane_params, spec_stack, vblock, first, seen, trainer, strat
+    trainer, strat = build_bench_strategy(checkpoint_path=os.path.join(ckpt_root, "run"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_res = strat.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_auc, run_wauc, run_loss = checked(run_res, "test", "run()")
+    if trainer.stopper.best_metric is None or not os.path.exists(trainer.checkpoint_path):
+        fail("run() on a fresh strategy wrote no best snapshot")
+    print(f"run() on a fresh strategy ({tc.epoch} MAMDR epoch with its validation, early stop "
+          f"and one best snapshot written, test, finetune): {run_s:.3f} s; finetuned test "
+          f"macro AUC {run_auc:.6f}, weighted {run_wauc:.6f}, loss {run_loss:.6f}; {card}")
+    del trainer, strat
+
+    # A small input against the reference: the same run() on the CPU through
+    # the plain versions (one batch a domain, so the two devices' shuffles
+    # permute the same rows; dropout off).
+    def small_run(device):
+        cfg = ExperimentConfig.from_dict({
+            "model": {"name": "mlp_meta_mamdr_finetune", "user_dim": 8, "item_dim": 8,
+                      "domain_dim": 8, "hidden_dim": [32, 16], "dropout": 0.0},
+            "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                      "patience": 2, "learning_rate": 1e-2, "meta_learning_rate": 0.1,
+                      "sample_num": 2, "checkpoint_path": os.path.join(ckpt_root, str(device))},
+            "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21}})
+        small = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100,
+                                       seed=21, long_tail=True, batch_size=64)
+        r = np.random.default_rng(0)
+        small.user_emb = r.normal(0, 0.1, (50, 8)).astype(np.float32)
+        small.item_emb = r.normal(0, 0.1, (60, 8)).astype(np.float32)
+        return MAMDRStrategy(Trainer(cfg, small, device=device, verbose=False)).run()
+
+    small_card, small_cpu = small_run(None), small_run("cpu")
+    loss_rel = max(abs(small_card[2][k] - v) / abs(v) for k, v in small_cpu[2].items())
+    auc_abs = max(abs(small_card[3][k] - v) for k, v in small_cpu[3].items())
+    if not (loss_rel <= 1e-3 and auc_abs <= 1e-3):
+        fail(f"small run() on the card vs the CPU: test losses {small_card[2]} vs "
+             f"{small_cpu[2]}, AUCs {small_card[3]} vs {small_cpu[3]}")
+    print(f"small run() (3 domains, 3 epochs, finetune) on the card vs the CPU's plain "
+          f"versions: test loss within {loss_rel:.2e} (tol 1e-3 relative), AUC within "
+          f"{auc_abs:.2e} (tol 1e-3)")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # ---- 6. kernels ----
     print(json.dumps({"kernels": [
@@ -730,6 +975,28 @@ def main() -> int:
          "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
          "bound_by": "bytes", "library_ms": dr_t["library"],
          "replaced_route_ms": dr_t["route"]},
+        # The eval and finetune paths (5c), at the DR lane-step's shapes: K2 in
+        # the eval's call (no row ids; launches of the validation and the
+        # test), K2 and K1-lanes in the finetune (its launches; timed in 3b
+        # and 4a at the same shapes)
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, the eval lane-step)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": val_counts[2] + test_counts[2], "max_abs_err": eval_err,
+         "ms": ev_t["k2"], "plain_ms": ev_t["plain"], "bound_ms": k2e_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, the finetune)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": ft_counts[2], "max_abs_err": k2l_err,
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
+        {"name": "fused_tower_grad_lanes (the finetune)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": ft_counts[1], "max_abs_err": k1f["err"], "relu_edge_units": k1f["flips"],
+         "ms": k1l_ms, "plain_ms": k1l_plain_ms, "bound_ms": k1l_bound,
+         "bound_by": "operations", "library_ms": None},
         # K3's path is the gather probe, which runs it at both sizes: each
         # entry has the launches the probe counted at its depth and size, and
         # the error of its own comparison in 4b. At 1024 ids both depths plan

@@ -111,10 +111,14 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """``train`` block (README.md:118-146): the fields the port reads so far."""
+    """``train`` block (README.md:118-146): the fields the port reads so far,
+    with the JAX package's defaults. Some are read only to refuse a value
+    whose path is not ported (``Trainer`` and the strategies raise
+    ``NotImplementedError`` naming the ROADMAP item)."""
 
     load_pretrain_emb: bool = False
     emb_trainable: bool = True
+    epoch: int = 99999
     learning_rate: float = 1e-3
     meta_learning_rate: float = 1e-3
     merged_method: str = "plus"          # plus | times
@@ -143,6 +147,32 @@ class TrainConfig:
     # config using it is refused rather than silently run unchunked: chunked
     # lanes are not ported yet (ROADMAP.md, open items §1).
     dr_lane_chunk: int = 0
+    # Early stop on the validation AUC (reference base_model.py:202-224):
+    # validate every `val_every_step` epochs; the finetune stage's per-domain
+    # stop needs an improvement of more than `min_delta` (base_model.py:79-82).
+    patience: int = 3
+    val_every_step: int = 1
+    min_delta: float = 1e-4
+    # The per-domain finetune stage: plain SGD at lr 1e-3 in the reference
+    # (base_model.py:69, specific_base_model.py:120).
+    finetune_optimizer: str = "sgd"
+    finetune_learning_rate: float = 1e-3
+    # The finetune lanes (strategies/separate.py); False asks for the
+    # sequential per-domain loop, which is not ported.
+    separate_fused: bool = True
+    # Each domain's best finetuned weights as checkpoint_dir/domain_{i}.npz.
+    domain_checkpoints: bool = True
+    checkpoint_path: str = "checkpoint"
+    result_save_path: str = "result"     # read by save_result, not ported yet
+    # checkpoint_dir/metrics.jsonl: one event per evaluation.
+    metrics_jsonl: bool = True
+    # Refused when set: their paths are not ported yet (ROADMAP.md §1).
+    meta_finetune_step: int = 0
+    finetune_every_epoch: bool = False
+    tensorboard: bool = False
+    histogram_freq: int = 0
+    resume: bool = False
+    resume_every: int = 0
 
 
 @dataclass
@@ -150,8 +180,12 @@ class DatasetConfig:
     """``dataset`` block (README.md:147-158)."""
 
     name: str = "Amazon"                 # Amazon | Taobao | synthetic
+    domain_split_path: str = "split_by_category"
     batch_size: int = 1024
     seed: int = 123
+    # A fixed train order (reference utils/dataset.py:78); refused: the
+    # port's epochs shuffle on the device.
+    fixed_train: bool = False
     # synthetic-only knobs (used by tests/bench)
     n_domain: int = 3
     n_uid: int = 100

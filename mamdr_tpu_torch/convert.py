@@ -9,7 +9,7 @@ renaming or transposing. Inputs are nested dicts of numpy arrays (e.g.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -36,6 +36,14 @@ def spec_stack_from_jax(stack_of_numpy: Any, mask: Any, shared: Any) -> Any:
     return trees.tree_map(
         lambda m, x, s: torch.tensor(np.asarray(x), device=s.device) if m else s,
         mask, stack_of_numpy, shared)
+
+
+def specific_from_jax(specific_of_numpy: List[Any], mask: Any, shared: Any) -> List[Any]:
+    """A JAX MAMDR strategy's per-domain specific trees (``specific`` or
+    ``best_specific``, as numpy) -> the port's list: masked leaves become
+    tensors on `shared`'s device, unmasked leaves alias `shared`'s, as the
+    port's strategy keeps them."""
+    return [spec_stack_from_jax(tree, mask, shared) for tree in specific_of_numpy]
 
 
 def flat_adam_state_from_jax(count, mu, nu, device="cpu") -> FlatAdamState:

@@ -1,4 +1,5 @@
-"""Device-time breakdown of kernel K1 and of the DN and DR phases (torch.profiler).
+"""Device-time breakdown of kernel K1, the DN and DR phases, the merged eval
+and the finetune (torch.profiler).
 
     python3 -m mamdr_tpu_torch.kernel_profile
 
@@ -18,14 +19,22 @@ On one CUDA card, from the repository root. Prints
      time, device busy time, idle share, CUDA launches per lane-step, the
      kernels that take the most device time — and K1 over 30 lanes alone;
   4. the same DR phase run sequentially (``dr_parallel`` "off": 4320
-     single-lane steps), wall time only, beside the lanes'.
+     single-lane steps), wall time only, beside the lanes';
+  5. after the epoch: one call of the merged eval over the val split (every
+     domain a lane, 4 lane-steps, its stack, merge and one host read
+     included) and one finetune epoch of SGD lanes (12 lane-steps): per
+     lane-step the wall time, device busy time, idle share, CUDA launches
+     and the kernels that take the most device time (printed before part 4,
+     which builds a strategy of its own).
 
 Every line names the card and its power limit.
 """
 
 from __future__ import annotations
 
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -92,7 +101,8 @@ def main() -> int:
         print(f"  {us / calls:8.2f} us  {n / calls:4.1f}x/call  {_short(name)}")
 
     # ---- 2. the DN phase ----
-    trainer, strat = build_bench_strategy()
+    ckpt = tempfile.mkdtemp(prefix="mamdr_kernel_profile_")
+    trainer, strat = build_bench_strategy(checkpoint_path=ckpt)
     steps = sum(trainer.steps_per_domain())
     strat.run_dn_phase()  # warm-up: allocator, libraries
     torch.cuda.synchronize()
@@ -143,9 +153,51 @@ def main() -> int:
     print(f"K1 over {trainer.dataset.n_domain} lanes: {k1:.1f} us of the lane-step's device "
           f"time ({smi})")
 
+    # ---- 5. a merged-eval lane-step and a finetune lane-step ----
+    def breakdown(what, run, steps, top=10):
+        run()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kt = _kernel_times(prof)
+        busy = sum(us for _, us in kt.values()) / steps
+        launches = sum(n for n, _ in kt.values()) / steps
+        print(f"{what}: {wall * 1e6:.1f} us wall without the profiler, {busy:.1f} us device "
+              f"busy, idle share {1 - busy / (wall * 1e6):.3f}, {launches:.0f} CUDA launches "
+              f"a lane-step; {steps} lane-steps a call ({smi})")
+        for name, (n, us) in sorted(kt.items(), key=lambda kv: -kv[1][1])[:top]:
+            print(f"  {us / steps:8.2f} us/lane-step  {n / steps:5.1f}x/lane-step  "
+                  f"{_short(name)}")
+
+    from mamdr_tpu_torch.strategies import separate
+    from mamdr_tpu_torch.train import fused
+
+    tc = trainer.config.train
+    merged_eval = fused.make_fused_eval_merged(trainer.model, trainer.step_cfg, strat.mask,
+                                               tc.merged_method)
+    vblock = trainer.eval_block("val")
+
+    def eval_call():
+        stack = fused.stack_specific(strat.specific, strat.mask)
+        losses, aucs = merged_eval(trainer.state.params, strat.shared, stack, vblock)
+        return torch.stack([losses, aucs]).cpu()  # the eval's one host read
+
+    breakdown(f"merged eval lane-step ({trainer.dataset.n_domain} lanes)", eval_call,
+              vblock["weight"].shape[1])
+    lanes = separate.make_lanes(trainer, False, strat._best_params_fn)
+    breakdown(f"finetune lane-step ({trainer.dataset.n_domain} SGD lanes)",
+              lambda: lanes.epoch_all(lanes.states, lanes.block, trainer.gen),
+              lanes.block["weight"].shape[1] // trainer.dataset.batch_size)
+    del lanes
+
     # ---- 4. the same DR phase, sequential ----
     del trainer, strat
-    trainer, strat = build_bench_strategy(dr_parallel="off")
+    trainer, strat = build_bench_strategy(dr_parallel="off", checkpoint_path=ckpt)
     if strat.dr_lanes:
         print("kernel_profile: dr_parallel 'off' still took the lanes", file=sys.stderr)
         return 1
@@ -160,6 +212,7 @@ def main() -> int:
     print(f"DR phase, sequential: {seq_s:.3f} s for {seq_steps} steps "
           f"({seq_s / seq_steps * 1e6:.1f} us/step, one run after a DN phase); as lanes {lanes_s:.3f} s "
           f"for {lane_steps} lane-steps ({smi})")
+    shutil.rmtree(ckpt, ignore_errors=True)
     return 0
 
 

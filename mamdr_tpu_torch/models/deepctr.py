@@ -7,7 +7,10 @@ embeddings -> DNN -> bias-free logit. Its parameter tree has the flax names
 
 Training does not call ``forward``: the train step reads the parameter tree
 and runs the fused tower kernel (ops/fused_mlp_step.py). ``apply`` runs the
-forward pass on an explicit tree, as flax's ``model.apply`` does.
+forward pass on an explicit tree, as flax's ``model.apply`` does;
+``apply_lanes`` is the evaluation forward of L towers at once, each lane
+with its own parameters (the per-domain eval and the finetune lanes' val and
+test).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 from torch import nn
 
 from mamdr_tpu_torch.models.embeddings import EmbeddingBlock
-from mamdr_tpu_torch.models.layers import DNN, LogitDense
+from mamdr_tpu_torch.models.layers import DNN, LogitDense, dense_lanes
+from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.utils import trees
 
 
@@ -60,3 +64,22 @@ class MLP(nn.Module):
         flat = {name.replace("/", "."): leaf
                 for name, leaf in trees.leaves_with_names(params)}
         return torch.func.functional_call(self, flat, (uid, pid, domain), {"seeds": seeds})
+
+    @torch.no_grad()
+    def apply_lanes(self, params, uid, pid, domain, gather=gather_fields) -> torch.Tensor:
+        """Logits [L, B] of L towers without dropout; ids [L, B].
+
+        ``params`` is shaped like param_tree(), each leaf with a leading lane
+        axis or without one (a leaf every lane reads: the frozen user/item
+        tables, or a weight all lanes share). The three fields come from ONE
+        ``gather`` (kernel K2's wrapper by default; a check on the card passes
+        the plain version) and each layer is one ``torch.baddbmm``. Runs
+        under no_grad, so K2's autograd rule builds no graph.
+        """
+        emb = params["embedding"]
+        x = gather((emb["user_emb"], emb["item_emb"], emb["domain_emb"]),
+                   (uid, pid, domain))[0]
+        for i in range(len(self.hidden_dim)):
+            d = params["dnn"][f"Dense_{i}"]["Dense_0"]
+            x = torch.relu(dense_lanes(x, d["kernel"], d["bias"]))
+        return dense_lanes(x, params["logit"]["Dense_0"]["Dense_0"]["kernel"])[..., 0]

@@ -10,6 +10,9 @@ Modules are nested so that parameter paths equal the flax names: the zoo's
 ``dnn/Dense_i/Dense_0/kernel``. Kernels are stored ``[in, out]`` as flax
 stores them, so converting between the two frameworks never transposes.
 Initialisation draws from an explicit ``torch.Generator``.
+
+``dense_lanes`` is a Dense over L lanes of parameters at once (evaluation of
+the per-domain towers, ``MLP.apply_lanes``): one ``torch.baddbmm``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,22 @@ def glorot_normal(t: torch.Tensor, generator: Optional[torch.Generator]) -> torc
 def emb_init(t: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     """deepctr SparseFeat default: RandomNormal(stddev=1e-4)."""
     return t.normal_(0.0, 1e-4, generator=generator)
+
+
+def dense_lanes(x: torch.Tensor, kernel: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax Dense over L lanes: x [L, B, in] @ kernel [L, in, out] (+ bias
+    [L, out]), by ``torch.baddbmm`` (``torch.bmm`` without a bias). A kernel
+    [in, out] or bias [out] without the lane axis is one that every lane
+    reads."""
+    lanes = x.shape[0]
+    if kernel.dim() == 2:
+        kernel = kernel.expand(lanes, *kernel.shape)
+    if bias is None:
+        return torch.bmm(x, kernel)
+    if bias.dim() == 1:
+        bias = bias.expand(lanes, *bias.shape)
+    return torch.baddbmm(bias[:, None, :], x, kernel)
 
 
 class _FlaxDense(nn.Module):

@@ -1,18 +1,24 @@
 """MAMDR = Domain Negotiation + Domain Regularization (the flagship).
 
-Counterpart of the construction path and the fused epoch of
-``mamdr_tpu/strategies/mamdr.py`` (``__init__`` :55-96,
-``_dr_parallel_eligible`` :123-225, ``prepare_fused`` :307-418 without the
-mesh, ``run_fused_epoch`` :442-470). State: shared weights plus per-domain
-specific deltas on the meta-param subset.
+Counterpart of ``mamdr_tpu/strategies/mamdr.py`` on one device
+(``__init__`` :55-105, ``_dr_parallel_eligible`` :123-225, the eval plumbing
+and the finetune :229-297, ``prepare_fused`` :307-418 without the mesh,
+``run_fused_epoch`` :442-470, ``_train_fused`` :472-521 without resume).
+State: shared weights plus per-domain specific deltas on the meta-param
+subset.
 
 Per epoch, phase 1 (DN): load shared, one full-epoch pass through the
 shuffled domain sequence, then shared += (θ_final - shared) * meta_lr.
 Phase 2 (DR): per query domain q, for each sampled support domain s: load
 merge(shared, specific[q]); an epoch on s; an epoch on q;
 specific[q] += (θ - merged) * meta_lr — run with every query domain as a
-lane when eligible (train/fused.py). Evaluation and the finetune stage are
-later slices.
+lane when eligible (train/fused.py). After each epoch: the merged
+per-domain validation (domain d evaluates merge(shared, specific[d])), the
+early stop and the best snapshot (best_shared, best_specific); test uses the
+snapshot, and the finetune stage trains every domain from its merged best
+weights with SGD (strategies/separate.py). The per-call loop of the JAX
+package (``_train_loop``: batch updates, finetune_every_epoch, a target
+domain) is not ported and is refused.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ from typing import List
 import numpy as np
 import torch
 
+from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
-from mamdr_tpu_torch.train import fused
+from mamdr_tpu_torch.strategies.separate import separate_train_val_test
+from mamdr_tpu_torch.train import checkpoints, fused
 from mamdr_tpu_torch.train.steps import make_subset_train_step
 from mamdr_tpu_torch.utils import trees
 
@@ -52,6 +60,17 @@ class MAMDRStrategy(MetaStrategy):
                 strip(trainer.fresh_params(seed=trainer.dataset.seed + 1 + i))
                 for i in range(self.n_domain)
             ]
+        self.best_shared = self.shared
+        self.best_specific = list(self.specific)
+        # The fused epoch covers the shipped DN+DR recipe; the JAX package's
+        # per-call loop takes the other variants (train() refuses them).
+        self.use_fused = (
+            not self.spec.batch_update
+            and not self.tc.finetune_every_epoch
+            and self.target_domain < 0
+            and trainer.fused_padding_ok(ragged=True)
+        )
+        self._eval_merged = None
 
     def _frozen_mask(self):
         """True at the leaves the optimizer never trains (the user/item
@@ -171,3 +190,76 @@ class MAMDRStrategy(MetaStrategy):
         losses = self._start_dn_phase()
         self.run_dr_phase()
         return losses.cpu().numpy()
+
+    # ---------------- eval plumbing ----------------
+
+    def _merged(self, shared, specific, idx: int):
+        merged = ops.merge_weights(shared, specific[idx], self.mask, self.tc.merged_method)
+        return ops.load_masked(self.trainer.state.params, merged, self.mask)
+
+    def val_params_fn(self, idx: int):
+        return self._merged(self.shared, self.specific, idx)
+
+    def _best_params_fn(self, idx: int):
+        """Domain d's merged best weights over the trainer's state as it is
+        when called (the finetune's start)."""
+        return self._merged(self.best_shared, self.best_specific, idx)
+
+    def _merged_eval(self, mode: str, shared, specific_list):
+        """Every domain with its merged weights, as one lane eval
+        (fused.make_fused_eval_merged); one host read of the [D] results."""
+        t = self.trainer
+        if self._eval_merged is None:
+            self._eval_merged = fused.make_fused_eval_merged(
+                t.model, t.step_cfg, self.mask, self.tc.merged_method)
+        spec_stack = fused.stack_specific(specific_list, self.mask)
+        losses, aucs = self._eval_merged(t.state.params, shared, spec_stack,
+                                         t.eval_block(mode))
+        return t.summarize(mode, *t.domain_dicts(losses, aucs))
+
+    def validate(self):
+        if self.trainer.verbose:
+            print("Val Result: ")
+        return self._merged_eval("val", self.shared, self.specific)
+
+    def save_best(self) -> None:
+        """Snapshot (shared, specific) on the device, write the full params
+        and the decomposition (specific files hold only the masked leaves)."""
+        t = self.trainer
+        self.best_shared = self.shared
+        self.best_specific = list(self.specific)
+        t.save_checkpoint()
+        checkpoints.save_decomposition(
+            t.checkpoint_dir + "/decomposition", self.best_shared, self.best_specific,
+            extra={"merged_method": self.tc.merged_method}, mask=self.mask)
+
+    def test(self):
+        return self._merged_eval("test", self.best_shared, self.best_specific)
+
+    def finetune(self):
+        """Every domain from merge(best_shared, best_specific[d]) with SGD
+        (reference specific_base_model.py:99-162), as lanes."""
+        return separate_train_val_test(self.trainer, init_params=False,
+                                       params_fn=self._best_params_fn)
+
+    # ---------------- training ----------------
+
+    def train(self) -> None:
+        if not self.use_fused:
+            raise NotImplementedError(
+                "this MAMDR variant (batch update, finetune_every_epoch, a target domain, "
+                "or a train block past 4 GB) takes the JAX package's per-call loop, which "
+                "is not ported yet (ROADMAP.md, open items §1: _train_loop)")
+        self._train_fused()
+
+    def _train_fused(self) -> None:
+        """tc.epoch fused epochs, each followed by the validation, early stop
+        and best snapshot (epoch_tail)."""
+        t = self.trainer
+        self.prepare_fused()
+        for epoch in range(self.tc.epoch):
+            if t.verbose:
+                print(f"Epoch: {epoch}", "-" * 30)
+            self.run_fused_epoch()
+            if self.epoch_tail(epoch):
+                break

@@ -1,20 +1,21 @@
-"""Shared machinery for the meta strategies: the meta-parameter mask and the
-domain sequence (counterpart of ``mamdr_tpu/strategies/meta_base.py:24-74``
-and ``strategies/base.py``)."""
+"""Shared machinery for the meta strategies: the meta-parameter mask, the
+domain sequence, and the validation / early-stop tail of every meta epoch
+(counterpart of ``mamdr_tpu/strategies/meta_base.py:24-74, 96-230``). The
+meta-finetune validation (``meta_finetune_step > 0``) is not ported:
+``Strategy`` refuses it."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
+from mamdr_tpu_torch.strategies.base import Strategy
 from mamdr_tpu_torch.train.trainer import Trainer
 from mamdr_tpu_torch.utils import trees
 
 
-class MetaStrategy:
+class MetaStrategy(Strategy):
     def __init__(self, trainer: Trainer):
-        self.trainer = trainer
-        self.tc = trainer.config.train
-        self.n_domain = trainer.dataset.n_domain
+        super().__init__(trainer)
         self.mask = trees.meta_parm_mask(trainer.state.params, self.tc.meta_parms)
         # Meta params are drawn from TRAINABLE weights only (reference
         # maml.py:159 iterates model.trainable_weights): frozen user/item
@@ -43,3 +44,34 @@ class MetaStrategy:
                 raise ValueError("All the domains must be given in the sequence")
             return list(ms)
         return seq
+
+    # ---------------- validation / early stop ----------------
+
+    def val_params_fn(self, idx: int):
+        return self.trainer.state.params
+
+    def validate(self) -> Tuple[float, float, Dict, Dict]:
+        if self.trainer.verbose:
+            print("Val Result: ")
+        return self.trainer.val_and_test("val", params_fn=self.val_params_fn)
+
+    def epoch_tail(self, epoch: int) -> bool:
+        """Validation, early stop and best snapshot after a meta epoch
+        (reference maml.py:124-150); when verbose, the best weights' test
+        report. Returns True to stop training."""
+        t = self.trainer
+        if epoch % self.tc.val_every_step != 0:
+            return False
+        _, avg_auc, _, domain_auc = self.validate()
+        metric = domain_auc[str(self.target_domain)] if self.target_domain >= 0 else avg_auc
+        if t.stopper.step(metric):
+            return True
+        if t.stopper.improved:
+            self.save_best()
+        if t.verbose:
+            print("Test Result: ")
+            self.test()
+        return False
+
+    def save_best(self) -> None:
+        self.trainer.save_checkpoint()

@@ -1,0 +1,187 @@
+"""Per-domain separate training and the post-hoc finetune stage, as lanes.
+
+Counterpart of ``mamdr_tpu/strategies/separate.py`` (:26-215, the fused and
+bucketed routes). Reference: BaseModel.separate_train_val_test
+(base_model.py:41-109):
+
+  - ``init_params=True`` (the "separate" strategy): every domain starts from
+    the trainer's current weights with the trainer's optimizer (Adam);
+  - ``init_params=False`` (the finetune stage): domain d starts from
+    ``params_fn(d)`` (MAMDR: its merged best weights) with the finetune
+    optimizer (plain SGD, lr 1e-3).
+
+Per domain: full epochs with an early stop on its val AUC (patience,
+``min_delta``; a domain out of patience is frozen), keeping its best weights,
+then its test split with them. Every domain is a lane: one lane-batched
+train step (``steps.make_subset_train_step``, kernel K1 over all lanes on
+the card) advances all of them, each with fresh optimizer state, step 0 and
+its own dropout stream (``fast_random.lane_seeds``), and one lane eval
+scores them. The [D] val AUCs are read once an epoch for the early stop.
+Long-tailed data is trained in buckets of similar step counts, so lanes
+pad little. The sequential per-domain loop (``_separate_loop``) is not
+ported.
+"""
+
+from __future__ import annotations
+
+import os.path as osp
+from typing import Callable, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from mamdr_tpu_torch.ops.fast_random import lane_seeds
+from mamdr_tpu_torch.train import checkpoints, fused
+from mamdr_tpu_torch.train.state import TrainState
+from mamdr_tpu_torch.train.steps import make_subset_train_step
+from mamdr_tpu_torch.train.trainer import Trainer
+from mamdr_tpu_torch.utils import trees
+
+
+def separate_train_val_test(trainer: Trainer, init_params: bool = True,
+                            params_fn: Optional[Callable[[int], dict]] = None):
+    """Returns (avg_loss, avg_auc, domain_loss, domain_auc) over the test
+    splits. ``params_fn(d)`` gives domain d's starting weights (default: the
+    trainer's current ones). Every lane runs up to ``train.epoch`` epochs.
+    The lanes run all domains at once when padding them to the longest is
+    cheap (``Trainer.fused_padding_ok``), else in buckets of similar step
+    counts."""
+    t = trainer
+    if not t.config.train.separate_fused:
+        raise NotImplementedError(
+            "separate_fused=false: the sequential per-domain loop is not ported yet "
+            "(ROADMAP.md, open items §1: _separate_loop)")
+    if t.fused_padding_ok():
+        return _separate_fused(t, init_params, params_fn)
+    if t.fused_padding_ok(ragged=True):
+        return _separate_bucketed(t, init_params, params_fn)
+    raise NotImplementedError(
+        "the train block is past the lanes' memory budget; the sequential per-domain "
+        "loop is not ported yet (ROADMAP.md, open items §1: _separate_loop)")
+
+
+MAX_BUCKET_RATIO = 2.0  # the JAX package's step_buckets default
+
+
+def step_buckets(steps: List[int]) -> List[List[int]]:
+    """Greedy partition of domain indices by step count: descending sort, a
+    new bucket when the bucket's head has more than MAX_BUCKET_RATIO x this
+    domain's steps. Bounds a lane's padding by that ratio."""
+    order = sorted(range(len(steps)), key=lambda i: -steps[i])
+    buckets: List[List[int]] = []
+    for i in order:
+        if buckets and steps[buckets[-1][0]] <= MAX_BUCKET_RATIO * steps[i]:
+            buckets[-1].append(i)
+        else:
+            buckets.append([i])
+    return buckets
+
+
+def _separate_bucketed(trainer: Trainer, init_params: bool, params_fn):
+    domain_loss: Dict[str, float] = {}
+    domain_auc: Dict[str, float] = {}
+    for bucket in step_buckets(trainer.steps_per_domain()):
+        _, _, dl, da = _separate_fused(trainer, init_params, params_fn, domains=bucket)
+        domain_loss.update(dl)
+        domain_auc.update(da)
+    return trainer.summarize("test", domain_loss, domain_auc)
+
+
+class Lanes(NamedTuple):
+    """One separate / finetune run's lanes: lane l trains domain ``ids[l]``."""
+    ids: List[int]
+    states: TrainState      # the lanes' start: trainable leaves [L, ...]
+    epoch_all: Callable     # (states, block, gen) -> (states, [L] losses)
+    eval_all: Callable      # (params, eval block, steps) -> ([L] losses, [L] AUCs)
+    select_best: Callable   # (best, current, improved [L]) -> best
+    block: Dict[str, torch.Tensor]  # the lanes' train rows {col: [L, N_pad]}
+    val_block: Dict[str, torch.Tensor]
+    val_steps: int          # the longest lane's real val steps
+    test_block: Dict[str, torch.Tensor]
+    test_steps: int
+
+
+def make_lanes(trainer: Trainer, init_params: bool, params_fn=None,
+               domains: Optional[List[int]] = None) -> Lanes:
+    """Build the lanes of ``domains`` (default: all). Frozen tables are not
+    stacked: the carried params hold placeholders there and every lane reads
+    the one table (``make_subset_train_step``)."""
+    t = trainer
+    tc = t.config.train
+    tx = t.tx if init_params else t.finetune_tx
+    frozen_mask = trees.named_tree_map(
+        lambda n, x: (not tc.emb_trainable) and ("user_emb" in n or "item_emb" in n),
+        t.state.params)
+    train_step, to_sub, combine = make_subset_train_step(
+        t.model, tx, t.step_cfg, frozen_mask, t.state.params)
+
+    ids = list(range(t.dataset.n_domain)) if domains is None else [int(d) for d in domains]
+    block, n_steps = t.train_block()
+    val_block, test_block = t.eval_block("val"), t.eval_block("test")
+    if domains is not None:
+        # a bucket: its domains' lanes, cut to its longest step count (real
+        # rows sit first in every lane)
+        n_steps = max(t.steps_per_domain()[i] for i in ids)
+        idx = torch.as_tensor(ids, dtype=torch.long, device=t.device)
+        block = {k: v[idx, : n_steps * t.dataset.batch_size] for k, v in block.items()}
+        val_block = {k: v[idx] for k, v in val_block.items()}
+        test_block = {k: v[idx] for k, v in test_block.items()}
+    epoch_all, eval_all, select_best = fused.make_fused_separate(
+        train_step, t.model, t.step_cfg, n_steps, t.dataset.batch_size, combine)
+
+    starts = [to_sub(t.state.params if params_fn is None else params_fn(i)) for i in ids]
+    params = trees.tree_map(
+        lambda *xs: xs[0] if xs[0].dim() == 0 else torch.stack(xs), *starts)
+    opt0 = tx.init(starts[0])  # fresh optimizer state, the same for every lane
+    n = len(ids)
+    states = TrainState(
+        params=params,
+        opt_state=type(opt0)(*(x.expand(n, *x.shape) for x in opt0)),
+        seed=lane_seeds(t.draw_seed(), n, t.device),
+        step=torch.zeros((n,), dtype=torch.int32, device=t.device),
+    )
+    longest = lambda mode: max(t.eval_steps_per_domain(mode)[i] for i in ids)  # noqa: E731
+    return Lanes(ids, states, epoch_all, eval_all, select_best, block,
+                 val_block, longest("val"), test_block, longest("test"))
+
+
+def _separate_fused(trainer: Trainer, init_params: bool, params_fn,
+                    domains: Optional[List[int]] = None):
+    t = trainer
+    tc = t.config.train
+    lanes = make_lanes(t, init_params, params_fn, domains)
+    n = len(lanes.ids)
+    states = lanes.states
+    best = states.params
+    best_auc = np.full(n, -np.inf)
+    counter = np.zeros(n, np.int32)
+    for _ in range(tc.epoch):
+        states, _ = lanes.epoch_all(states, lanes.block, t.gen)
+        _, aucs = lanes.eval_all(states.params, lanes.val_block, lanes.val_steps)
+        aucs = aucs.cpu().numpy()  # the epoch's one host sync
+        # A domain out of patience is frozen (the reference's per-domain
+        # Keras EarlyStopping ends its fit, base_model.py:79-82): it keeps
+        # training in its lane but can no longer replace its best weights.
+        improved = (aucs > best_auc + tc.min_delta) & (counter < tc.patience)
+        if improved.any():
+            best = lanes.select_best(best, states.params,
+                                     torch.as_tensor(improved, device=t.device))
+        best_auc = np.where(improved, aucs, best_auc)
+        counter = np.where(improved, 0, counter + 1)
+        if (counter >= tc.patience).all():
+            break
+
+    losses, aucs = lanes.eval_all(best, lanes.test_block, lanes.test_steps)
+    local_loss, local_auc = t.domain_dicts(losses, aucs)
+    domain_loss = {str(g): local_loss[str(i)] for i, g in enumerate(lanes.ids)}
+    domain_auc = {str(g): local_auc[str(i)] for i, g in enumerate(lanes.ids)}
+    if tc.domain_checkpoints:
+        # each domain's trainable leaves (frozen tables are placeholders
+        # here; they live in model_parameters.npz)
+        for i, g in enumerate(lanes.ids):
+            checkpoints.save_pytree(
+                osp.join(t.checkpoint_dir, f"domain_{g}.npz"),
+                trees.tree_map(lambda x: x[i] if x.dim() > 0 else x, best))
+    if domains is not None:
+        return 0.0, 0.0, domain_loss, domain_auc
+    return t.summarize("test", domain_loss, domain_auc)

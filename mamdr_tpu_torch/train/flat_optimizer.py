@@ -1,4 +1,4 @@
-"""Flat-vector Adam over the trainable leaves.
+"""Flat-vector Adam over the trainable leaves, and masked SGD.
 
 Counterpart of ``mamdr_tpu/train/flat_optimizer.py::flat_adam``: every
 trainable leaf is ravelled into one vector in JAX leaf order (dict keys
@@ -15,6 +15,10 @@ Frozen leaves (mask False) take no gradient, get no update (``None``) and
 carry no slot state. ``torch.optim.Adam`` is not used: the train step must be
 able to discard a whole update, slot counter included, on an all-pad batch
 (train/steps.py).
+
+``masked_sgd`` is the finetune stage's optimizer (optax.sgd under the JAX
+package's frozen-table mask): updates ``-lr * g`` on trainable leaves, none
+at frozen ones, and no state. It serves a lane-stacked state unchanged.
 """
 
 from __future__ import annotations
@@ -83,6 +87,31 @@ class FlatAdam:
 def flat_adam(learning_rate: float, trainable_mask: Any, b1: float = 0.9,
               b2: float = 0.999, eps: float = 1e-8) -> FlatAdam:
     return FlatAdam(learning_rate, trainable_mask, b1, b2, eps)
+
+
+class SgdState(NamedTuple):
+    """SGD carries no state (an empty tuple, lane-stacked or not)."""
+
+
+class MaskedSgd:
+    """Plain SGD on the leaves the mask marks (python bools)."""
+
+    def __init__(self, learning_rate: float, trainable_mask: Any):
+        self.learning_rate = learning_rate
+        self.mask = trainable_mask
+
+    def init(self, params) -> SgdState:
+        return SgdState()
+
+    def update(self, grads, state: SgdState) -> Tuple[Any, SgdState]:
+        """(updates, state): ``-lr * g`` per trainable leaf, None at frozen
+        ones (p + (-lr * g) is p - lr * g bit for bit)."""
+        lr = self.learning_rate
+        return trees.tree_map(lambda m, g: -lr * g if m else None, self.mask, grads), state
+
+
+def masked_sgd(learning_rate: float, trainable_mask: Any) -> MaskedSgd:
+    return MaskedSgd(learning_rate, trainable_mask)
 
 
 def apply_updates(params, updates):

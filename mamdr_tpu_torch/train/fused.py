@@ -1,9 +1,10 @@
-"""Whole training phases over a device-resident data block.
+"""Whole training and evaluation phases over a device-resident data block.
 
 Counterpart of the MAMDR part of ``mamdr_tpu/train/fused.py`` (block
 stacking, batch formation, the ragged sequential pass, ``make_fused_mamdr``,
 ``make_fused_dr_parallel`` without its mesh-sharding and lane-chunk
-branches, ``stack_specific`` / ``unstack_specific``):
+branches, ``stack_specific`` / ``unstack_specific``, the fused evals and
+``make_fused_separate``):
 
   - all domain data lives on the device once, padded to a uniform
     [n_domain, n_steps*batch] block (weight-0 tail rows);
@@ -17,7 +18,16 @@ branches, ``stack_specific`` / ``unstack_specific``):
     lanes start from the DR-entry state and take each step together, one
     launch chain per lane-step through the lane-batched train step. Lanes
     with fewer real steps than the longest see all-pad batches, which the
-    per-lane gate turns into exact no-ops.
+    per-lane gate turns into exact no-ops;
+  - evaluation runs every domain as a lane too, each lane with its own
+    weights (``make_lane_eval``): a lane-step evaluates a [D, B] batch, so a
+    split takes S = max_d ceil(n_d/B) lane-steps, not sum_d ceil(n_d/B)
+    calls. A short domain's trailing lane-steps are all-pad batches, which
+    add exact zeros to its confusion counts and are left out of its mean
+    loss, so the result is the JAX package's ragged scan's
+    (``_make_ragged_eval``). The finetune stage trains its domains as lanes
+    through the same lane-batched train step the DR phase uses
+    (``make_fused_separate``).
 
 The JAX package fuses each phase into one jit dispatch; here a phase is a
 Python loop issuing work to one CUDA stream, and nothing in it waits for the
@@ -33,9 +43,12 @@ import numpy as np
 import torch
 
 from mamdr_tpu_torch.data.dataset import DomainSplit
+from mamdr_tpu_torch.metrics.auc import auc_init, auc_result, auc_update
+from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import lane_seeds
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.train.state import TrainState
+from mamdr_tpu_torch.train.steps import weighted_bce
 from mamdr_tpu_torch.utils import trees
 
 Tree = Any
@@ -344,3 +357,133 @@ def stack_specific(specific_list: List[Tree], mask: Tree) -> Tree:
 def unstack_specific(stacked: Tree, mask: Tree, n_domain: int) -> List[Tree]:
     return [trees.tree_map(lambda m, s: s[i] if m else s, mask, stacked)
             for i in range(n_domain)]
+
+
+def stack_domains_eval(splits: List[DomainSplit], batch_size: int,
+                       device) -> Dict[str, torch.Tensor]:
+    """Eval block {col: [D, S, B]}: each domain's rows in order, weight-0
+    padding (JAX ``stack_domains_eval``, fused.py:245-252)."""
+    cols, n_steps = stack_domains_on_device(splits, batch_size, device)
+    return {k: v.reshape(v.shape[0], n_steps, batch_size) for k, v in cols.items()}
+
+
+def _l2_lanes(model_params, l2_emb: float):
+    """The eval loss's l2 term (steps._l2_term's sum, leaves in the same
+    order) for lane-stacked params: a [L] tensor where an embedding table
+    carries a lane axis, else one value. Taken once per eval call: the
+    frozen tables alone are 100 MB to read at bench shapes."""
+    if l2_emb <= 0.0:
+        return 0.0
+    total = 0.0
+    for name, x in trees.leaves_with_names(model_params):
+        if "emb" in name:
+            total = total + (torch.sum(torch.square(x), dim=(1, 2)) if x.dim() == 3
+                             else torch.sum(torch.square(x)))
+    return l2_emb * total
+
+
+def make_lane_eval(model, cfg, gather=gather_fields):
+    """The one lane-batched eval every eval path runs (JAX ``_make_eval_step``
+    and its scans, fused.py:254-336).
+
+    Returns eval_lanes(params, block, steps=None) -> (losses [L], AucState
+    [L, T]). ``params`` ({'model': tree}) holds lane l's weights at index l
+    of every leaf with a lane axis; a leaf without one is read by every lane
+    (``MLP.apply_lanes``). ``block`` is {col: [L, S, B]}; ``steps`` lane-steps
+    run (all S by default: a lane's trailing all-pad batches change
+    nothing). Per lane: the loss is the total loss (data loss plus the l2 of
+    the lane's embedding tables) averaged over the batches that hold data,
+    a partial batch by its weighted mean; the confusion counts of every
+    batch (500 thresholds) are formed from zero and added. Nothing waits for
+    the host. ``gather`` is K2's wrapper, or its plain version to hold the
+    eval through K2 against.
+    """
+
+    def eval_lanes(params, block, steps: Optional[int] = None):
+        mp = params["model"]
+        # [S, L, B]: a lane-step's columns contiguous, as K2 takes its ids
+        by_step = {k: v.transpose(0, 1).contiguous() for k, v in block.items()}
+        n_steps, lanes = by_step["weight"].shape[:2]
+        steps = n_steps if steps is None else min(int(steps), n_steps)
+        dev = by_step["weight"].device
+        l2 = _l2_lanes(mp, cfg.l2_emb)
+        counts = auc_init(lanes=(lanes,), device=dev)
+        loss_sum = torch.zeros((lanes,), dtype=torch.float32, device=dev)
+        n = torch.zeros((lanes,), dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            for s in range(steps):
+                b = {k: v[s] for k, v in by_step.items()}
+                logits = model.apply_lanes(mp, b["uid"], b["pid"], b["domain"], gather)
+                loss = weighted_bce(logits, b["label"], b["weight"]) + l2
+                counts = auc_update(counts, b["label"], torch.sigmoid(logits), b["weight"])
+                has_data = (torch.sum(b["weight"], dim=-1) > 0.0).to(torch.float32)
+                loss_sum = loss_sum + loss * has_data
+                n = n + has_data
+        return loss_sum / torch.clamp(n, min=1.0), counts
+
+    return eval_lanes
+
+
+def make_fused_eval(model, cfg):
+    """Every domain with one set of weights (JAX ``make_fused_eval``,
+    fused.py:339-367): eval_all(params, block [D, S, B]) -> ([D] losses,
+    [D] AUCs), domain d as lane d, every lane reading ``params``."""
+    run = make_lane_eval(model, cfg)
+
+    def eval_all(params, block):
+        losses, counts = run(params, block)
+        return losses, auc_result(counts)
+
+    return eval_all
+
+
+def make_fused_eval_merged(model, cfg, mask, merged_method: str):
+    """Every domain with its own merged weights (MAMDR's eval, JAX
+    ``make_fused_eval_merged``, fused.py:370-425): eval_all(params, shared,
+    specific_stack, block) -> ([D] losses, [D] AUCs), where lane d reads
+    ``load_masked(params, merge(shared, specific[d]))``. The merge is one
+    ``ops.merge_weights`` over the [D]-stacked specific tree, as the DR
+    lanes merge."""
+    run = make_lane_eval(model, cfg)
+
+    def eval_all(params, shared, specific_stack, block):
+        merged = ops.merge_weights(shared, specific_stack, mask, merged_method)
+        losses, counts = run(ops.load_masked(params, merged, mask), block)
+        return losses, auc_result(counts)
+
+    return eval_all
+
+
+def make_fused_separate(train_step, model, cfg, n_steps: int, batch: int, combine):
+    """Independent per-domain training as lanes (JAX ``make_fused_separate``,
+    fused.py:428-483). Returns (epoch_all, eval_all, select_best):
+
+    - epoch_all(states, block [L, N_pad], gen) -> (states, [L] mean
+      losses): one shuffled epoch of ``n_steps`` (the longest lane's real
+      steps) of every lane through the lane-batched ``train_step``
+      (``_epoch_on_flat``); a shorter lane's extra steps are all-pad no-ops;
+    - eval_all(params, eval_block [L, S, B]) -> ([L] losses, [L] AUCs), lane
+      l with lane l's params (``combine`` maps carried params to the full
+      tree, as ``steps.make_subset_train_step``'s does);
+    - select_best(best, current, improved [L] bool) -> best with lane l
+      taken from ``current`` where improved[l]; placeholders of frozen
+      leaves (no lane axis) pass through.
+    """
+    run = make_lane_eval(model, cfg)
+
+    def epoch_all(states: TrainState, block, gen: torch.Generator):
+        return _epoch_on_flat(train_step, states, block, gen, n_steps, batch)
+
+    def eval_all(params, eval_block, steps: Optional[int] = None):
+        losses, counts = run(combine(params), eval_block, steps)
+        return losses, auc_result(counts)
+
+    def select_best(best, current, improved: torch.Tensor):
+        def sel(b, c):
+            if b.dim() == 0:
+                return b
+            return torch.where(improved.reshape((-1,) + (1,) * (b.dim() - 1)), c, b)
+
+        return trees.tree_map(sel, best, current)
+
+    return epoch_all, eval_all, select_best

@@ -5,8 +5,9 @@ Counterpart of ``mamdr_tpu/train/steps.py`` for the MLP tower:
   - binary cross-entropy on logits, masked weighted mean
     sum(w*bce)/max(sum(w), 1) (Keras weighted loss with 0/1 weights);
   - l2 1e-5 on the embedding tables, frozen tables contributing a constant;
-  - one train step = fused tower gradient (ops/fused_mlp_step.py), flat
-    Adam, and the all-pad gate: a batch whose weights sum to 0 leaves
+  - one train step = fused tower gradient (ops/fused_mlp_step.py), the
+    optimizer (flat Adam, or masked SGD in the finetune stage), and the
+    all-pad gate: a batch whose weights sum to 0 leaves
     params, optimizer slots and ``step`` exactly as they were
     (steps.py:148-165). The gate is a ``torch.where`` on the device, so a
     step never waits for the host;
@@ -23,7 +24,7 @@ import torch
 
 from mamdr_tpu_torch.ops.fast_random import step_seeds
 from mamdr_tpu_torch.ops.fused_mlp_step import make_fast_loss_grad
-from mamdr_tpu_torch.train.flat_optimizer import FlatAdamState, apply_updates, flat_adam
+from mamdr_tpu_torch.train.flat_optimizer import apply_updates, flat_adam, masked_sgd
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.utils import trees
 
@@ -34,14 +35,15 @@ class StepConfig(NamedTuple):
 
 
 def weighted_bce(logits, labels, weights):
-    """sum(w * bce) / max(sum(w), 1) — optax.sigmoid_binary_cross_entropy math."""
+    """sum(w * bce) / max(sum(w), 1) over the last axis —
+    optax.sigmoid_binary_cross_entropy math; [B] gives [], [L, B] gives [L]."""
     bce = (
         torch.clamp(logits, min=0.0)
         - logits * labels
         + torch.log1p(torch.exp(-torch.abs(logits)))
     )
-    denom = torch.clamp(torch.sum(weights), min=1.0)
-    return torch.sum(bce * weights) / denom
+    denom = torch.clamp(torch.sum(weights, dim=-1), min=1.0)
+    return torch.sum(bce * weights, dim=-1) / denom
 
 
 def _l2_term(model_params, l2_emb: float, emb_trainable: bool):
@@ -61,14 +63,17 @@ def _l2_term(model_params, l2_emb: float, emb_trainable: bool):
 
 
 def make_loss_fn(model, cfg: StepConfig):
-    """loss_fn(params, batch, seeds=None) -> (loss, data_loss): the model's
-    forward pass (dropout iff seeds are given) and the loss on it."""
+    """loss_fn(params, batch, seeds=None, probs=False) -> (loss, data_loss),
+    or (loss, data_loss, probabilities) when ``probs``: the model's forward
+    pass (dropout iff seeds are given) and the loss on it."""
 
-    def loss_fn(params, batch, seeds=None):
+    def loss_fn(params, batch, seeds=None, probs: bool = False):
         logits = model.apply(params["model"], batch["uid"], batch["pid"],
                              batch["domain"], seeds)
         data_loss = weighted_bce(logits, batch["label"], batch["weight"])
         loss = data_loss + _l2_term(params["model"], cfg.l2_emb, cfg.emb_trainable)
+        if probs:
+            return loss, data_loss, torch.sigmoid(logits)
         return loss, data_loss
 
     return loss_fn
@@ -79,8 +84,9 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
     """(state, batch) -> (state, data_loss), for one tower (batch columns
     [B], ``step`` []) or for L lanes at once (every carried leaf [L, ...],
     batch columns [L, B], ``step`` and ``seed`` [L]): seeds, loss and
-    gradient, flat Adam and the gate all broadcast over the lane axis, and
-    the gate is taken per lane. ``loss_grad`` defaults to the fused kernel
+    gradient, the optimizer and the gate all broadcast over the lane axis,
+    and the gate is taken per lane; the optimizer state keeps its own type
+    (flat Adam's slots, or SGD's empty state). ``loss_grad`` defaults to the fused kernel
     path (make_fast_loss_grad); ``combine`` maps the carried params to the
     tree the loss reads (make_subset_train_step)."""
     if loss_grad is None:
@@ -103,7 +109,8 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
 
         new_state = state.replace(
             params=trees.tree_map(keep, new_params, state.params),
-            opt_state=FlatAdamState(*(keep(n, o) for n, o in zip(new_opt, state.opt_state))),
+            opt_state=type(state.opt_state)(
+                *(keep(n, o) for n, o in zip(new_opt, state.opt_state))),
             step=state.step + has_data.to(state.step.dtype),
         )
         return new_state, data_loss
@@ -141,17 +148,21 @@ def make_subset_train_step(model, tx, cfg: StepConfig, frozen_mask, frozen_full,
 
 def make_optimizer(name: str, learning_rate: float, params,
                    emb_trainable: bool = True, flat: bool = True):
-    """Inner optimizer (TF1 AdamOptimizer defaults: b1=.9 b2=.999 eps=1e-8).
+    """Inner optimizer: flat Adam (TF1 AdamOptimizer defaults: b1=.9 b2=.999
+    eps=1e-8) or plain SGD (the finetune stage's).
 
     When ``emb_trainable`` is false the user/item tables are frozen: no
-    gradient, no update, no slots. Only flat Adam is ported so far.
+    gradient, no update, no slots. Adam is ported in its flat form only,
+    which the JAX package holds bit-exact to optax.adam.
     """
-    if name != "adam" or not flat:
+    if name not in ("adam", "sgd"):
+        raise ValueError(f"unknown optimizer {name!r}")
+    if name == "adam" and not flat:
         raise NotImplementedError(
-            f"optimizer {name!r} (flat={flat}) is not ported yet; use flat adam"
-        )
+            "optimizer 'adam' with flat=False is not ported; flat Adam is the same function")
 
     def trainable(name_: str, x) -> bool:
         return emb_trainable or not ("user_emb" in name_ or "item_emb" in name_)
 
-    return flat_adam(learning_rate, trees.named_tree_map(trainable, params))
+    mask = trees.named_tree_map(trainable, params)
+    return flat_adam(learning_rate, mask) if name == "adam" else masked_sgd(learning_rate, mask)

@@ -1,20 +1,25 @@
-"""Trainer: model, optimizer, state and device-resident data, wired together.
+"""Trainer: model, optimizers, state, device-resident data and evaluation.
 
-Counterpart of the construction path of ``mamdr_tpu/train/trainer.py``
-(``Trainer.__init__`` for the single-device case, ``train_block``,
-``steps_per_domain``). Evaluation, checkpoints and the finetune stage are
-later slices.
+Counterpart of ``mamdr_tpu/train/trainer.py`` for one device: construction,
+``train_block`` / ``steps_per_domain``, the per-domain evaluation with macro
+and example-weighted AUC (reference base_model.py:111-175) as one
+lane-batched eval over all domains, the strict-improvement early stop
+(base_model.py:202-224), the best-params checkpoint and the JSONL metrics.
+Resume snapshots, ``save_result`` and TensorBoard are not ported yet
+(ROADMAP.md §1); a config that asks for them is refused.
 
 Randomness is explicit: ``np_rng`` (numpy, seeded by the dataset seed) makes
 the host-side draws the JAX package makes with numpy — domain order, aux
 domains — so both packages draw the same values; a CPU ``torch.Generator``
-seeds parameter init and the base dropout seed; ``gen``, a generator on the
-run's device, makes the batch shuffles.
+seeds parameter init and the base dropout seeds (``draw_seed``); ``gen``, a
+generator on the run's device, makes the batch shuffles.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import os.path as osp
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,21 +28,78 @@ from mamdr_tpu_torch import DeviceLike, resolve_device
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.dataset import MultiDomainDataset
 from mamdr_tpu_torch.models.zoo import build_model
-from mamdr_tpu_torch.train import fused
+from mamdr_tpu_torch.train import checkpoints, fused
 from mamdr_tpu_torch.train.state import TrainState
-from mamdr_tpu_torch.train.steps import StepConfig, make_optimizer, make_train_step
+from mamdr_tpu_torch.train.steps import (
+    StepConfig,
+    make_loss_fn,
+    make_optimizer,
+    make_train_step,
+)
 from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils.logging import MetricsLogger
+
+# The JAX package's gate for its fused paths (trainer.py:227-264): a padded
+# lane pays when padding at most quadruples the steps or wastes under 250
+# steps a domain; a ragged path's [D, N_pad] block must stay under 4 GiB.
+MAX_WASTE_RATIO = 4.0
+STEPS_PER_DISPATCH = 250.0
+MAX_BLOCK_BYTES = 4 * 2**30
+
+
+class EarlyStopper:
+    """Strict-improvement early stop (reference base_model.py:202-224)."""
+
+    def __init__(self, patience: int):
+        self.patience = patience
+        self.counter = 0
+        self.best_metric: Optional[float] = None
+        self.early_stop = False
+        self.improved = False
+
+    def step(self, metric: float) -> bool:
+        """True when training should stop; ``improved`` says whether to save."""
+        self.improved = False
+        if self.best_metric is None or metric > self.best_metric:
+            self.best_metric = metric
+            self.counter = 0
+            self.improved = True
+        else:
+            self.counter += 1
+            if self.counter >= self.patience:
+                self.early_stop = True
+        return self.early_stop
+
+
+def _refuse_unported(config: ExperimentConfig, dataset: MultiDomainDataset) -> None:
+    """Raise for a trainer setting whose path the port does not have yet."""
+    tc = config.train
+    if tc.tensorboard or tc.histogram_freq > 0:
+        raise NotImplementedError(
+            "tensorboard / histogram_freq: TensorBoard export is not ported yet "
+            "(ROADMAP.md, open items §1: TensorBoard)")
+    if tc.resume or tc.resume_every > 0:
+        raise NotImplementedError(
+            "resume / resume_every: train-state snapshots are not ported yet "
+            "(ROADMAP.md, open items §1: resume state)")
+    if config.dataset.fixed_train or getattr(dataset, "fixed_train", False):
+        raise NotImplementedError(
+            "fixed_train: a fixed train order takes the JAX package's _train_loop, "
+            "which is not ported yet (ROADMAP.md, open items §1: _train_loop)")
 
 
 class Trainer:
     def __init__(self, config: ExperimentConfig, dataset: MultiDomainDataset,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, verbose: bool = True):
         """device: None runs on the CUDA card (and raises without one);
-        "cpu" runs the plain versions of the kernels on the CPU."""
+        "cpu" runs the plain versions of the kernels on the CPU. verbose:
+        print each evaluation's table, as the JAX package does."""
         self.device = resolve_device(device)
+        _refuse_unported(config, dataset)
         self.config = config
         self.dataset = dataset
-        tc = config.train
+        self.verbose = verbose
+        tc, mc = config.train, config.model
 
         self.np_rng = np.random.default_rng(dataset.seed)
         init_gen = torch.Generator().manual_seed(dataset.seed)
@@ -46,6 +108,7 @@ class Trainer:
             lambda p: p.to(self.device, copy=True), self.model.param_tree())}
         dropout_seed = int(torch.randint(0, 2**32, (), generator=init_gen,
                                          dtype=torch.int64))
+        self._seed_gen = init_gen  # later base seeds (draw_seed)
         self.gen = torch.Generator(device=self.device).manual_seed(dataset.seed)
 
         self.step_cfg = StepConfig(l2_emb=1e-5, emb_trainable=tc.emb_trainable)
@@ -54,6 +117,26 @@ class Trainer:
         self.state = TrainState.create(params, self.tx.init(params), dropout_seed,
                                        self.device)
         self._train_block: Optional[Tuple[Dict[str, torch.Tensor], int]] = None
+
+        # The finetune stage's optimizer: SGD at lr 1e-3 in the reference
+        # (base_model.py:69, specific_base_model.py:120). Adam here is the
+        # flat form, which the JAX package holds bit-exact to optax.adam.
+        self.finetune_tx = make_optimizer(tc.finetune_optimizer, tc.finetune_learning_rate,
+                                          params, tc.emb_trainable)
+        self.loss_fn = make_loss_fn(self.model, self.step_cfg)
+        self._eval_blocks: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._eval_fn: Optional[Callable] = None
+        self.stopper = EarlyStopper(tc.patience)
+        self.best_params = None  # on-device copy of the best checkpoint
+
+        ts = time.strftime("%Y%m%d-%H%M%S")
+        ds_cfg = config.dataset
+        self.checkpoint_dir = osp.join(tc.checkpoint_path, mc.name, ds_cfg.name,
+                                       ds_cfg.domain_split_path, ts)
+        self.checkpoint_path = osp.join(self.checkpoint_dir, "model_parameters.npz")
+        self.metrics = MetricsLogger(
+            osp.join(self.checkpoint_dir, "metrics.jsonl") if tc.metrics_jsonl else None)
+        self._eval_epoch_counter = 0
 
     def _build_model(self, generator: torch.Generator):
         ds = self.dataset
@@ -82,3 +165,115 @@ class Trainer:
 
     def train_step_fn(self):
         return make_train_step(self.model, self.tx, self.step_cfg)
+
+    def draw_seed(self) -> int:
+        """A fresh uint32 base dropout seed from the trainer's CPU generator
+        (the finetune lanes' base, fast_random.lane_seeds)."""
+        return int(torch.randint(0, 2**32, (), generator=self._seed_gen, dtype=torch.int64))
+
+    def fused_padding_ok(self, ragged: bool = False) -> bool:
+        """The JAX package's gate for its fused paths (trainer.py:227-264),
+        which pad every domain to the largest one's step count: padded
+        lanes pay when the waste ratio is small or the wasted steps stay
+        under the break-even; ``ragged`` paths (only real steps run) pay in
+        memory only, so the [D, N_pad] block must stay under
+        ``MAX_BLOCK_BYTES``. The port takes the same routes on the same data."""
+        steps = self.steps_per_domain()
+        d = len(steps)
+        total_padded = max(steps) * d
+        if ragged:
+            block_bytes = total_padded * self.dataset.batch_size * 5 * 4
+            return block_bytes <= MAX_BLOCK_BYTES
+        if total_padded <= MAX_WASTE_RATIO * sum(steps):
+            return True
+        return (total_padded - sum(steps)) <= STEPS_PER_DISPATCH * d
+
+    # ---------------- evaluation ----------------
+
+    def _splits(self, mode: str):
+        if mode not in ("val", "test"):
+            raise ValueError(f"mode must be val or test, not {mode!r}")
+        return {"val": self.dataset.val, "test": self.dataset.test}[mode]
+
+    def eval_block(self, mode: str) -> Dict[str, torch.Tensor]:
+        """Device-resident {col: [D, S, B]} eval block of a split, made once."""
+        if mode not in self._eval_blocks:
+            self._eval_blocks[mode] = fused.stack_domains_eval(
+                self._splits(mode), self.dataset.batch_size, self.device)
+        return self._eval_blocks[mode]
+
+    def eval_steps_per_domain(self, mode: str) -> List[int]:
+        """Per-domain real eval step counts ceil(n_d / B)."""
+        return fused.domain_step_counts(self._splits(mode), self.dataset.batch_size)
+
+    def fused_eval_fn(self):
+        """The all-domain lane eval (fused.make_fused_eval): eval_all(params,
+        block) -> ([D] losses, [D] AUCs), params lane-stacked or shared."""
+        if self._eval_fn is None:
+            self._eval_fn = fused.make_fused_eval(self.model, self.step_cfg)
+        return self._eval_fn
+
+    def val_and_test(self, mode: str, params_fn: Optional[Callable[[int], dict]] = None,
+                     params=None) -> Tuple[float, float, Dict, Dict]:
+        """Every domain's loss and AUC on a split -> (macro loss, macro AUC,
+        per-domain dicts), as one lane eval: domain d is lane d.
+
+        ``params_fn(d)`` gives domain d's params (MAMDR's merged weights,
+        specific_base_model.py:64-97); they are stacked into lanes, a leaf
+        that is one tensor for every domain kept unstacked. Else every
+        domain reads ``params`` (default: the current state's). The best
+        checkpoint's reload for test is the caller's (strategies keep their
+        best weights). The [D] results are read in one host sync.
+        """
+        if params_fn is not None:
+            per = [params_fn(i) for i in range(self.dataset.n_domain)]
+            params = trees.tree_map(
+                lambda *xs: xs[0] if all(x is xs[0] for x in xs) else torch.stack(xs), *per)
+        elif params is None:
+            params = self.state.params
+        losses, aucs = self.fused_eval_fn()(params, self.eval_block(mode))
+        return self.summarize(mode, *self.domain_dicts(losses, aucs))
+
+    @staticmethod
+    def domain_dicts(losses: torch.Tensor, aucs: torch.Tensor) -> Tuple[Dict, Dict]:
+        """[D] losses and AUCs on the device -> per-domain dicts (one read)."""
+        both = torch.stack([losses, aucs]).cpu().numpy()
+        return ({str(i): float(v) for i, v in enumerate(both[0])},
+                {str(i): float(v) for i, v in enumerate(both[1])})
+
+    def summarize(self, mode: str, domain_loss: Dict, domain_auc: Dict):
+        """(macro loss, macro AUC, domain_loss, domain_auc); logs the event
+        and, when verbose, prints the table (trainer.py:486-514)."""
+        avg_loss = sum(domain_loss.values()) / len(domain_loss)
+        avg_auc = sum(domain_auc.values()) / len(domain_auc)
+        self.metrics.log_eval(mode, self._eval_epoch_counter, avg_loss, avg_auc, domain_auc)
+        if mode == "val":
+            self._eval_epoch_counter += 1
+        if self.verbose:
+            print(f"Loss: {domain_loss}")
+            print("AUC: ")
+            for k, v in domain_auc.items():
+                print(f"{k}: {v}")
+            w_auc = self.weighted_auc(mode, domain_auc)
+            print(f"Overall {mode} Loss: {avg_loss}, AUC: {avg_auc}, Weighted AUC: {w_auc}")
+        return avg_loss, avg_auc, domain_loss, domain_auc
+
+    def weighted_auc(self, mode: str, domain_auc: Dict[str, float]) -> float:
+        """Example-weighted AUC (base_model.py:157-175)."""
+        info = self.dataset.dataset_info
+        tag = "n_val" if "val" in mode else ("n_test" if "test" in mode else "n_train")
+        num = sum(info[k][tag] * v for k, v in domain_auc.items())
+        den = sum(info[k][tag] for k in domain_auc)
+        return num / den
+
+    # ---------------- checkpoints ----------------
+
+    def save_checkpoint(self, params=None) -> None:
+        """Keep ``params`` (default: the state's) as the best, on the device,
+        and write them to ``checkpoint_path``."""
+        params = params if params is not None else self.state.params
+        self.best_params = params
+        checkpoints.save_pytree(self.checkpoint_path, params)
+
+    def load_checkpoint(self):
+        return checkpoints.load_pytree(self.checkpoint_path, self.state.params)

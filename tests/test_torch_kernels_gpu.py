@@ -543,3 +543,108 @@ def test_epoch_on_the_card_small(cuda_device, dr_parallel, emb_trainable):
         for m, a, b in zip(trees.leaves(strat.mask), trees.leaves(new), trees.leaves(old)):
             if m:
                 assert bool(torch.isfinite(a).all()) and not torch.equal(a, b)
+
+
+def _small_mamdr(emb_trainable, tmp_path, device=None, dropout=0.5, n_per_domain=300,
+                 batch=32, epoch=1):
+    cfg = ExperimentConfig.from_dict({
+        "model": {"name": "mlp_meta_mamdr_finetune", "user_dim": 8, "item_dim": 8,
+                  "domain_dim": 8, "hidden_dim": [32, 16], "dropout": dropout},
+        "train": {"load_pretrain_emb": True, "emb_trainable": emb_trainable, "epoch": epoch,
+                  "patience": 2, "learning_rate": 1e-2, "sample_num": 2,
+                  "meta_learning_rate": 0.1, "checkpoint_path": str(tmp_path)},
+        "dataset": {"name": "synthetic", "batch_size": batch, "seed": 21},
+    })
+    ds = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=n_per_domain,
+                                seed=21, long_tail=True, batch_size=batch)
+    rng = np.random.default_rng(0)
+    ds.user_emb = rng.normal(0, 0.1, (50, 8)).astype(np.float32)
+    ds.item_emb = rng.normal(0, 0.1, (60, 8)).astype(np.float32)
+    return MAMDRStrategy(Trainer(cfg, ds, device=device, verbose=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emb_trainable", [False, True])
+def test_lane_eval_through_k2_equals_the_plain_gather(cuda_device, tmp_path, emb_trainable):
+    """The merged eval's lanes through K2 against the same eval through the
+    plain gather: K2 copies rows and the products are the same calls, so the
+    logits, losses and confusion counts are equal bit for bit."""
+    from mamdr_tpu_torch.strategies import ops as weight_ops
+    from mamdr_tpu_torch.train import fused
+
+    strat = _small_mamdr(emb_trainable, tmp_path)
+    t = strat.trainer
+    stack = fused.stack_specific(strat.specific, strat.mask)
+    params = weight_ops.load_masked(
+        t.state.params, weight_ops.merge_weights(strat.shared, stack, strat.mask, "plus"),
+        strat.mask)
+    block = t.eval_block("val")
+    b = {k: v[:, 0].contiguous() for k, v in block.items()}
+    before = gather_fields.launches
+    logits_k = t.model.apply_lanes(params["model"], b["uid"], b["pid"], b["domain"])
+    assert gather_fields.launches == before + 1 and not logits_k.requires_grad
+    logits_p = t.model.apply_lanes(params["model"], b["uid"], b["pid"], b["domain"],
+                                   gather=gather_fields_reference)
+    assert torch.equal(logits_k, logits_p)
+    loss_k, counts_k = fused.make_lane_eval(t.model, t.step_cfg)(params, block)
+    loss_p, counts_p = fused.make_lane_eval(t.model, t.step_cfg,
+                                            gather=gather_fields_reference)(params, block)
+    assert torch.equal(loss_k, loss_p)
+    assert all(torch.equal(a, c) for a, c in zip(counts_k, counts_p))
+    gather_fields.launches = 0
+    _, avg_auc, _, domain_auc = strat.validate()
+    assert gather_fields.launches == block["weight"].shape[1]
+    assert all(0.0 <= v <= 1.0 for v in domain_auc.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emb_trainable", [False, True])
+def test_finetune_lane_step_held_to_the_plain_version(cuda_device, tmp_path, emb_trainable):
+    """A finetune SGD lane-step: K1-lanes held to its plain version on the
+    step's operands (kernel_check.k1_vs_plain); then the whole finetune
+    stage's launches: one K1-lanes and one K2 a lane-step, one K2 an eval
+    lane-step."""
+    from mamdr_tpu_torch.ops.fused_mlp_step import make_fast_loss_grad
+    from mamdr_tpu_torch.strategies import separate
+    from mamdr_tpu_torch.train.steps import make_subset_train_step
+
+    strat = _small_mamdr(emb_trainable, tmp_path)
+    t = strat.trainer
+    lanes = separate.make_lanes(t, False, strat._best_params_fn)
+    seen = []
+
+    def spy(*a):
+        seen[:] = a
+        return fused_tower_grad_lanes(*a)
+
+    step = make_subset_train_step(t.model, t.finetune_tx, t.step_cfg, strat._frozen_mask(),
+                                  t.state.params,
+                                  loss_grad=make_fast_loss_grad(t.model, t.step_cfg,
+                                                                tower_grad=spy))[0]
+    batch = t.dataset.batch_size
+    new, loss = step(lanes.states, {k: v[:, :batch].contiguous() for k, v in lanes.block.items()})
+    assert loss.shape == (3,) and bool(torch.all(new.step == 1))
+    k1_vs_plain(fused_tower_grad_lanes, tower_grad_reference_lanes, *seen, K1_REL_TOL)
+
+    fused_tower_grad.launches = fused_tower_grad_lanes.launches = gather_fields.launches = 0
+    _, _, _, domain_auc = strat.finetune()
+    steps = max(t.steps_per_domain())
+    val_steps = max(t.eval_steps_per_domain("val"))
+    test_steps = max(t.eval_steps_per_domain("test"))
+    assert fused_tower_grad.launches == 0
+    assert fused_tower_grad_lanes.launches == steps  # one epoch
+    assert gather_fields.launches == steps + val_steps + test_steps
+    assert all(0.0 <= v <= 1.0 for v in domain_auc.values())
+
+
+@pytest.mark.gpu
+def test_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path):
+    """A whole run() (3 epochs, test, finetune) through the kernels against
+    the same run() through the plain versions on the CPU: one batch a
+    domain, so the two devices' shuffles permute the same rows; dropout off.
+    Test loss within 1e-3 relative, AUC within 1e-3."""
+    card = _small_mamdr(False, tmp_path / "card", None, 0.0, 100, 64, 3).run()
+    cpu = _small_mamdr(False, tmp_path / "cpu", "cpu", 0.0, 100, 64, 3).run()
+    for k, v in cpu[2].items():
+        assert abs(card[2][k] - v) <= 1e-3 * abs(v)
+        assert abs(card[3][k] - cpu[3][k]) <= 1e-3
