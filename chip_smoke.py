@@ -56,6 +56,18 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      K1-lanes held to its plain version on its operands; one finetune epoch
      timed alone; the whole run(); and a small run() on the card against the
      same run() on the CPU;
+  5d. file-backed data and the other MLP strategies: the bench data written
+     in the reference's on-disk layout (30 domains x train/val/test CSV,
+     100k x 128 user and item emb JSON, vocab JSON, a domain_property.json)
+     and read by MultiDomainDataset.from_disk through the native CSV loader,
+     timed and held bit for bit to the in-memory data; the CLI
+     (python -m mamdr_tpu_torch.run --config, mlp_meta_mamdr_finetune) in its
+     own process on that tree, its result folder checked; run() of mlp,
+     mlp_finetune, mlp_separate, mlp_meta_domain_negotiation_finetune and
+     mlp_meta_reptile_finetune at bench shapes on the loaded data with their
+     launch counts asserted, each timed with its train epoch, weights moved,
+     meta moved on masked leaves only; and a small run() of each on the card
+     against the same run() on the CPU;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -68,6 +80,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -943,6 +956,230 @@ def main() -> int:
           f"{auc_abs:.2e} (tol 1e-3)")
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
+    # ---- 5d. file-backed data, the CLI, joint / separate / finetune / DN / Reptile ----
+    # The bench data written in the reference's on-disk layout and read back
+    # by MultiDomainDataset.from_disk through the native CSV loader (bit for
+    # bit); the CLI as a user starts it, on that tree; then each new
+    # strategy's run() at bench shapes on the loaded data, every path driven
+    # with the launch counts at 0 just before it and read just after; and a
+    # small run() of each on the card against the CPU.
+    from mamdr_tpu_torch.data import native_loader
+    from mamdr_tpu_torch.data.dataset import MultiDomainDataset
+    from mamdr_tpu_torch.strategies.base import build_strategy
+    from mamdr_tpu_torch.workload import (bench_config, bench_dataset, build_bench_trainer,
+                                          write_domain_tree)
+
+    work = tempfile.mkdtemp(prefix="mamdr_chip_smoke_5d_")
+    mem = bench_dataset()
+    mem.ctr_ratio = {0: float(mem.train[0].label.mean())}
+    split = "split_by_theme_30"
+    t0 = time.perf_counter()
+    write_domain_tree(mem, os.path.join(work, "Taobao", split))
+    write_s = time.perf_counter() - t0
+    ds_conf = ExperimentConfig.from_dict({"dataset": {
+        "name": "Taobao", "dataset_path": os.path.join(work, "Taobao"),
+        "domain_split_path": split, "batch_size": batch, "seed": 123}}).dataset
+    files0 = native_loader.load_csv_native.files
+    t0 = time.perf_counter()
+    disk = MultiDomainDataset.from_disk(ds_conf)
+    load_s = time.perf_counter() - t0
+    n_files = native_loader.load_csv_native.files - files0
+    if n_files != 3 * mem.n_domain:
+        fail(f"from_disk parsed {n_files} of {3 * mem.n_domain} CSV files natively")
+    for mode in ("train", "val", "test"):
+        for d, (a, b) in enumerate(zip(getattr(disk, mode), getattr(mem, mode))):
+            for col in ("uid", "pid", "domain", "label"):
+                x, y = getattr(a, col), getattr(b, col)
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    fail(f"from_disk: {mode} domain {d} column {col} differs from the data")
+    for what, x, y in (("user", disk.user_emb, mem.user_emb), ("item", disk.item_emb,
+                                                                mem.item_emb)):
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            fail(f"from_disk: the {what} table differs from the data")
+    if disk.dataset_info != mem.dataset_info:
+        fail("from_disk: dataset_info differs")
+    disk_rows = sum(s.n for m in ("train", "val", "test") for s in getattr(disk, m))
+    print(f"file-backed data: wrote {mem.n_domain} domains x 3 CSV files and two "
+          f"{mem.n_uid}x128 emb JSON tables in {write_s:.3f} s; from_disk {load_s:.3f} s, "
+          f"{disk_rows} rows ({disk_rows / load_s:.0f} rows/s) and {2 * mem.n_uid} table "
+          f"rows, {n_files} files through the native loader; every column and both tables "
+          f"bit-equal to the in-memory data")
+    del mem
+
+    # The CLI as a user runs it, in its own process, on the tree.
+    cli_cfg = bench_config(model="mlp_meta_mamdr_finetune").to_dict()
+    cli_cfg["dataset"].update(name="Taobao", dataset_path=os.path.join(work, "Taobao"),
+                              domain_split_path=split)
+    cli_cfg["train"].update(checkpoint_path=os.path.join(work, "cli_ckpt"),
+                            result_save_path=os.path.join(work, "cli_result"))
+    cli_json = os.path.join(work, "cli.json")
+    with open(cli_json, "w") as f:
+        json.dump(cli_cfg, f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mamdr_tpu_torch.run", "--config", cli_json],
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo}, capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    res_base = os.path.join(work, "cli_result", "mlp_meta_mamdr_finetune", "Taobao", split)
+    folders = os.listdir(res_base) if os.path.isdir(res_base) else []
+    if len(folders) != 1:
+        fail(f"the CLI wrote {len(folders)} result folders under {res_base}")
+    res_dir = os.path.join(res_base, folders[0])
+    if sorted(os.listdir(res_dir)) != ["config.json.example", "dataset_info.json",
+                                       "model_parameters.npz", "result.json"]:
+        fail(f"the CLI's result folder holds {sorted(os.listdir(res_dir))}")
+    with open(os.path.join(res_dir, "result.json")) as f:
+        cli_res = json.load(f)
+    vals = [cli_res["avg_loss"], cli_res["avg_auc"], *cli_res["domain_loss"].values(),
+            *cli_res["domain_auc"].values()]
+    if len(cli_res["domain_auc"]) != n_domain or not all(np.isfinite(v) for v in vals):
+        fail(f"the CLI's result.json: {cli_res}")
+    with np.load(os.path.join(res_dir, "model_parameters.npz")) as z:
+        names = sorted(z.files)
+    want_names = ["model//dnn//Dense_0//Dense_0//kernel", "model//embedding//user_emb",
+                  "model//logit//Dense_0//Dense_0//kernel"]
+    if not all(n in names for n in want_names):
+        fail(f"the CLI's model_parameters.npz holds {names}")
+    print(f"CLI (python -m mamdr_tpu_torch.run --config, mlp_meta_mamdr_finetune, epoch 1, "
+          f"on the tree, its own process): exit 0 in {cli_s:.3f} s wall (start-up, "
+          f"from_disk, run(), result folder); result folder {folders[0]} with its four "
+          f"files, test macro AUC {cli_res['avg_auc']:.6f}, loss {cli_res['avg_loss']:.6f}; "
+          f"{len(names)} flax-named arrays in model_parameters.npz; {card}")
+
+    # The new strategies' run() at bench shapes on the loaded data, epoch 1.
+    # Each train epoch is timed apart by wrapping the epoch function its
+    # strategy builds; an epoch is 360,000 examples (30 domain-epochs of
+    # 12000, counted as bench.py counts a domain-epoch).
+    epoch_s_of = []
+
+    def timed(factory, index=None):
+        def make(*a, **k):
+            out = factory(*a, **k)
+            fn = out if index is None else out[index]
+
+            def run_timed(*aa, **kk):
+                torch.cuda.synchronize()
+                t0_ = time.perf_counter()
+                r = fn(*aa, **kk)
+                torch.cuda.synchronize()
+                epoch_s_of.append(time.perf_counter() - t0_)
+                return r
+
+            return run_timed if index is None else (run_timed, *out[1:])
+
+        return make
+
+    originals = {k: getattr(fused, k) for k in ("make_fused_passes", "make_fused_dn",
+                                                "make_fused_reptile", "make_fused_separate")}
+    fused.make_fused_passes = timed(originals["make_fused_passes"])
+    fused.make_fused_dn = timed(originals["make_fused_dn"])
+    fused.make_fused_reptile = timed(originals["make_fused_reptile"])
+    fused.make_fused_separate = timed(originals["make_fused_separate"], 0)
+    new_counts = {}
+    disk_train = sum(s.n for s in disk.train)
+    try:
+        for name in ("mlp", "mlp_finetune", "mlp_separate",
+                     "mlp_meta_domain_negotiation_finetune", "mlp_meta_reptile_finetune"):
+            trainer = build_bench_trainer(name, checkpoint_path=os.path.join(work, name),
+                                          dataset=disk)
+            strat = build_strategy(trainer)
+            params0 = trainer.state.params
+            train_steps = sum(trainer.steps_per_domain())
+            ev = max(trainer.eval_steps_per_domain("val"))
+            te = max(trainer.eval_steps_per_domain("test"))
+            ln = max(trainer.steps_per_domain())
+            lanes_k2 = ln + ev + te  # one epoch of lanes, its validation, the test
+            if name == "mlp_separate":
+                want = (0, ln, lanes_k2)
+            else:
+                ft = strat.spec.finetune
+                want = (train_steps, ln if ft else 0,
+                        train_steps + ev + te + (lanes_k2 if ft else 0))
+            epoch_s_of.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = strat.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            got = counts()
+            if got != want:
+                fail(f"{name}: run() launched (K1, K1-lanes, K2) {got}, expected {want}")
+            new_counts[name] = got
+            auc, wauc, loss = checked(res, "test", f"{name} run()")
+            start = params0["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
+            if name == "mlp_separate" or strat.spec.finetune:
+                for d in range(n_domain):
+                    with np.load(os.path.join(trainer.checkpoint_dir, f"domain_{d}.npz")) as z:
+                        k = z["model//dnn//Dense_0//Dense_0//kernel"]
+                    if not np.all(np.isfinite(k)) or np.array_equal(k, start.cpu().numpy()):
+                        fail(f"{name}: domain {d}'s best weights are not finite or did not move")
+            if name != "mlp_separate":
+                best = trainer.best_params["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
+                if not bool(torch.isfinite(best).all()) or torch.equal(best, start):
+                    fail(f"{name}: the trained weights are not finite or did not move")
+            if hasattr(strat, "meta"):
+                for (n, m), a, b in zip(trees.leaves_with_names(strat.mask),
+                                        trees.leaves(strat.meta), trees.leaves(params0)):
+                    if m and (torch.equal(a, b) or not bool(torch.isfinite(a).all())):
+                        fail(f"{name}: meta leaf {n} did not move or is not finite")
+                    if not m and a is not b:
+                        fail(f"{name}: meta's unmasked leaf {n} is not the same tensor")
+            # the train epoch, then the finetune stage's epoch of lanes
+            if len(epoch_s_of) != 1 + strat.spec.finetune:
+                fail(f"{name}: {len(epoch_s_of)} epochs timed, expected "
+                     f"{1 + strat.spec.finetune}")
+            ep_s = epoch_s_of[0]
+            ft_note = (f"; its finetune epoch {epoch_s_of[1]:.3f} s" if strat.spec.finetune
+                       else "")
+            what = ("every domain a lane: an epoch, validation, test" if name == "mlp_separate"
+                    else "an epoch, validation, best checkpoint, test"
+                    + (", finetune" if strat.spec.finetune else ""))
+            print(f"{name} run() at bench shapes on the loaded data ({what}): {run_s:.3f} s; "
+                  f"its train epoch {ep_s:.3f} s, {disk_train} examples, "
+                  f"{disk_train / ep_s:.0f} examples/s{ft_note}; launches (K1, K1-lanes, K2) "
+                  f"{got}; "
+                  f"test macro AUC {auc:.6f}, weighted {wauc:.6f}, loss {loss:.6f}; weights "
+                  f"moved{'; meta moved on masked leaves only, frozen tables the same tensors' if hasattr(strat, 'meta') else ''}; {card}")
+            del trainer, strat, params0, start
+    finally:
+        for k, v in originals.items():
+            setattr(fused, k, v)
+
+    # A small input against the reference: each run() on the card against the
+    # same run() on the CPU through the plain versions (one batch a domain,
+    # dropout off, 3 epochs).
+    def small_strategy_run(name, device):
+        cfg = ExperimentConfig.from_dict({
+            "model": {"name": name, "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                      "hidden_dim": [32, 16], "dropout": 0.0},
+            "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                      "patience": 2, "learning_rate": 1e-2, "meta_learning_rate": 0.1,
+                      "checkpoint_path": os.path.join(work, "small", str(device))},
+            "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21}})
+        small = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100,
+                                       seed=21, long_tail=True, batch_size=64)
+        r = np.random.default_rng(0)
+        small.user_emb = r.normal(0, 0.1, (50, 8)).astype(np.float32)
+        small.item_emb = r.normal(0, 0.1, (60, 8)).astype(np.float32)
+        return build_strategy(Trainer(cfg, small, device=device, verbose=False)).run()
+
+    for name in new_counts:
+        on_card, on_cpu = small_strategy_run(name, None), small_strategy_run(name, "cpu")
+        loss_rel = max(abs(on_card[2][k] - v) / abs(v) for k, v in on_cpu[2].items())
+        auc_abs = max(abs(on_card[3][k] - v) for k, v in on_cpu[3].items())
+        if not (loss_rel <= 1e-3 and auc_abs <= 1e-3):
+            fail(f"small {name} run() on the card vs the CPU: test losses {on_card[2]} vs "
+                 f"{on_cpu[2]}, AUCs {on_card[3]} vs {on_cpu[3]}")
+        print(f"small {name} run() (3 domains, 3 epochs) on the card vs the CPU's plain "
+              f"versions: test loss within {loss_rel:.2e} (tol 1e-3 relative), AUC within "
+              f"{auc_abs:.2e} (tol 1e-3)")
+    del disk
+    shutil.rmtree(work, ignore_errors=True)
+
     # ---- 6. kernels ----
     print(json.dumps({"kernels": [
         {"name": "fused_tower_grad", "route": "cuda",
@@ -997,6 +1234,35 @@ def main() -> int:
          "launches": ft_counts[1], "max_abs_err": k1f["err"], "relu_edge_units": k1f["flips"],
          "ms": k1l_ms, "plain_ms": k1l_plain_ms, "bound_ms": k1l_bound,
          "bound_by": "operations", "library_ms": None},
+        # 5d's runs (joint, finetune, separate, DN, Reptile at bench shapes):
+        # K1 and K2 at the train step's shapes on every joint / DN / Reptile
+        # step, K1-lanes and K2 at the lane-step's shapes in the separate and
+        # finetune lanes and the evals; times from phases 3-4a at the same
+        # shapes
+        {"name": "fused_tower_grad (joint, DN and Reptile runs)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": sum(c[0] for c in new_counts.values()), "max_abs_err": k1_err,
+         "relu_edge_units": k1_flips, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound, "bound_by": "operations", "library_ms": None},
+        {"name": "fused_tower_grad_lanes (separate and finetune lanes of 5d)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": sum(c[1] for c in new_counts.values()), "max_abs_err": k1l_err,
+         "relu_edge_units": k1l_flips, "ms": k1l_ms, "plain_ms": k1l_plain_ms,
+         "bound_ms": k1l_bound, "bound_by": "operations", "library_ms": None},
+        {"name": f"gather_fields (3 fields x {batch} ids, joint, DN and Reptile steps)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[0] for c in new_counts.values()), "max_abs_err": k2_err,
+         "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": dn_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5d's lanes and evals)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[2] - c[0] for c in new_counts.values()), "max_abs_err": k2l_err,
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
         # K3's path is the gather probe, which runs it at both sizes: each
         # entry has the launches the probe counted at its depth and size, and
         # the error of its own comparison in 4b. At 1024 ids both depths plan

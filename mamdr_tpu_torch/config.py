@@ -1,7 +1,7 @@
 """Typed experiment configuration and the model-name micro-DSL.
 
-A copy of the parts of ``mamdr_tpu/config.py`` that the port reads: the
-reference JSON schema (``model`` / ``train`` / ``dataset`` blocks) parsed into
+A copy of ``mamdr_tpu/config.py`` (every field but one, see ``TrainConfig``):
+the reference JSON schema (``model`` / ``train`` / ``dataset`` blocks) parsed into
 dataclasses, and substring dispatch on ``model.name``
 (reference: run.py:37-65, README.md:60-159). Unknown keys are ignored, as in
 the JAX package, so every config that package reads parses here too.
@@ -10,6 +10,7 @@ the JAX package, so every config that package reads parses here too.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Union
 
@@ -92,17 +93,39 @@ def parse_model_name(name: str) -> NameSpec:
 
 @dataclass
 class ModelConfig:
-    """``model`` block (README.md:100-117)."""
+    """``model`` block (README.md:100-117). Every field of the JAX package's
+    is read, so a config of any base model parses; only the MLP is built
+    (``models/zoo.py`` refuses the rest)."""
 
     name: str = "mlp"
+    norm: str = "none"            # star only: pn | bn | none
+    dense: str = "dense"          # star only: dense | star
+    auxiliary_net: bool = False   # star only
     user_dim: int = 128
     item_dim: int = 128
     domain_dim: int = 128
+    auxiliary_dim: int = 128
     hidden_dim: List[int] = field(default_factory=lambda: [256, 128, 64])
     dropout: float = 0.0
     # Tower compute dtype. The port computes float32 only; the field is read
     # so that a bfloat16 config is refused rather than silently run in f32.
     compute_dtype: str = "float32"
+    # MTL extras (config/Taobao-10/{mmoe,ple}.json)
+    tower_hidden_dim: List[int] = field(default_factory=lambda: [64])
+    num_experts: int = 4
+    gate_dnn_hidden_units: List[int] = field(default_factory=list)
+    specific_expert_num: int = 1
+    shared_expert_num: int = 1
+    num_levels: int = 2
+    # AutoInt
+    att_head_num: int = 4
+    att_layer_num: int = 3
+    # CCPM
+    conv_kernel_width: List[int] = field(default_factory=lambda: [6, 5])
+    conv_filters: List[int] = field(default_factory=lambda: [4, 4])
+    # PNN
+    use_inner: bool = True
+    use_outter: bool = False
 
     @property
     def spec(self) -> NameSpec:
@@ -111,30 +134,74 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """``train`` block (README.md:118-146): the fields the port reads so far,
-    with the JAX package's defaults. Some are read only to refuse a value
-    whose path is not ported (``Trainer`` and the strategies raise
-    ``NotImplementedError`` naming the ROADMAP item)."""
+    """``train`` block (README.md:118-146), with the JAX package's fields and
+    defaults, so ``config.json.example`` is the same file. Where a value
+    asks for a path the port does not have yet, ``Trainer`` or the strategy
+    raises ``NotImplementedError`` naming its ROADMAP item. Left out:
+    ``profile_dir`` (a ``jax.profiler`` trace around each epoch; the port's
+    device traces are ``kernel_profile.py``'s)."""
 
     load_pretrain_emb: bool = False
     emb_trainable: bool = True
     epoch: int = 99999
     learning_rate: float = 1e-3
     meta_learning_rate: float = 1e-3
+    domain_meta_learning_rate: float = 0.1  # read by no strategy (as in the reference)
     merged_method: str = "plus"          # plus | times
-    # Cap on the query-domain epoch of a DR support run, in steps; 0 = the
-    # whole epoch (reference mamdr.py:85-92).
-    domain_regulation_step: int = 0
     sample_num: int = 5
     add_query_domain: bool = True
+    finetune_every_epoch: bool = False
     shuffle_sequence: bool = True
     meta_sequence: Union[str, List[int]] = "random"
     target_domain: int = -1
+    # Cap on the query-domain epoch of a DR support run, in steps; 0 = the
+    # whole epoch (reference mamdr.py:85-92).
+    domain_regulation_step: int = 0
+    # Cap on each domain's inner epoch of DN and Reptile, in steps; 0 = the
+    # whole epoch (reference reptile.py:56-60).
+    meta_train_step: int = 0
+    meta_finetune_step: int = 0
+    meta_split: str = "train-train"      # MAML / MLDG only
+    meta_split_ratio: float = 0.8
+    average_meta_grad: str = "none"      # MAML only
     meta_parms: List[str] = field(default_factory=lambda: ["all"])
+    # Trainer.save_result writes
+    # <result_save_path>/<model>/<dataset>/<split>/loss_X_auc_Y_<time>/.
+    result_save_path: str = "result"
+    checkpoint_path: str = "checkpoint"
+    loss: str = "binary_crossentropy"
     optimizer: str = "adam"
+    # Early stop on the validation AUC (reference base_model.py:202-224):
+    # validate every `val_every_step` epochs; the finetune stage's per-domain
+    # stop needs an improvement of more than `min_delta` (base_model.py:79-82).
+    patience: int = 3
+    val_every_step: int = 1
+    histogram_freq: int = 0
+    shuffle_buff_size: int = 10000
+    # The per-domain finetune stage: plain SGD at lr 1e-3 in the reference
+    # (base_model.py:69, specific_base_model.py:120).
+    finetune_optimizer: str = "sgd"
+    finetune_learning_rate: float = 1e-3
+    reset_optimizer_on_load: bool = False  # read by no strategy (as in the JAX package)
+    pcgrad_mode: str = "reference"       # PCGrad only
     # MAMDR initial per-domain specific weights: "random" = fresh initializer
     # draws (reference mamdr.py:30-33); "zeros" = zero deltas.
     specific_init: str = "random"
+    min_delta: float = 1e-4
+    # Refused when set: train-state snapshots are not ported yet.
+    resume: bool = False
+    resume_every: int = 0
+    # checkpoint_dir/metrics.jsonl: one event per evaluation and train epoch.
+    metrics_jsonl: bool = True
+    # Refused when set (with histogram_freq): TensorBoard is not ported yet.
+    tensorboard: bool = False
+    write_grads: bool = True
+    # Mesh-sharding knobs of the JAX package; without a mesh (the port runs
+    # one card) they change nothing there either.
+    sharded_lookup_min_rows: int = 16384
+    shard_experts: bool = False
+    # Each domain's best finetuned weights as checkpoint_dir/domain_{i}.npz.
+    domain_checkpoints: bool = True
     # Flat-vector Adam over the trainable leaves (train/flat_optimizer.py).
     flat_optimizer: bool = True
     # MAMDR's DR phase as query-domain lanes (train/fused.py
@@ -147,32 +214,9 @@ class TrainConfig:
     # config using it is refused rather than silently run unchunked: chunked
     # lanes are not ported yet (ROADMAP.md, open items §1).
     dr_lane_chunk: int = 0
-    # Early stop on the validation AUC (reference base_model.py:202-224):
-    # validate every `val_every_step` epochs; the finetune stage's per-domain
-    # stop needs an improvement of more than `min_delta` (base_model.py:79-82).
-    patience: int = 3
-    val_every_step: int = 1
-    min_delta: float = 1e-4
-    # The per-domain finetune stage: plain SGD at lr 1e-3 in the reference
-    # (base_model.py:69, specific_base_model.py:120).
-    finetune_optimizer: str = "sgd"
-    finetune_learning_rate: float = 1e-3
-    # The finetune lanes (strategies/separate.py); False asks for the
-    # sequential per-domain loop, which is not ported.
+    # The finetune / separate lanes (strategies/separate.py); False asks for
+    # the sequential per-domain loop, which is not ported.
     separate_fused: bool = True
-    # Each domain's best finetuned weights as checkpoint_dir/domain_{i}.npz.
-    domain_checkpoints: bool = True
-    checkpoint_path: str = "checkpoint"
-    result_save_path: str = "result"     # read by save_result, not ported yet
-    # checkpoint_dir/metrics.jsonl: one event per evaluation.
-    metrics_jsonl: bool = True
-    # Refused when set: their paths are not ported yet (ROADMAP.md §1).
-    meta_finetune_step: int = 0
-    finetune_every_epoch: bool = False
-    tensorboard: bool = False
-    histogram_freq: int = 0
-    resume: bool = False
-    resume_every: int = 0
 
 
 @dataclass
@@ -180,8 +224,14 @@ class DatasetConfig:
     """``dataset`` block (README.md:147-158)."""
 
     name: str = "Amazon"                 # Amazon | Taobao | synthetic
+    # MultiDomainDataset.from_disk reads <dataset_path>/<domain_split_path>/.
+    dataset_path: str = "dataset/Amazon"
     domain_split_path: str = "split_by_category"
     batch_size: int = 1024
+    # tf.data knobs of the reference, kept for the config's sake: the port
+    # shuffles whole epochs on the device and reads each CSV in one pass.
+    shuffle_buffer_size: int = 10000
+    num_parallel_reads: int = 8
     seed: int = 123
     # A fixed train order (reference utils/dataset.py:78); refused: the
     # port's epochs shuffle on the device.
@@ -219,3 +269,9 @@ class ExperimentConfig:
     @property
     def spec(self) -> NameSpec:
         return self.model.spec
+
+
+def load_config(path: str) -> ExperimentConfig:
+    """An ExperimentConfig from a JSON file of the reference's schema."""
+    with open(path, "r") as f:
+        return ExperimentConfig.from_dict(json.load(f))

@@ -7,11 +7,17 @@ dataset/Amazon/split.py:20); the training engine (``train/fused.py``) moves
 them to the device once. Every batch comes from exactly one domain
 (the reference's single-domain-batch invariant, SURVEY §2.4).
 
-File-backed datasets (``from_csv`` / ``from_disk``) are not ported yet.
+``MultiDomainDataset.from_disk`` reads the reference's on-disk layout
+(``domain_*/{train,val,test}.csv``, ``processed_data/*.json``) through the
+native CSV loader (``data/native_loader.py``), giving the JAX package's
+arrays bit for bit.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os.path as osp
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -35,6 +41,25 @@ class DomainSplit:
 
     def take(self, idx: np.ndarray) -> "DomainSplit":
         return DomainSplit(self.uid[idx], self.pid[idx], self.domain[idx], self.label[idx])
+
+    def concat(self, other: "DomainSplit") -> "DomainSplit":
+        return DomainSplit(
+            np.concatenate([self.uid, other.uid]),
+            np.concatenate([self.pid, other.pid]),
+            np.concatenate([self.domain, other.domain]),
+            np.concatenate([self.label, other.label]),
+        )
+
+    @classmethod
+    def from_csv(cls, path: str) -> "DomainSplit":
+        """CSV columns uid,pid,domain,label (reference split.py:20), parsed by
+        the native loader; a file it refuses (a malformed row) by numpy."""
+        from mamdr_tpu_torch.data.native_loader import load_csv_native, load_csv_reference
+
+        cols = load_csv_native(path)
+        if cols is None:
+            cols = load_csv_reference(path)
+        return cls(*cols)
 
     @classmethod
     def from_arrays(cls, uid, pid, domain, label) -> "DomainSplit":
@@ -62,6 +87,7 @@ class MultiDomainDataset:
         seed: int = 123,
         batch_size: int = 1024,
         ctr_ratio: Optional[Dict[int, float]] = None,
+        fixed_train: bool = False,
     ):
         if not len(train) == len(val) == len(test):
             raise ValueError("train/val/test must cover the same domains")
@@ -76,6 +102,7 @@ class MultiDomainDataset:
         self.seed = seed
         self.batch_size = batch_size
         self.ctr_ratio = ctr_ratio or {}
+        self.fixed_train = fixed_train  # refused by Trainer
 
     @property
     def dataset_info(self) -> Dict:
@@ -98,3 +125,54 @@ class MultiDomainDataset:
         info["total_val"] = tot_val
         info["total_test"] = tot_test
         return info
+
+    @classmethod
+    def from_disk(cls, conf) -> "MultiDomainDataset":
+        """Load the reference on-disk layout (reference utils/dataset.py:50-71):
+        ``<dataset_path>/<domain_split_path>/domain_<i>/{train,val,test}.csv``
+        (directories in the order of their integer suffix), vocab sizes from
+        the ``"id"`` entry of ``processed_data/{uid2id,pid2id}.json``, for
+        Taobao the pretrained ``processed_data/{user_emb,item_emb}.json``
+        tables, and each domain's ``domain_property.json`` ``ctr_ratio``."""
+        root = osp.join(conf.dataset_path, conf.domain_split_path)
+        with open(osp.join(root, "processed_data/uid2id.json")) as f:
+            n_uid = json.load(f)["id"]
+        with open(osp.join(root, "processed_data/pid2id.json")) as f:
+            n_pid = json.load(f)["id"]
+
+        user_emb = item_emb = None
+        if conf.name == "Taobao":
+            user_emb = _load_pretrained_emb(osp.join(root, "processed_data/user_emb.json"), n_uid)
+            item_emb = _load_pretrained_emb(osp.join(root, "processed_data/item_emb.json"), n_pid)
+
+        domain_dirs = sorted(glob.glob(osp.join(root, "domain_*")),
+                             key=lambda p: int(p.split("_")[-1]))
+        if not domain_dirs:
+            raise FileNotFoundError(f"no domain_* dirs under {root}")
+        train, val, test = [], [], []
+        ctr_ratio = {}
+        for i, d in enumerate(domain_dirs):
+            train.append(DomainSplit.from_csv(osp.join(d, "train.csv")))
+            val.append(DomainSplit.from_csv(osp.join(d, "val.csv")))
+            test.append(DomainSplit.from_csv(osp.join(d, "test.csv")))
+            prop_path = osp.join(d, "domain_property.json")
+            if osp.exists(prop_path):
+                with open(prop_path) as f:
+                    ctr_ratio[i] = json.load(f).get("ctr_ratio")
+        return cls(train, val, test, n_uid, n_pid, user_emb=user_emb, item_emb=item_emb,
+                   seed=conf.seed, batch_size=conf.batch_size, ctr_ratio=ctr_ratio,
+                   fixed_train=getattr(conf, "fixed_train", False))
+
+
+def _load_pretrained_emb(path: str, n_rows: int) -> np.ndarray:
+    """The Taobao emb JSON {str(id): "f f f ..."} as a [n_rows, dim] float32
+    table, rows not listed zero (reference utils/dataset.py:57-61). Each
+    string is parsed straight to float32, as the JAX package does: a float64
+    parse cast down can differ in the last bit."""
+    with open(path) as f:
+        raw = json.load(f)
+    dim = len(next(iter(raw.values())).split())
+    table = np.zeros((n_rows, dim), np.float32)
+    for k, v in raw.items():
+        table[int(k)] = np.fromstring(v, sep=" ", dtype=np.float32)
+    return table

@@ -1,6 +1,7 @@
 """Model factory: config -> torch module (substring dispatch like run.py:37-47).
 
-Only the MLP tower is ported so far; other base models raise.
+Only the MLP tower is ported so far; other base models raise, naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ def build_model(
     mc = config.model
     spec = mc.spec
     if spec.base != "mlp":
-        raise NotImplementedError(f"base model {spec.base!r} is not ported yet")
+        raise NotImplementedError(
+            f"base model {spec.base!r} is not ported yet "
+            "(ROADMAP.md, open items §1: the rest of the zoo)")
     if mc.compute_dtype != "float32":
         raise NotImplementedError("the port computes the tower in float32 only")
     if not config.train.load_pretrain_emb:

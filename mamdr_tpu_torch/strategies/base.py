@@ -2,9 +2,11 @@
 
 A strategy is a host-side schedule over the trainer's phases and evals.
 ``run()`` is the reference main() flow (run.py:67-89): train with early
-stopping, test with the best weights, then, for a ``*_finetune`` model
-name, the per-domain finetune stage. Only MAMDR is ported;
-``build_strategy`` refuses the others.
+stopping, test with the best weights (for ``*_separate``: every domain
+trained on its own instead), then, for a ``*_finetune`` model name, the
+per-domain finetune stage. ``build_strategy`` dispatches joint, separate,
+Domain Negotiation, Reptile and MAMDR, and refuses the strategies not
+ported yet, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,10 +21,6 @@ Result = Tuple[float, float, Dict, Dict]
 def _refuse_unported(trainer: Trainer) -> None:
     """Raise for a strategy setting whose path the port does not have yet."""
     tc, spec = trainer.config.train, trainer.config.spec
-    if tc.meta_finetune_step > 0:
-        raise NotImplementedError(
-            f"meta_finetune_step={tc.meta_finetune_step}: the meta-finetune validation "
-            "is not ported yet (ROADMAP.md, open items §1: meta_finetune_val)")
     if spec.finetune and not tc.separate_fused:
         raise NotImplementedError(
             "separate_fused=false: the sequential per-domain finetune loop is not "
@@ -56,11 +54,17 @@ class Strategy:
         return separate_train_val_test(t, init_params=False)
 
     def run(self) -> Result:
-        """Train, test, and finetune when the model name asks for it."""
-        self.train()
-        if self.trainer.verbose:
-            print("Test Result: ")
-        result = self.test()
+        """Train and test (for ``*_separate``: every domain on its own, as
+        lanes), then finetune when the model name asks for it."""
+        if self.spec.strategy == "separate":
+            from mamdr_tpu_torch.strategies.separate import separate_train_val_test
+
+            result = separate_train_val_test(self.trainer, init_params=True)
+        else:
+            self.train()
+            if self.trainer.verbose:
+                print("Test Result: ")
+            result = self.test()
         if self.spec.finetune:
             if self.trainer.verbose:
                 print("Finetune: ")
@@ -69,10 +73,27 @@ class Strategy:
 
 
 def build_strategy(trainer: Trainer) -> Strategy:
-    strategy = trainer.config.spec.strategy
-    if strategy == "mamdr":
+    """The strategy a model name asks for (JAX ``build_strategy``,
+    base.py:64-96)."""
+    spec = trainer.config.spec
+    if spec.pcgrad or spec.uncertainty_weight or spec.strategy in ("maml", "mldg"):
+        raise NotImplementedError(
+            f"{spec.raw!r}: MAML, MLDG, PCGrad and uncertainty weighting are not ported "
+            "yet (ROADMAP.md, open items §1: MAML, MLDG, PCGrad and uncertainty weighting)")
+    if spec.strategy in ("joint", "separate"):
+        from mamdr_tpu_torch.strategies.joint import JointStrategy
+
+        return JointStrategy(trainer)
+    if spec.strategy == "reptile":
+        from mamdr_tpu_torch.strategies.reptile import ReptileStrategy
+
+        return ReptileStrategy(trainer)
+    if spec.strategy == "domain_negotiation":
+        from mamdr_tpu_torch.strategies.domain_negotiation import DomainNegotiationStrategy
+
+        return DomainNegotiationStrategy(trainer)
+    if spec.strategy == "mamdr":
         from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
 
         return MAMDRStrategy(trainer)
-    raise NotImplementedError(
-        f"strategy {strategy!r} is not ported yet (ROADMAP.md, open items §1: the rest)")
+    raise ValueError(f"unknown strategy {spec.strategy!r}")

@@ -1,0 +1,52 @@
+"""Joint training: sequential shuffled per-domain epochs with early stopping.
+
+Counterpart of ``mamdr_tpu/strategies/joint.py`` (:21-84). Reference loop:
+model_zoo/DeepCTR/deepctr.py:63-93. Per epoch: shuffle the domain order
+(numpy, ``Trainer.np_rng``), one epoch per domain in that order chained
+without reset (``fused.make_fused_passes``: K1 and K2 on every step on the
+card), the ``train_epoch`` metrics event, validation of every domain, the
+early stop on the macro val AUC with the best weights kept, and, when
+verbose, the best weights' test report. The per-domain loop of the JAX
+package (``Trainer.fit_domain``, taken past the block's memory budget) is
+not ported and is refused.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from mamdr_tpu_torch.strategies.base import Strategy
+from mamdr_tpu_torch.train import fused
+
+
+class JointStrategy(Strategy):
+    def train(self) -> None:
+        t = self.trainer
+        if not t.fused_padding_ok(ragged=True):
+            raise NotImplementedError(
+                "the train block is past the fused pass's memory budget; the per-domain "
+                "loop (Trainer.fit_domain) is not ported yet "
+                "(ROADMAP.md, open items §1: _train_loop)")
+        block, n_steps = t.train_block()
+        sequential_pass = fused.make_fused_passes(
+            t.train_step_fn(), n_steps, t.dataset.batch_size, steps_list=t.steps_per_domain())
+        sequence = list(range(self.n_domain))
+        for epoch in range(self.tc.epoch):
+            if t.verbose:
+                print(f"Epoch: {epoch}", "-" * 30)
+            t.np_rng.shuffle(sequence)
+            t.state, losses = sequential_pass(t.state, block, np.asarray(sequence, np.int32),
+                                              t.gen)
+            t.metrics.log("train_epoch", epoch=epoch, domain_loss={
+                str(sequence[i]): float(v) for i, v in enumerate(losses.cpu().numpy())})
+            if t.verbose:
+                print("Val Result: ")
+            _, avg_auc, _, _ = t.val_and_test("val")
+            if t.stopper.step(avg_auc):
+                break
+            if t.stopper.improved:
+                t.save_checkpoint()
+            if t.verbose:
+                # the best weights' test report (reference base_model.py:121)
+                print("Test Result: ")
+                self.test()

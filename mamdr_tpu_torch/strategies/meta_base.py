@@ -1,8 +1,8 @@
 """Shared machinery for the meta strategies: the meta-parameter mask, the
 domain sequence, and the validation / early-stop tail of every meta epoch
 (counterpart of ``mamdr_tpu/strategies/meta_base.py:24-74, 96-230``). The
-meta-finetune validation (``meta_finetune_step > 0``) is not ported:
-``Strategy`` refuses it."""
+meta-finetune validation (``meta_finetune_step > 0``) is not ported and is
+refused."""
 
 from __future__ import annotations
 
@@ -16,6 +16,10 @@ from mamdr_tpu_torch.utils import trees
 class MetaStrategy(Strategy):
     def __init__(self, trainer: Trainer):
         super().__init__(trainer)
+        if self.tc.meta_finetune_step > 0:
+            raise NotImplementedError(
+                f"meta_finetune_step={self.tc.meta_finetune_step}: the meta-finetune "
+                "validation is not ported yet (ROADMAP.md, open items §1: meta_finetune_val)")
         self.mask = trees.meta_parm_mask(trainer.state.params, self.tc.meta_parms)
         # Meta params are drawn from TRAINABLE weights only (reference
         # maml.py:159 iterates model.trainable_weights): frozen user/item

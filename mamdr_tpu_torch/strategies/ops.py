@@ -1,7 +1,7 @@
 """Weight-space algebra for the strategy control plane.
 
 Counterpart of ``mamdr_tpu/strategies/ops.py`` (load_masked, reptile_update,
-merge_weights): masked leaf-wise ops over parameter trees. Masks select the
+delta_accumulate, scaled_add, merge_weights): masked leaf-wise ops over parameter trees. Masks select the
 strategy's meta parameters (utils.trees.meta_parm_mask) and are trees of
 python bools.
 
@@ -36,6 +36,18 @@ def reptile_update(meta: Tree, adapted: Tree, lr, mask: Tree) -> Tree:
     (reference reptile.py:127-132, domain_negotiation.py:118-123)."""
     return trees.tree_map(
         lambda m, m_, a_: m_ + (a_ - m_) * lr if m else m_, mask, meta, adapted)
+
+
+def delta_accumulate(acc: Tree, adapted: Tree, base: Tree, mask: Tree) -> Tree:
+    """acc += adapted - base on masked leaves (batch Reptile, reference
+    reptile.py:134-138); ``acc``'s unmasked leaves pass through."""
+    return trees.tree_map(
+        lambda m, c, a, b: c + (a - b) if m else c, mask, acc, adapted, base)
+
+
+def scaled_add(target: Tree, delta: Tree, scale, mask: Tree) -> Tree:
+    """target += delta * scale on masked leaves (reptile.py:140-142)."""
+    return trees.tree_map(lambda m, t, d: t + d * scale if m else t, mask, target, delta)
 
 
 def merge_weights(shared: Tree, specific: Tree, mask: Tree, method: str = "plus") -> Tree:

@@ -1,7 +1,9 @@
 """Whole training and evaluation phases over a device-resident data block.
 
-Counterpart of the MAMDR part of ``mamdr_tpu/train/fused.py`` (block
-stacking, batch formation, the ragged sequential pass, ``make_fused_mamdr``,
+Counterpart of the MAMDR, joint, DN and Reptile part of
+``mamdr_tpu/train/fused.py`` (block stacking, batch formation, the ragged
+sequential pass with its step cap, ``make_fused_passes``, ``make_fused_dn``,
+``make_fused_reptile``, ``make_fused_mamdr``,
 ``make_fused_dr_parallel`` without its mesh-sharding and lane-chunk
 branches, ``stack_specific`` / ``unstack_specific``, the fused evals and
 ``make_fused_separate``):
@@ -153,20 +155,99 @@ def _epoch_on_flat(train_step, state: TrainState, flat, gen: torch.Generator,
 
 def _sequential_pass(train_step, state: TrainState, block, order: Sequence[int],
                      gen: torch.Generator, steps_of: Optional[Sequence[int]],
-                     n_steps: int, batch: int, shuffle: bool = True):
+                     n_steps: int, batch: int, shuffle: bool = True, cap_steps: int = 0):
     """One epoch on each domain in `order`, chained without reset, running
-    only each domain's real steps (`steps_of`, when given). Returns (state, [D] losses on the device):
-    losses[i] is the mean data loss over the real steps of the domain at
-    order position i."""
+    only each domain's real steps (`steps_of`, when given), at most
+    `cap_steps` of them when that is positive (the JAX package's
+    ``_make_sequential_pass`` / ``_ragged_pass``, fused.py:161-242, 508-546).
+    Returns (state, [D] losses on the device): losses[i] is the mean data
+    loss over the steps run of the domain at order position i."""
     losses = []
     for dom in order:
         dom = int(dom)
         state, loss = _epoch_on_flat(
             train_step, state, {k: v[dom] for k, v in block.items()}, gen, n_steps,
-            batch, shuffle=shuffle,
+            batch, cap_steps=cap_steps, shuffle=shuffle,
             real_steps=None if steps_of is None else steps_of[dom])
         losses.append(loss)
     return state, torch.stack(losses)
+
+
+def make_fused_passes(train_step, n_steps: int, batch: int,
+                      steps_list: Optional[Sequence[int]] = None, shuffle: bool = True):
+    """The joint loop's epoch (JAX ``make_fused_passes``, fused.py:549-563):
+    sequential_pass(state, block, order, gen) -> (state, [D] losses), one
+    epoch on each domain in `order` chained without reset, only real steps
+    run (`steps_list`)."""
+    steps_of = None if steps_list is None else [int(s) for s in steps_list]
+
+    def sequential_pass(state: TrainState, block, order, gen: torch.Generator):
+        return _sequential_pass(train_step, state, block, order, gen, steps_of, n_steps,
+                                batch, shuffle)
+
+    return sequential_pass
+
+
+def make_fused_dn(train_step, mask, n_steps: int, batch: int, cap_steps: int = 0,
+                  shuffle: bool = True, steps_list: Optional[Sequence[int]] = None):
+    """The Domain-Negotiation epoch (reference domain_negotiation.py:49-88;
+    JAX ``make_fused_dn``, fused.py:858-883): load meta once, chain through
+    `order` without reset (each domain's epoch at most `cap_steps` steps; 0:
+    whole), then meta += (θ_final - meta) * meta_lr and load meta again.
+
+    dn_epoch(state, meta, block, order, gen, meta_lr) -> (state, meta, [D]
+    losses)."""
+    steps_of = None if steps_list is None else [int(s) for s in steps_list]
+
+    def dn_epoch(state: TrainState, meta, block, order, gen, meta_lr):
+        state = state.replace(params=ops.load_masked(state.params, meta, mask))
+        state, losses = _sequential_pass(train_step, state, block, order, gen, steps_of,
+                                         n_steps, batch, shuffle, cap_steps)
+        meta = ops.reptile_update(meta, state.params, meta_lr, mask)
+        state = state.replace(params=ops.load_masked(state.params, meta, mask))
+        return state, meta, losses
+
+    return dn_epoch
+
+
+def make_fused_reptile(train_step, mask, n_steps: int, batch: int, batch_mode: bool,
+                       cap_steps: int = 0, shuffle: bool = True,
+                       steps_list: Optional[Sequence[int]] = None):
+    """The Reptile epoch (reference reptile.py:44-90; JAX
+    ``make_fused_reptile``, fused.py:806-855). Per domain in `order`: load
+    meta, an epoch of at most `cap_steps` steps (0: whole), then meta +=
+    (adapted - meta) * meta_lr, or under `batch_mode` acc += adapted - meta
+    with one meta += acc * meta_lr at the epoch's end. Only the params are
+    reloaded from meta: the optimizer slots and step count carry on across
+    domains (the reference's SetVarOp assigns weights only). The
+    accumulator holds the masked leaves; its other leaves are meta's, passed
+    through unread. Ends with meta loaded.
+
+    reptile_epoch(state, meta, block, order, gen, meta_lr) -> (state, meta,
+    [D] losses)."""
+    steps_of = None if steps_list is None else [int(s) for s in steps_list]
+
+    def reptile_epoch(state: TrainState, meta, block, order, gen, meta_lr):
+        acc = trees.tree_map(lambda m, x: torch.zeros_like(x) if m else x, mask, meta)
+        losses = []
+        for dom in order:
+            dom = int(dom)
+            state = state.replace(params=ops.load_masked(state.params, meta, mask))
+            state, loss = _epoch_on_flat(
+                train_step, state, {k: v[dom] for k, v in block.items()}, gen, n_steps,
+                batch, cap_steps=cap_steps, shuffle=shuffle,
+                real_steps=None if steps_of is None else steps_of[dom])
+            losses.append(loss)
+            if batch_mode:
+                acc = ops.delta_accumulate(acc, state.params, meta, mask)
+            else:
+                meta = ops.reptile_update(meta, state.params, meta_lr, mask)
+        if batch_mode:
+            meta = ops.scaled_add(meta, acc, meta_lr, mask)
+        state = state.replace(params=ops.load_masked(state.params, meta, mask))
+        return state, meta, torch.stack(losses)
+
+    return reptile_epoch
 
 
 def make_fused_mamdr(train_step, mask, merged_method: str, n_steps: int, batch: int,

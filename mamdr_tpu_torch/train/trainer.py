@@ -4,9 +4,9 @@ Counterpart of ``mamdr_tpu/train/trainer.py`` for one device: construction,
 ``train_block`` / ``steps_per_domain``, the per-domain evaluation with macro
 and example-weighted AUC (reference base_model.py:111-175) as one
 lane-batched eval over all domains, the strict-improvement early stop
-(base_model.py:202-224), the best-params checkpoint and the JSONL metrics.
-Resume snapshots, ``save_result`` and TensorBoard are not ported yet
-(ROADMAP.md §1); a config that asks for them is refused.
+(base_model.py:202-224), the best-params checkpoint, the JSONL metrics and
+the run's result folder (``save_result``). Resume snapshots and TensorBoard
+are not ported yet (ROADMAP.md §1); a config that asks for them is refused.
 
 Randomness is explicit: ``np_rng`` (numpy, seeded by the dataset seed) makes
 the host-side draws the JAX package makes with numpy — domain order, aux
@@ -17,6 +17,8 @@ generator on the run's device, makes the batch shuffles.
 
 from __future__ import annotations
 
+import json
+import os
 import os.path as osp
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -134,6 +136,8 @@ class Trainer:
         self.checkpoint_dir = osp.join(tc.checkpoint_path, mc.name, ds_cfg.name,
                                        ds_cfg.domain_split_path, ts)
         self.checkpoint_path = osp.join(self.checkpoint_dir, "model_parameters.npz")
+        self.result_dir = osp.join(tc.result_save_path, mc.name, ds_cfg.name,
+                                   ds_cfg.domain_split_path)
         self.metrics = MetricsLogger(
             osp.join(self.checkpoint_dir, "metrics.jsonl") if tc.metrics_jsonl else None)
         self._eval_epoch_counter = 0
@@ -277,3 +281,26 @@ class Trainer:
 
     def load_checkpoint(self):
         return checkpoints.load_pytree(self.checkpoint_path, self.state.params)
+
+    def save_result(self, avg_loss, avg_auc, domain_loss, domain_auc) -> str:
+        """The run's result folder (reference run.py:86-89, JAX
+        trainer.py:512-539): ``result_dir/loss_X_auc_Y_<time>/`` with
+        ``dataset_info.json``, ``config.json.example``, ``result.json`` and
+        ``model_parameters.npz`` — the best params, the ones that gave the
+        test metrics (the state's when no checkpoint was kept). Returns the
+        folder's path."""
+        folder = "loss_{:.3f}_auc_{:.3f}_{}".format(
+            avg_loss, avg_auc, time.strftime("%a-%b-%d-%H-%M-%S"))
+        result_path = osp.join(self.result_dir, folder)
+        os.makedirs(result_path, exist_ok=True)
+        with open(osp.join(result_path, "dataset_info.json"), "w") as f:
+            json.dump(self.dataset.dataset_info, f)
+        with open(osp.join(result_path, "config.json.example"), "w") as f:
+            json.dump(self.config.to_dict(), f)
+        with open(osp.join(result_path, "result.json"), "w") as f:
+            json.dump({"avg_loss": avg_loss, "avg_auc": avg_auc,
+                       "domain_loss": domain_loss, "domain_auc": domain_auc}, f)
+        checkpoints.save_pytree(
+            osp.join(result_path, "model_parameters.npz"),
+            self.best_params if self.best_params is not None else self.state.params)
+        return result_path

@@ -1,30 +1,46 @@
-"""The flagship workload at the shapes of the JAX package's bench.py.
+"""The bench workload at the shapes of the JAX package's bench.py.
 
 ``mlp_meta_mamdr_finetune`` at Taobao-30 shapes (bench.py:47-121): 30
-domains of 20000 rows (12000 train), 100k users and items, frozen pretrained
-128-d user/item tables drawn N(0, 0.1) from ``default_rng(0)``, a trainable
-30x128 domain table, MLP 384-256-128-64-1 with dropout 0.5, batch 1024, flat
-Adam at lr 1e-3, meta lr 0.1, one epoch, then the finetune stage (SGD at lr
-1e-3). Used by chip_smoke.py and kernel_profile.py.
+domains of 20000 rows (12000 train, 4000 val, 4000 test), 100k users and
+items, frozen pretrained 128-d user/item tables drawn N(0, 0.1) from
+``default_rng(0)``, a trainable 30x128 domain table, MLP 384-256-128-64-1
+with dropout 0.5, batch 1024, flat Adam at lr 1e-3, meta lr 0.1, one epoch,
+then the finetune stage (SGD at lr 1e-3). The same data and tables serve
+the other MLP strategies of the corpus (``BENCH_MODELS``: joint, separate,
+finetune, Domain Negotiation, Reptile), and ``write_domain_tree`` writes
+them in the reference's on-disk layout, which ``MultiDomainDataset.from_disk``
+and the CLI (``python -m mamdr_tpu_torch.run``) read. Used by
+chip_smoke.py and kernel_profile.py.
 """
 
 from __future__ import annotations
 
+import io
+import json
+import os
+import os.path as osp
+from typing import Optional
+
 import numpy as np
 
 from mamdr_tpu_torch.config import ExperimentConfig
+from mamdr_tpu_torch.data.dataset import MultiDomainDataset
 from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
 from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
 from mamdr_tpu_torch.train.trainer import Trainer
 
 BENCH = dict(n_domain=30, n_uid=100_000, n_pid=100_000, n_per_domain=20_000,
              batch_size=1024, emb_dim=128)
+# The MLP model names of the corpus (benchmarks.MODEL_VARIANTS) that the port runs.
+BENCH_MODELS = ("mlp", "mlp_separate", "mlp_finetune",
+                "mlp_meta_domain_negotiation_finetune", "mlp_meta_reptile_finetune",
+                "mlp_meta_mamdr_finetune")
 
 
-def bench_config(dr_parallel: str = "auto",
-                 checkpoint_path: str = "checkpoint") -> ExperimentConfig:
+def bench_config(dr_parallel: str = "auto", checkpoint_path: str = "checkpoint",
+                 model: str = "mlp_meta_mamdr_finetune") -> ExperimentConfig:
     return ExperimentConfig.from_dict({
-        "model": {"name": "mlp_meta_mamdr_finetune", "user_dim": 128, "item_dim": 128,
+        "model": {"name": model, "user_dim": 128, "item_dim": 128,
                   "domain_dim": 128, "hidden_dim": [256, 128, 64], "dropout": 0.5},
         "train": {"load_pretrain_emb": True, "emb_trainable": False,
                   "learning_rate": 1e-3, "meta_learning_rate": 0.1,
@@ -35,11 +51,8 @@ def bench_config(dr_parallel: str = "auto",
     })
 
 
-def build_bench_strategy(device=None, dr_parallel: str = "auto",
-                         checkpoint_path: str = "checkpoint", verbose: bool = False):
-    """(trainer, strategy) for the bench workload, fused phases prepared.
-    ``dr_parallel`` "off" gives the sequential DR phase instead of the lanes;
-    checkpoints and the metrics log go under ``checkpoint_path``."""
+def bench_dataset() -> MultiDomainDataset:
+    """The bench data: balanced synthetic domains and the frozen tables."""
     b = BENCH
     ds = make_synthetic_dataset(
         n_domain=b["n_domain"], n_uid=b["n_uid"], n_pid=b["n_pid"],
@@ -49,8 +62,64 @@ def build_bench_strategy(device=None, dr_parallel: str = "auto",
     rng = np.random.default_rng(0)
     ds.user_emb = rng.normal(0, 0.1, (b["n_uid"], b["emb_dim"])).astype(np.float32)
     ds.item_emb = rng.normal(0, 0.1, (b["n_pid"], b["emb_dim"])).astype(np.float32)
-    trainer = Trainer(bench_config(dr_parallel, checkpoint_path), ds, device=device,
-                      verbose=verbose)
+    return ds
+
+
+def build_bench_trainer(model: str = "mlp_meta_mamdr_finetune", device=None,
+                        checkpoint_path: str = "checkpoint", verbose: bool = False,
+                        dataset: Optional[MultiDomainDataset] = None,
+                        dr_parallel: str = "auto") -> Trainer:
+    """A trainer for `model` (one of BENCH_MODELS) at bench shapes with
+    `epoch` 1, on `dataset` (default: ``bench_dataset()``)."""
+    if model not in BENCH_MODELS:
+        raise ValueError(f"model {model!r} is not one of {BENCH_MODELS}")
+    return Trainer(bench_config(dr_parallel, checkpoint_path, model),
+                   dataset if dataset is not None else bench_dataset(),
+                   device=device, verbose=verbose)
+
+
+def build_bench_strategy(device=None, dr_parallel: str = "auto",
+                         checkpoint_path: str = "checkpoint", verbose: bool = False):
+    """(trainer, strategy) for the MAMDR bench workload, fused phases
+    prepared. ``dr_parallel`` "off" gives the sequential DR phase instead of
+    the lanes; checkpoints and the metrics log go under ``checkpoint_path``."""
+    trainer = build_bench_trainer(device=device, checkpoint_path=checkpoint_path,
+                                  verbose=verbose, dr_parallel=dr_parallel)
     strat = MAMDRStrategy(trainer)
     strat.prepare_fused()
     return trainer, strat
+
+
+def write_domain_tree(ds: MultiDomainDataset, root: str) -> None:
+    """Write `ds` in the reference's on-disk layout under `root` (the
+    ``<dataset_path>/<domain_split_path>`` of a config):
+    ``domain_<i>/{train,val,test}.csv`` (header uid,pid,domain,label),
+    ``processed_data/{uid2id,pid2id}.json`` with the ``"id"`` counts, the
+    pretrained tables as ``processed_data/{user_emb,item_emb}.json`` ({id:
+    "f f ..."}, each float with 9 significant digits, which round-trips
+    float32) when `ds` has them, and ``domain_<i>/domain_property.json`` for
+    the domains in ``ds.ctr_ratio``."""
+    proc = osp.join(root, "processed_data")
+    os.makedirs(proc, exist_ok=True)
+    for fname, n in (("uid2id.json", ds.n_uid), ("pid2id.json", ds.n_pid)):
+        with open(osp.join(proc, fname), "w") as f:
+            json.dump({"id": int(n)}, f)
+    for fname, table in (("user_emb.json", ds.user_emb), ("item_emb.json", ds.item_emb)):
+        if table is None:
+            continue
+        text = io.StringIO()
+        np.savetxt(text, table, fmt="%.9g", delimiter=" ")
+        rows = text.getvalue().splitlines()
+        with open(osp.join(proc, fname), "w") as f:
+            json.dump({str(i): r for i, r in enumerate(rows)}, f)
+    for i in range(ds.n_domain):
+        d = osp.join(root, f"domain_{i}")
+        os.makedirs(d, exist_ok=True)
+        for mode in ("train", "val", "test"):
+            s = getattr(ds, mode)[i]
+            cols = np.column_stack([s.uid, s.pid, s.domain, s.label.astype(np.float64)])
+            np.savetxt(osp.join(d, f"{mode}.csv"), cols, fmt="%d,%d,%d,%.9g",
+                       header="uid,pid,domain,label", comments="")
+        if i in ds.ctr_ratio:
+            with open(osp.join(d, "domain_property.json"), "w") as f:
+                json.dump({"ctr_ratio": ds.ctr_ratio[i]}, f)

@@ -648,3 +648,48 @@ def test_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path):
     for k, v in cpu[2].items():
         assert abs(card[2][k] - v) <= 1e-3 * abs(v)
         assert abs(card[3][k] - cpu[3][k]) <= 1e-3
+
+
+def _small_run(name, tmp_path, device=None):
+    """run() of `name` on 3 small domains (one batch a domain, dropout off),
+    3 epochs; returns (result, strategy)."""
+    from mamdr_tpu_torch.strategies.base import build_strategy
+
+    cfg = ExperimentConfig.from_dict({
+        "model": {"name": name, "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                  "hidden_dim": [32, 16], "dropout": 0.0},
+        "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                  "patience": 2, "learning_rate": 1e-2, "meta_learning_rate": 0.1,
+                  "checkpoint_path": str(tmp_path)},
+        "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21},
+    })
+    ds = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100, seed=21,
+                                long_tail=True, batch_size=64)
+    rng = np.random.default_rng(0)
+    ds.user_emb = rng.normal(0, 0.1, (50, 8)).astype(np.float32)
+    ds.item_emb = rng.normal(0, 0.1, (60, 8)).astype(np.float32)
+    strat = build_strategy(Trainer(cfg, ds, device=device, verbose=False))
+    return strat.run(), strat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mlp", "mlp_separate", "mlp_finetune",
+                                  "mlp_meta_domain_negotiation_finetune",
+                                  "mlp_meta_reptile_finetune",
+                                  "mlp_meta_reptile_batch_finetune"])
+def test_strategy_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path, name):
+    """Joint, separate, finetune, DN and Reptile: a whole run() through the
+    kernels (K1 one lane or K1-lanes, and K2, launched) against the same
+    run() through the plain versions on the CPU. Test loss within 1e-3
+    relative, AUC within 1e-3."""
+    fused_tower_grad.launches = fused_tower_grad_lanes.launches = gather_fields.launches = 0
+    card, _ = _small_run(name, tmp_path / "card")
+    if name == "mlp_separate":
+        assert fused_tower_grad.launches == 0 and fused_tower_grad_lanes.launches > 0
+    else:
+        assert fused_tower_grad.launches > 0
+    assert gather_fields.launches > 0
+    cpu, _ = _small_run(name, tmp_path / "cpu", "cpu")
+    for k, v in cpu[2].items():
+        assert abs(card[2][k] - v) <= 1e-3 * abs(v)
+        assert abs(card[3][k] - cpu[3][k]) <= 1e-3

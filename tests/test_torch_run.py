@@ -15,7 +15,7 @@ checkpoint files between the two, and the configurations the port refuses.
   back by the JAX package's ``load_pytree`` / ``load_decomposition``, and one
   the JAX package writes by the port's ``load_pytree``;
 - every configuration whose path is not ported raises NotImplementedError
-  naming its ROADMAP item.
+  naming its ROADMAP item (those the CLI refuses: tests/test_torch_cli.py).
 """
 
 import json
@@ -30,6 +30,7 @@ from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
 from mamdr_tpu_torch.strategies.base import build_strategy
 from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
+from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.train import checkpoints
 from mamdr_tpu_torch.train.trainer import Trainer
 from mamdr_tpu_torch.utils import trees
@@ -105,7 +106,17 @@ REFUSED = [
     ({"train": {"resume": True}}, "resume state", "trainer"),
     ({"train": {"resume_every": 2}}, "resume state", "trainer"),
     ({"train": {"dr_lane_chunk": 2}}, "dr_lane_chunk", "prepare"),
-    ({"model": "mlp_meta_reptile"}, "the rest", "strategy"),
+    ({"model": "mlp_meta_maml"}, "MAML, MLDG, PCGrad and uncertainty weighting", "strategy"),
+    ({"model": "mlp_pcgrad"}, "MAML, MLDG, PCGrad and uncertainty weighting", "strategy"),
+    ({"model": "mlp_uncertainty_weight"}, "MAML, MLDG, PCGrad and uncertainty weighting",
+     "strategy"),
+    ({"model": "mlp_meta_mldg_finetune"}, "MAML, MLDG, PCGrad and uncertainty weighting",
+     "strategy"),
+    ({"model": "mlp_meta_domain_negotiation_finetune", "train": {"target_domain": 1}},
+     "_train_loop", "train"),
+    ({"model": "mlp_meta_reptile_finetune", "train": {"target_domain": 0}}, "_train_loop",
+     "train"),
+    ({"model": "deepfm"}, "the rest of the zoo", "trainer"),
 ]
 
 
@@ -126,7 +137,7 @@ def test_unported_configurations_raise(tmp_path, change, item, where):
         if where == "prepare":
             strat.prepare_fused()
         strat.run()
-    assert where != "train" or isinstance(strat, MAMDRStrategy)
+    assert where != "train" or isinstance(strat, MetaStrategy)
 
 
 def test_build_strategy_runs_mamdr_on_the_cpu(tmp_path):
