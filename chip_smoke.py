@@ -68,6 +68,16 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      launch counts asserted, each timed with its train epoch, weights moved,
      meta moved on masked leaves only; and a small run() of each on the card
      against the same run() on the CPU;
+  5e. MAML, MLDG, PCGrad and uncertainty weighting: one meta-gradient
+     accumulate step (K2, then K1 at dropout rate 0 under the 0.5-dropout
+     model; no optimizer) against the same step through the plain versions,
+     and K1 at rate 0 timed; run() of mlp_meta_maml_finetune,
+     mlp_meta_mldg_finetune, mlp_pcgrad and mlp_uncertainty_weight at bench
+     shapes on the loaded data (the corpus's learning rates, meta split and
+     sample_num for each name, epoch 1) with their launch counts asserted,
+     each timed with its train epoch, weights moved, meta moved on masked
+     leaves only, frozen tables the same tensors, log_vars moved; and a small
+     run() of each on the card against the same run() on the CPU;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -1177,6 +1187,178 @@ def main() -> int:
         print(f"small {name} run() (3 domains, 3 epochs) on the card vs the CPU's plain "
               f"versions: test loss within {loss_rel:.2e} (tol 1e-3 relative), AUC within "
               f"{auc_abs:.2e} (tol 1e-3)")
+
+    # ---- 5e. MAML, MLDG, PCGrad and uncertainty weighting ----
+    # One accumulate step (K2, then K1 at dropout rate 0 under the 0.5-dropout
+    # model, the gradient tree; no optimizer) through the kernels against the
+    # same step through the plain versions; then each name's run() at bench
+    # shapes on the loaded data with the corpus's train values for its name
+    # (workload.bench_config), every path driven with the launch counts at 0
+    # just before it and read just after; and a small run() of each on the
+    # card against the CPU.
+    from mamdr_tpu_torch.train.steps import make_accum_grad_fn
+
+    trainer = build_bench_trainer("mlp_meta_maml_finetune",
+                                  checkpoint_path=os.path.join(work, "accum"), dataset=disk)
+    strat = build_strategy(trainer)
+    accum_cols = {k: v[3, :batch].contiguous() for k, v in trainer.train_block()[0].items()}
+
+    def build_accum(tower, gather):
+        grad_fn = make_accum_grad_fn(trainer.model, trainer.step_cfg, loss_grad=make_fast_loss_grad(
+            trainer.model, trainer.step_cfg, tower_grad=tower, gather=gather))
+        return lambda params, cols: (grad_fn(params, cols), torch.zeros((), device=dev))
+
+    def grad_leaves(g, _):
+        return [x for x in trees.leaves(g) if x is not None]
+
+    zero_counts()
+    accum_grads = trainer.accum_grad_fn(trainer.state.params, accum_cols)
+    if counts() != (1, 0, 1):
+        fail(f"one accumulate step launched (K1, K1-lanes, K2) {counts()}, expected (1, 0, 1)")
+    frozen_grads = [n for n, g in trees.leaves_with_names(accum_grads) if g is None]
+    if (frozen_grads != ["model/embedding/item_emb", "model/embedding/user_emb"]
+            or not all(bool(torch.isfinite(g).all()) for g in grad_leaves(accum_grads, None))):
+        fail(f"accumulate step: gradients None at {frozen_grads} or not finite")
+    _, _, _, accum_err, accum_flips, accum_note, seen = hold_step(
+        build_accum, fused_tower_grad, tower_grad_reference, trainer.state.params, accum_cols,
+        measure=grad_leaves)
+    if seen[6] != 0.0 or trainer.model.dropout != 0.5:
+        fail(f"the accumulate step ran K1 at rate {seen[6]} under dropout "
+             f"{trainer.model.dropout}, expected rate 0 under 0.5")
+    k1a = k1_vs_plain(fused_tower_grad, tower_grad_reference, *seen, K1_REL_TOL)
+    k1a_ms = device_ms(lambda: fused_tower_grad(*seen))
+    k1a_plain_ms = device_ms(lambda: tower_grad_reference(*seen))
+    print(f"accumulate step (K2, K1 at rate 0 under the 0.5-dropout model, the gradient tree; "
+          f"no optimizer), kernels vs plain versions: largest difference in the gradients "
+          f"{accum_err:.2e} of the tensor's max (tol {K1_REL_TOL}); {accum_note}; frozen "
+          f"tables without a gradient; K1 at rate 0 on its operands: {report(k1a)}; K1 at rate "
+          f"0 {k1a_ms * 1e3:.1f} us/call on the device (rate 0.5: {k1_ms * 1e3:.1f} us), plain "
+          f"{k1a_plain_ms * 1e3:.1f} us; {card}")
+    del trainer, strat, accum_grads, seen
+
+    originals = {k: getattr(fused, k) for k in ("make_fused_passes", "make_fused_maml",
+                                                "make_fused_pcgrad", "make_fused_separate")}
+    fused.make_fused_passes = timed(originals["make_fused_passes"])
+    fused.make_fused_maml = timed(originals["make_fused_maml"])
+    fused.make_fused_pcgrad = timed(originals["make_fused_pcgrad"])
+    fused.make_fused_separate = timed(originals["make_fused_separate"], 0)
+    meta_counts = {}  # name -> (K1, K1-lanes, K2, K2 at the step's 1024 ids)
+    try:
+        for name in ("mlp_meta_maml_finetune", "mlp_meta_mldg_finetune", "mlp_pcgrad",
+                     "mlp_uncertainty_weight"):
+            trainer = build_bench_trainer(name, checkpoint_path=os.path.join(work, name),
+                                          dataset=disk)
+            strat = build_strategy(trainer)
+            tc_ = trainer.config.train
+            params0 = trainer.state.params
+            spd_ = trainer.steps_per_domain()
+            if len(set(spd_)) != 1:
+                fail("the bench workload's domains are no longer balanced")
+            ev = max(trainer.eval_steps_per_domain("val"))
+            te = max(trainer.eval_steps_per_domain("test"))
+            ln = max(spd_)
+            if name == "mlp_pcgrad":
+                # the query's steps, then sample_num aux domains' whole epochs
+                k = min(tc_.sample_num, n_domain - 1)
+                k1_want, rows = sum(spd_) * (1 + k), disk_train * (1 + k)
+            elif name == "mlp_uncertainty_weight":
+                k1_want, rows = 0, disk_train  # autograd: K2 only, one gather a step
+            else:
+                # support (MAML: train steps; MLDG: accumulate) + query accumulate
+                k1_want, rows = 0, disk_train
+                for s in disk.train:
+                    n_sup = max(1, int(s.n * tc_.meta_split_ratio))
+                    k1_want += -(-n_sup // batch) + -(-(s.n - n_sup) // batch)
+            k2_steps = k1_want or sum(spd_)
+            ft = strat.spec.finetune
+            want = (k1_want, ln if ft else 0, k2_steps + ev + te + ((ln + ev + te) if ft else 0))
+            epoch_s_of.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = strat.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            got = counts()
+            if got != want:
+                fail(f"{name}: run() launched (K1, K1-lanes, K2) {got}, expected {want}")
+            meta_counts[name] = (*got, k2_steps)
+            auc, wauc, loss = checked(res, "test", f"{name} run()")
+            best = trainer.best_params
+            start = params0["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
+            moved = best["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
+            if not bool(torch.isfinite(moved).all()) or torch.equal(moved, start):
+                fail(f"{name}: the trained weights are not finite or did not move")
+            # (the finetune stage reloads the params from the checkpoint file)
+            kept = [(best, "best params")] + ([] if ft else [(trainer.state.params, "params")])
+            for tree, what in kept + ([(strat.meta, "meta")] if hasattr(strat, "meta") else []):
+                for (n, x), x0 in zip(trees.leaves_with_names(tree), trees.leaves(params0)):
+                    if ("user_emb" in n or "item_emb" in n) and x is not x0:
+                        fail(f"{name}: {what}' frozen table {n} is not the same tensor")
+            note = ""
+            if hasattr(strat, "meta"):
+                for (n, m), a, b in zip(trees.leaves_with_names(strat.mask),
+                                        trees.leaves(strat.meta), trees.leaves(params0)):
+                    if m and (torch.equal(a, b) or not bool(torch.isfinite(a).all())):
+                        fail(f"{name}: meta leaf {n} did not move or is not finite")
+                    if not m and a is not b:
+                        fail(f"{name}: meta's unmasked leaf {n} is not the same tensor")
+                note = "; meta moved on masked leaves only"
+            if name == "mlp_uncertainty_weight":
+                lv, lv0 = best["uncertainty"]["log_vars"], params0["uncertainty"]["log_vars"]
+                if not bool(torch.isfinite(lv).all()) or bool((lv == lv0).any()):
+                    fail(f"{name}: log_vars did not move in every domain: {lv.flatten()}")
+                note = (f"; log_vars moved in every domain (now {float(lv.min()):.6f}-"
+                        f"{float(lv.max()):.6f} from 1)")
+            if len(epoch_s_of) != 1 + ft:
+                fail(f"{name}: {len(epoch_s_of)} epochs timed, expected {1 + ft}")
+            ep_s = epoch_s_of[0]
+            ft_note = f"; its finetune epoch {epoch_s_of[1]:.3f} s" if ft else ""
+            hyper = (f"meta lr {tc_.meta_learning_rate}, lr {tc_.learning_rate}, "
+                     f"{tc_.meta_split}"
+                     f"{f' {tc_.meta_split_ratio}' if tc_.meta_split != 'train-train' else ''}"
+                     if hasattr(strat, "meta_tx") else f"lr {tc_.learning_rate}")
+            print(f"{name} run() at bench shapes on the loaded data (an epoch, validation, best "
+                  f"checkpoint, test{', finetune' if ft else ''}; {hyper}): "
+                  f"{run_s:.3f} s; its train epoch {ep_s:.3f} s, {rows} example gradients, "
+                  f"{rows / ep_s:.0f} examples/s ({disk_train / ep_s:.0f} train rows/s)"
+                  f"{ft_note}; launches (K1, K1-lanes, K2) {got}; test macro AUC {auc:.6f}, "
+                  f"weighted {wauc:.6f}, loss {loss:.6f}; weights moved, frozen tables the "
+                  f"same tensors{note}; {card}")
+            del trainer, strat, params0, start, best, moved
+    finally:
+        for k, v in originals.items():
+            setattr(fused, k, v)
+
+    def small_meta_run(name, device):
+        split = {"mlp_meta_maml_finetune": {"meta_split": "meta-train/val",
+                                            "meta_split_ratio": 0.2},
+                 "mlp_meta_mldg_finetune": {"meta_split": "meta-train/val",
+                                            "meta_split_ratio": 0.8}}.get(name, {})
+        cfg = ExperimentConfig.from_dict({
+            "model": {"name": name, "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                      "hidden_dim": [32, 16], "dropout": 0.0},
+            "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                      "patience": 2, "learning_rate": 1e-2, "meta_learning_rate": 1e-2,
+                      "sample_num": 2, **split,
+                      "checkpoint_path": os.path.join(work, "small_meta", str(device))},
+            "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21}})
+        small = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100,
+                                       seed=21, long_tail=True, batch_size=64)
+        r = np.random.default_rng(0)
+        small.user_emb = r.normal(0, 0.1, (50, 8)).astype(np.float32)
+        small.item_emb = r.normal(0, 0.1, (60, 8)).astype(np.float32)
+        return build_strategy(Trainer(cfg, small, device=device, verbose=False)).run()
+
+    for name in meta_counts:
+        on_card, on_cpu = small_meta_run(name, None), small_meta_run(name, "cpu")
+        loss_rel = max(abs(on_card[2][k] - v) / abs(v) for k, v in on_cpu[2].items())
+        auc_abs = max(abs(on_card[3][k] - v) for k, v in on_cpu[3].items())
+        if not (loss_rel <= 1e-3 and auc_abs <= 1e-3):
+            fail(f"small {name} run() on the card vs the CPU: test losses {on_card[2]} vs "
+                 f"{on_cpu[2]}, AUCs {on_card[3]} vs {on_cpu[3]}")
+        print(f"small {name} run() (3 domains, 3 epochs) on the card vs the CPU's plain "
+              f"versions: test loss within {loss_rel:.2e} (tol 1e-3 relative), AUC within "
+              f"{auc_abs:.2e} (tol 1e-3)")
     del disk
     shutil.rmtree(work, ignore_errors=True)
 
@@ -1261,6 +1443,36 @@ def main() -> int:
          "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
          "launches": sum(c[2] - c[0] for c in new_counts.values()), "max_abs_err": k2l_err,
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
+        # 5e's runs (MAML, MLDG, PCGrad, uncertainty weighting at bench
+        # shapes): K1 on MAML's inner steps (rate 0.5) and on every accumulate
+        # step (rate 0: its time and error from 5e's accumulate-step check),
+        # K2 at the step's shapes on every step and accumulate step and in
+        # uncertainty weighting's autograd forward, K1-lanes and K2 at the
+        # lane-step's shapes in the finetune lanes and the evals
+        {"name": "fused_tower_grad (MAML, MLDG and PCGrad runs; rate 0 accumulate steps)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": sum(c[0] for c in meta_counts.values()), "max_abs_err": k1a["err"],
+         "relu_edge_units": k1a["flips"], "ms": k1a_ms, "plain_ms": k1a_plain_ms,
+         "bound_ms": k1_bound, "bound_by": "operations", "library_ms": None},
+        {"name": "fused_tower_grad_lanes (5e's finetune lanes)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": sum(c[1] for c in meta_counts.values()), "max_abs_err": k1l_err,
+         "relu_edge_units": k1l_flips, "ms": k1l_ms, "plain_ms": k1l_plain_ms,
+         "bound_ms": k1l_bound, "bound_by": "operations", "library_ms": None},
+        {"name": f"gather_fields (3 fields x {batch} ids, 5e's steps and accumulate steps)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[3] for c in meta_counts.values()), "max_abs_err": k2_err,
+         "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": dn_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5e's lanes and evals)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[2] - c[3] for c in meta_counts.values()), "max_abs_err": k2l_err,
          "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
          "bound_by": "bytes", "library_ms": dr_t["library"]},
         # K3's path is the gather probe, which runs it at both sizes: each

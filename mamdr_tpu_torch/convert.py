@@ -3,7 +3,8 @@
 The port's parameter trees are nested dicts with the flax paths
 (``model/dnn/Dense_0/Dense_0/kernel``) and the flax layouts (kernels
 ``[in, out]``, biases ``[out]``), so conversion is a leaf-wise copy with no
-renaming or transposing. Inputs are nested dicts of numpy arrays (e.g.
+renaming or transposing (the uncertainty-weighted model's
+``uncertainty/log_vars`` included). Inputs are nested dicts of numpy arrays (e.g.
 ``jax.device_get`` of a flax tree); this module imports no JAX.
 """
 
@@ -54,3 +55,17 @@ def flat_adam_state_from_jax(count, mu, nu, device="cpu") -> FlatAdamState:
         mu=torch.tensor(np.asarray(mu), dtype=torch.float32, device=device),
         nu=torch.tensor(np.asarray(nu), dtype=torch.float32, device=device),
     )
+
+
+def meta_adam_state_from_jax(count, mu_tree, nu_tree, mask, device="cpu") -> FlatAdamState:
+    """The JAX package's meta-optimizer state (``optax.adam``'s count and its
+    mu / nu trees, as numpy, under ``optax.chain(masked(set_to_zero), adam)``)
+    -> the port's flat Adam over the meta mask: the masked leaves of mu and
+    nu ravelled in leaf order (the JAX package's other leaves hold zeros and
+    never move; the port carries no slot for them)."""
+    def flat(tree):
+        sel = [np.asarray(x, np.float32).reshape(-1)
+               for m, x in zip(trees.leaves(mask), trees.leaves(tree)) if m]
+        return np.concatenate(sel) if sel else np.zeros((0,), np.float32)
+
+    return flat_adam_state_from_jax(count, flat(mu_tree), flat(nu_tree), device)

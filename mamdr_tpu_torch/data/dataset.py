@@ -1,10 +1,10 @@
 """Multi-domain dataset: per-domain splits as packed numpy columns.
 
-A copy of ``DomainSplit`` and ``MultiDomainDataset`` from
-``mamdr_tpu/data/dataset.py``. Each domain split is four numpy columns (uid,
-pid, domain, label — the on-disk CSV schema, reference
-dataset/Amazon/split.py:20); the training engine (``train/fused.py``) moves
-them to the device once. Every batch comes from exactly one domain
+A copy of ``DomainSplit``, ``split_support_query`` and
+``MultiDomainDataset`` from ``mamdr_tpu/data/dataset.py``. Each domain split
+is four numpy columns (uid, pid, domain, label — the on-disk CSV schema,
+reference dataset/Amazon/split.py:20); the training engine
+(``train/fused.py``) moves them to the device once. Every batch comes from exactly one domain
 (the reference's single-domain-batch invariant, SURVEY §2.4).
 
 ``MultiDomainDataset.from_disk`` reads the reference's on-disk layout
@@ -69,6 +69,32 @@ class DomainSplit:
             np.asarray(domain, np.int32),
             np.asarray(label, np.float32),
         )
+
+
+def split_support_query(split: DomainSplit, mode: str, ratio: float,
+                        rng: np.random.Generator):
+    """Support/query division for the meta strategies (reference
+    maml.py:294-341; JAX ``split_support_query``): the same draws from the
+    same numpy generator, so the index sets and the generator's state
+    afterwards are bit-equal.
+
+    - ``train-train``: support = query = the full train set (no draw);
+    - ``meta-train/val``: exclusive split, support = the first ``ratio``
+      fraction of one permutation, query the rest (one row when nothing is
+      left);
+    - ``meta-train/val-no-exclusive``: support = the full set, query = a
+      random ratio-sized subset.
+    """
+    if mode == "train-train":
+        return split, split
+    perm = rng.permutation(split.n)
+    n_support = max(1, int(split.n * ratio))
+    if mode == "meta-train/val":
+        rest = perm[n_support:] if split.n - n_support > 0 else perm[:1]
+        return split.take(perm[:n_support]), split.take(rest)
+    if mode == "meta-train/val-no-exclusive":
+        return split, split.take(perm[:n_support])
+    raise ValueError(f"unknown meta_split mode {mode!r}")
 
 
 class MultiDomainDataset:

@@ -25,7 +25,14 @@ On one CUDA card, from the repository root. Prints
      included) and one finetune epoch of SGD lanes (12 lane-steps): per
      lane-step the wall time, device busy time, idle share, CUDA launches
      and the kernels that take the most device time (printed before part 4,
-     which builds a strategy of its own).
+     which builds a strategy of its own);
+  6. the meta-gradient accumulate step that MAML, MLDG and PCGrad run
+     (``fused._grad_epoch_on_flat`` over one domain's 12 batches: K2, K1 at
+     dropout rate 0, the gradient tree and the accumulator's adds, no
+     optimizer), and the uncertainty-weighted train step (autograd through
+     the model, K2 in its forward, flat Adam): per step the wall time,
+     device busy time, idle share, CUDA launches and the kernels that take
+     the most device time (printed after part 5).
 
 Every line names the card and its power limit.
 """
@@ -154,7 +161,7 @@ def main() -> int:
           f"time ({smi})")
 
     # ---- 5. a merged-eval lane-step and a finetune lane-step ----
-    def breakdown(what, run, steps, top=10):
+    def breakdown(what, run, steps, top=10, unit="lane-step", host_top=0):
         run()  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -169,10 +176,14 @@ def main() -> int:
         launches = sum(n for n, _ in kt.values()) / steps
         print(f"{what}: {wall * 1e6:.1f} us wall without the profiler, {busy:.1f} us device "
               f"busy, idle share {1 - busy / (wall * 1e6):.3f}, {launches:.0f} CUDA launches "
-              f"a lane-step; {steps} lane-steps a call ({smi})")
+              f"a {unit}; {steps} {unit}s a call ({smi})")
         for name, (n, us) in sorted(kt.items(), key=lambda kv: -kv[1][1])[:top]:
-            print(f"  {us / steps:8.2f} us/lane-step  {n / steps:5.1f}x/lane-step  "
-                  f"{_short(name)}")
+            print(f"  {us / steps:8.2f} us/{unit}  {n / steps:5.1f}x/{unit}  {_short(name)}")
+        host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)
+        for e in host[:host_top]:  # where the host's time goes (profiled, so inflated)
+            print(f"  host {e.self_cpu_time_total / steps:8.2f} us/{unit}  "
+                  f"{e.count / steps:5.1f}x/{unit}  {_short(e.key)}")
 
     from mamdr_tpu_torch.strategies import separate
     from mamdr_tpu_torch.train import fused
@@ -194,6 +205,30 @@ def main() -> int:
               lambda: lanes.epoch_all(lanes.states, lanes.block, trainer.gen),
               lanes.block["weight"].shape[1] // trainer.dataset.batch_size)
     del lanes
+
+    # ---- 6. the accumulate step (K2 + K1 at rate 0, no optimizer) ----
+    block, n_steps = trainer.train_block()
+    flat0 = {k: v[0] for k, v in block.items()}
+    acc0 = fused.zeros_acc(strat.mask, trainer.state.params)
+    breakdown("accumulate step (K2, K1 at rate 0, grads into the accumulator)",
+              lambda: fused._grad_epoch_on_flat(
+                  trainer.accum_grad_fn, trainer.state.params, flat0, trainer.gen, n_steps,
+                  trainer.dataset.batch_size, acc0, strat.mask,
+                  real_steps=trainer.steps_per_domain()[0]),
+              trainer.steps_per_domain()[0], unit="step", host_top=8)
+    del acc0
+    # ... and uncertainty weighting's train step (autograd; K2 in its forward)
+    from mamdr_tpu_torch.workload import build_bench_trainer
+
+    unc = build_bench_trainer("mlp_uncertainty_weight", checkpoint_path=ckpt,
+                              dataset=trainer.dataset)
+    unc_step = unc.train_step_fn()
+    breakdown("uncertainty-weighted train step (autograd, flat Adam)",
+              lambda: fused._epoch_on_flat(unc_step, unc.state, flat0, unc.gen, n_steps,
+                                           unc.dataset.batch_size,
+                                           real_steps=unc.steps_per_domain()[0]),
+              unc.steps_per_domain()[0], unit="step", host_top=12)
+    del unc, unc_step, flat0
 
     # ---- 4. the same DR phase, sequential ----
     del trainer, strat

@@ -4,9 +4,10 @@ A strategy is a host-side schedule over the trainer's phases and evals.
 ``run()`` is the reference main() flow (run.py:67-89): train with early
 stopping, test with the best weights (for ``*_separate``: every domain
 trained on its own instead), then, for a ``*_finetune`` model name, the
-per-domain finetune stage. ``build_strategy`` dispatches joint, separate,
-Domain Negotiation, Reptile and MAMDR, and refuses the strategies not
-ported yet, naming their ROADMAP item.
+per-domain finetune stage. ``build_strategy`` dispatches joint (with
+uncertainty weighting too), separate, PCGrad, MAML, MLDG, Domain
+Negotiation, Reptile and MAMDR; a setting whose path is not ported yet is
+refused, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ def _refuse_unported(trainer: Trainer) -> None:
         raise NotImplementedError(
             "separate_fused=false: the sequential per-domain finetune loop is not "
             "ported yet (ROADMAP.md, open items §1: _separate_loop)")
+    if spec.uncertainty_weight and (spec.finetune or spec.strategy in ("separate", "mamdr")):
+        raise NotImplementedError(
+            f"{spec.raw!r}: the uncertainty-weighted loss in the separate, finetune or DR "
+            "lanes needs the autograd lane step, which comes with "
+            "(ROADMAP.md, open items §1: the rest of the zoo)")
 
 
 class Strategy:
@@ -76,14 +82,23 @@ def build_strategy(trainer: Trainer) -> Strategy:
     """The strategy a model name asks for (JAX ``build_strategy``,
     base.py:64-96)."""
     spec = trainer.config.spec
-    if spec.pcgrad or spec.uncertainty_weight or spec.strategy in ("maml", "mldg"):
-        raise NotImplementedError(
-            f"{spec.raw!r}: MAML, MLDG, PCGrad and uncertainty weighting are not ported "
-            "yet (ROADMAP.md, open items §1: MAML, MLDG, PCGrad and uncertainty weighting)")
     if spec.strategy in ("joint", "separate"):
+        # PCGrad replaces the joint loop (reference pcgrad.py:16)
+        if spec.pcgrad:
+            from mamdr_tpu_torch.strategies.pcgrad import PCGradStrategy
+
+            return PCGradStrategy(trainer)
         from mamdr_tpu_torch.strategies.joint import JointStrategy
 
         return JointStrategy(trainer)
+    if spec.strategy == "maml":
+        from mamdr_tpu_torch.strategies.maml import MAMLStrategy
+
+        return MAMLStrategy(trainer)
+    if spec.strategy == "mldg":
+        from mamdr_tpu_torch.strategies.mldg import MLDGStrategy
+
+        return MLDGStrategy(trainer)
     if spec.strategy == "reptile":
         from mamdr_tpu_torch.strategies.reptile import ReptileStrategy
 

@@ -1,6 +1,7 @@
 """Shared machinery for the meta strategies: the meta-parameter mask, the
-domain sequence, and the validation / early-stop tail of every meta epoch
-(counterpart of ``mamdr_tpu/strategies/meta_base.py:24-74, 96-230``). The
+domain sequence, the support/query split, and the validation / early-stop
+tail of every meta epoch (counterpart of
+``mamdr_tpu/strategies/meta_base.py:24-94, 96-230``). The
 meta-finetune validation (``meta_finetune_step > 0``) is not ported and is
 refused."""
 
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+from mamdr_tpu_torch.data.dataset import split_support_query
 from mamdr_tpu_torch.strategies.base import Strategy
 from mamdr_tpu_torch.train.trainer import Trainer
 from mamdr_tpu_torch.utils import trees
@@ -48,6 +50,23 @@ class MetaStrategy(Strategy):
                 raise ValueError("All the domains must be given in the sequence")
             return list(ms)
         return seq
+
+    def support_query(self, idx: int):
+        """Domain idx's support/query split, drawn from ``np_rng``; a target
+        domain redirects the query set to the target's train split
+        (reference maml.py:335-337)."""
+        t = self.trainer
+        support, query = split_support_query(
+            t.dataset.train[idx], self.tc.meta_split, self.tc.meta_split_ratio, t.np_rng)
+        if self.target_domain >= 0:
+            query = t.dataset.train[self.target_domain]
+        return support, query
+
+    def cap_steps(self, n_batches: int) -> int:
+        """At most ``meta_train_step`` of `n_batches` when that is positive."""
+        if self.tc.meta_train_step > 0:
+            return min(n_batches, self.tc.meta_train_step)
+        return n_batches
 
     # ---------------- validation / early stop ----------------
 

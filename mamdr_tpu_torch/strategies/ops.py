@@ -1,9 +1,10 @@
 """Weight-space algebra for the strategy control plane.
 
 Counterpart of ``mamdr_tpu/strategies/ops.py`` (load_masked, reptile_update,
-delta_accumulate, scaled_add, merge_weights): masked leaf-wise ops over parameter trees. Masks select the
-strategy's meta parameters (utils.trees.meta_parm_mask) and are trees of
-python bools.
+delta_accumulate, scaled_add, merge_weights, tree_where_mask_zero,
+ema_accumulate, pcgrad_project, tree_add_trees): masked leaf-wise ops over
+parameter trees. Masks select the strategy's meta parameters
+(utils.trees.meta_parm_mask) and are trees of python bools.
 
 Every op returns a new tree and writes no tensor in place. That matters:
 MAMDR's ``shared`` tree is the trainer's initial params, and each domain's
@@ -15,11 +16,18 @@ The ops broadcast: with ``shared`` leaves [...] and lane-stacked ``specific``
 leaves [L, ...] (the DR phase's query-domain lanes), ``merge_weights`` gives
 the [L, ...] merged leaves, and ``reptile_update`` / ``specific_update``
 work leaf-wise on whatever leading axes their operands share.
+
+The meta-gradient ops (``ema_accumulate``, ``pcgrad_project``,
+``tree_add_trees``) take gradient trees that may hold ``None`` at leaves
+that carry no gradient (a frozen table, or a leaf outside the meta mask in
+an accumulator); a ``None`` leaf passes through as ``None``.
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+import torch
 
 from mamdr_tpu_torch.utils import trees
 
@@ -68,3 +76,48 @@ def specific_update(specific: Tree, adapted: Tree, merged: Tree, lr, mask: Tree)
     return trees.tree_map(
         lambda m, sp, a, mg: sp + (a - mg) * lr if m else sp,
         mask, specific, adapted, merged)
+
+
+def tree_where_mask_zero(tree: Tree, mask: Tree) -> Tree:
+    """Zero out non-masked leaves (restrict grads to the meta subset)."""
+    return trees.tree_map(lambda m, x: x if m else torch.zeros_like(x), mask, tree)
+
+
+def ema_accumulate(acc: Tree, g: Tree, mask: Tree, momentum: float = 0.999) -> Tree:
+    """acc = momentum*acc + (1-momentum)*g on masked leaves
+    (average_meta_grad="moving_mean", reference maml.py:219-221)."""
+    return trees.tree_map(
+        lambda m, a, g_: a * momentum + g_ * (1.0 - momentum) if m and a is not None else a,
+        mask, acc, g)
+
+
+def pcgrad_project(query_grads: Tree, aux_grads: Tree, mode: str = "reference") -> Tree:
+    """Project aux grads against query grads, rowwise over the last axis
+    (JAX ``pcgrad_project``). mode="reference" reproduces the reference's
+    deviation from the published PCGrad (reference pcgrad.py:152-160):
+    project when dot > 0 and normalise by ||g_q||; mode="paper" projects
+    when dot < 0 and normalises by ||g_q||^2. A row of norm 0 gets
+    coefficient 0. Returns the projected aux grads."""
+    if mode not in ("reference", "paper"):
+        raise ValueError(f"unknown pcgrad mode {mode!r}")
+
+    def leaf(gq, ga):
+        if gq is None:
+            return ga
+        dot = torch.sum(gq * ga, dim=-1, keepdim=True)
+        norm2 = torch.sum(gq * gq, dim=-1, keepdim=True)
+        if mode == "reference":
+            norm = torch.sqrt(norm2)
+            coef = torch.where(norm > 0.0, dot / torch.clamp(norm, min=1e-30), 0.0)
+            project = dot > 0.0
+        else:
+            coef = torch.where(norm2 > 0.0, dot / torch.clamp(norm2, min=1e-30), 0.0)
+            project = dot < 0.0
+        return torch.where(project, ga - coef * gq, ga)
+
+    return trees.tree_map(leaf, query_grads, aux_grads)
+
+
+def tree_add_trees(a: Tree, b: Tree) -> Tree:
+    """a + b leaf by leaf; a ``None`` leaf of ``a`` stays ``None``."""
+    return trees.tree_map(lambda x, y: None if x is None else x + y, a, b)

@@ -1,9 +1,10 @@
 """Whole training and evaluation phases over a device-resident data block.
 
-Counterpart of the MAMDR, joint, DN and Reptile part of
-``mamdr_tpu/train/fused.py`` (block stacking, batch formation, the ragged
-sequential pass with its step cap, ``make_fused_passes``, ``make_fused_dn``,
-``make_fused_reptile``, ``make_fused_mamdr``,
+Counterpart of ``mamdr_tpu/train/fused.py`` (block stacking, batch
+formation, the ragged sequential pass with its step cap,
+``make_fused_passes``, ``make_fused_dn``, ``make_fused_reptile``,
+``_grad_epoch_on_flat``, ``make_fused_maml``, ``make_fused_pcgrad``,
+``make_fused_mamdr``,
 ``make_fused_dr_parallel`` without its mesh-sharding and lane-chunk
 branches, ``stack_specific`` / ``unstack_specific``, the fused evals and
 ``make_fused_separate``):
@@ -16,6 +17,10 @@ branches, ``stack_specific`` / ``unstack_specific``, the fused evals and
     real steps (the JAX package's ragged pass, :161-242). A padded step
     would be an all-pad batch, which the train step turns into an exact
     no-op, so skipping it is bit-identical to the padded scan;
+  - the meta strategies' accumulators (MAML, MLDG, PCGrad) sum gradients at
+    fixed params over a domain's real batches (``_grad_epoch_on_flat``) and
+    hold only the meta mask's leaves, ``None`` elsewhere, so a frozen table
+    is never copied; the meta optimizer is the flat Adam over that mask;
   - the Domain-Regularization phase runs every query domain as a LANE: all
     lanes start from the DR-entry state and take each step together, one
     launch chain per lane-step through the lane-batched train step. Lanes
@@ -49,6 +54,7 @@ from mamdr_tpu_torch.metrics.auc import auc_init, auc_result, auc_update
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import lane_seeds
 from mamdr_tpu_torch.strategies import ops
+from mamdr_tpu_torch.train.flat_optimizer import apply_updates
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import weighted_bce
 from mamdr_tpu_torch.utils import trees
@@ -248,6 +254,166 @@ def make_fused_reptile(train_step, mask, n_steps: int, batch: int, batch_mode: b
         return state, meta, torch.stack(losses)
 
     return reptile_epoch
+
+
+def _grad_epoch_on_flat(grad_fn, params, flat, gen: torch.Generator, n_steps: int,
+                        batch: int, acc, mask, accumulate: str = "sum", cap_steps: int = 0,
+                        shuffle: bool = True, real_steps: Optional[int] = None):
+    """Accumulate the gradients of one shuffled epoch over a flat column
+    block at fixed params (JAX ``_grad_epoch_on_flat``, fused.py:566-622):
+    ``grad_fn(params, batch)`` (``steps.make_accum_grad_fn``: dropout off)
+    on at most ``cap_steps`` batches (0: all), only the first ``real_steps``
+    of them when given. ``accumulate`` "sum" adds each batch's gradient,
+    "ema" takes acc*0.999 + g*0.001. Only the leaves ``mask`` marks
+    accumulate; ``acc`` holds ``None`` at the others and they stay so.
+
+    The shuffle keeps the weight-0 pad tail last, so the batches run are the
+    domain's real ones and the sum is that of its ceil(n/B) weighted means.
+    An all-pad batch leaves the accumulator untouched (a gate on the device);
+    with ``real_steps`` no run batch is all-pad (real rows sort first), so
+    the gate is left out there."""
+    if accumulate not in ("sum", "ema"):
+        raise ValueError(f"unknown accumulate mode {accumulate!r}")
+    steps = n_steps if cap_steps <= 0 else min(cap_steps, n_steps)
+    if real_steps is not None:
+        steps = min(steps, int(real_steps))
+    batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle)
+    for s in range(steps):
+        b = {k: v[s] for k, v in batches.items()}
+        grads = grad_fn(params, b)
+        new = (ops.ema_accumulate(acc, grads, mask) if accumulate == "ema"
+               else ops.tree_add_trees(acc, grads))
+        if real_steps is None:
+            gate = torch.sum(b["weight"]) > 0.0
+            new = trees.tree_map(lambda n, a: None if a is None else torch.where(gate, n, a),
+                                 new, acc)
+        acc = new
+    return acc
+
+
+def zeros_acc(mask, params):
+    """A meta-gradient accumulator: zeros at the masked leaves, ``None`` at
+    the others (no table-sized tensor for a leaf that never accumulates)."""
+    return trees.tree_map(lambda m, x: torch.zeros_like(x) if m else None, mask, params)
+
+
+def meta_step(meta_tx, target, opt, acc, mask, grad_scale: float):
+    """target + the meta optimizer's step on acc * grad_scale (masked
+    leaves; the others pass through by reference) -> (target, opt)."""
+    if grad_scale != 1.0:
+        acc = trees.tree_map(lambda m, g: g * grad_scale if m else g, mask, acc)
+    updates, opt = meta_tx.update(acc, opt)
+    return apply_updates(target, updates), opt
+
+
+def make_fused_maml(train_step, grad_fn, mask, meta_tx, n_steps_support: int,
+                    n_steps_query: int, batch: int, batch_mode: bool, cap_steps: int = 0,
+                    accumulate: str = "sum", mldg: bool = False, shuffle: bool = True,
+                    steps_list_support: Optional[Sequence[int]] = None,
+                    steps_list_query: Optional[Sequence[int]] = None):
+    """The MAML or MLDG epoch (JAX ``make_fused_maml``, fused.py:625-729).
+
+    MAML (maml.py:60-121), per domain in `order`: load meta's masked leaves;
+    an inner epoch on the support block with the model's own optimizer
+    (slots and step count carry on across domains); accumulate the query
+    block's gradients at the adapted weights; then (per-domain mode) apply
+    the meta optimizer at meta and clear, or under `batch_mode` once at the
+    epoch's end.
+
+    MLDG (mldg.py:92-119): the support gradients are accumulated at meta (no
+    inner optimizer); a mid-stream meta step from the loaded weights gives
+    the adapted ones — it advances the meta optimizer's moments and count
+    and does NOT clear the accumulator — and the query gradients at the
+    adapted weights join the same accumulator (g_support(θ) +
+    g_query(θ')); the apply then follows as in MAML, at meta.
+
+    ``meta_tx`` is the flat Adam over the meta mask; accumulators hold the
+    masked leaves only, so frozen tables are never copied and come out as
+    the same tensors. Ends with meta loaded.
+
+    maml_epoch(state, meta, meta_opt, support_block, query_block, order, gen,
+    grad_scale) -> (state, meta, meta_opt)."""
+    sup_of = None if steps_list_support is None else [int(s) for s in steps_list_support]
+    q_of = None if steps_list_query is None else [int(s) for s in steps_list_query]
+
+    def maml_epoch(state: TrainState, meta, meta_opt, support_block, query_block, order,
+                   gen, grad_scale: float):
+        acc = zeros_acc(mask, meta)
+        for dom in order:
+            dom = int(dom)
+            sup_flat = {k: v[dom] for k, v in support_block.items()}
+            q_flat = {k: v[dom] for k, v in query_block.items()}
+            sup_rs = None if sup_of is None else sup_of[dom]
+            q_rs = None if q_of is None else q_of[dom]
+            state = state.replace(params=ops.load_masked(state.params, meta, mask))
+            if mldg:
+                acc = _grad_epoch_on_flat(grad_fn, state.params, sup_flat, gen,
+                                          n_steps_support, batch, acc, mask, accumulate,
+                                          cap_steps, shuffle, real_steps=sup_rs)
+                adapted, meta_opt = meta_step(meta_tx, state.params, meta_opt, acc, mask,
+                                              grad_scale)
+                state = state.replace(params=adapted)
+            else:
+                state, _ = _epoch_on_flat(train_step, state, sup_flat, gen, n_steps_support,
+                                          batch, cap_steps=cap_steps, shuffle=shuffle,
+                                          real_steps=sup_rs)
+            acc = _grad_epoch_on_flat(grad_fn, state.params, q_flat, gen, n_steps_query,
+                                      batch, acc, mask, accumulate, cap_steps, shuffle,
+                                      real_steps=q_rs)
+            if not batch_mode:
+                meta, meta_opt = meta_step(meta_tx, meta, meta_opt, acc, mask, grad_scale)
+                acc = zeros_acc(mask, meta)
+        if batch_mode:
+            meta, meta_opt = meta_step(meta_tx, meta, meta_opt, acc, mask, grad_scale)
+        state = state.replace(params=ops.load_masked(state.params, meta, mask))
+        return state, meta, meta_opt
+
+    return maml_epoch
+
+
+def make_fused_pcgrad(grad_fn, mask, meta_tx, n_steps: int, batch: int, cap_steps: int = 0,
+                      mode: str = "reference", shuffle: bool = True,
+                      steps_list: Optional[Sequence[int]] = None):
+    """The PCGrad epoch (reference pcgrad.py:60-127; JAX
+    ``make_fused_pcgrad``, fused.py:732-803). Per query domain q in `order`:
+    accumulate q's gradients at the current weights (at most `cap_steps`
+    batches); then for each of its aux domains accumulate a whole epoch's
+    gradients and project them (``ops.pcgrad_project``) against the running
+    sum in mode "reference" (the reference aliases ``final_grads`` to the
+    query grads and projects in place) or against q's own gradients in mode
+    "paper", adding each projection to the running sum; then one meta
+    optimizer step on the sum (times `grad_scale`). The weights advance
+    between query domains; the model's own optimizer and ``state.step``
+    are never used. Accumulators hold the masked leaves only.
+
+    pcgrad_epoch(state, meta_opt, block, order, aux, gen, grad_scale) ->
+    (state, meta_opt); `order` [D] and `aux` [D, K] are host arrays."""
+    steps_of = None if steps_list is None else [int(s) for s in steps_list]
+
+    def real(dom: int) -> Optional[int]:
+        return None if steps_of is None else steps_of[dom]
+
+    def pcgrad_epoch(state: TrainState, meta_opt, block, order, aux, gen, grad_scale: float):
+        for q, aux_q in zip(order, aux):
+            q = int(q)
+            params = state.params
+            qg = _grad_epoch_on_flat(grad_fn, params, {k: v[q] for k, v in block.items()},
+                                     gen, n_steps, batch, zeros_acc(mask, params), mask, "sum",
+                                     cap_steps, shuffle, real_steps=real(q))
+            running = qg
+            for a in aux_q:
+                a = int(a)
+                ag = _grad_epoch_on_flat(grad_fn, params, {k: v[a] for k, v in block.items()},
+                                         gen, n_steps, batch, zeros_acc(mask, params), mask,
+                                         "sum", 0, shuffle, real_steps=real(a))
+                proj = ops.pcgrad_project(running if mode == "reference" else qg, ag, mode)
+                running = ops.tree_add_trees(running, proj)
+            new_params, meta_opt = meta_step(meta_tx, params, meta_opt, running, mask,
+                                             grad_scale)
+            state = state.replace(params=new_params)
+        return state, meta_opt
+
+    return pcgrad_epoch
 
 
 def make_fused_mamdr(train_step, mask, merged_method: str, n_steps: int, batch: int,
@@ -472,9 +638,11 @@ def make_lane_eval(model, cfg, gather=gather_fields):
     of every leaf with a lane axis; a leaf without one is read by every lane
     (``MLP.apply_lanes``). ``block`` is {col: [L, S, B]}; ``steps`` lane-steps
     run (all S by default: a lane's trailing all-pad batches change
-    nothing). Per lane: the loss is the total loss (data loss plus the l2 of
-    the lane's embedding tables) averaged over the batches that hold data,
-    a partial batch by its weighted mean; the confusion counts of every
+    nothing). Per lane: the loss is the total loss (data loss — under
+    uncertainty weighting bce/var^2 + log(var), var the log_vars entry of the
+    lane's batch's domain — plus the l2 of the lane's embedding tables)
+    averaged over the batches that hold data, a partial batch by its
+    weighted mean; the confusion counts of every
     batch (500 thresholds) are formed from zero and added. Nothing waits for
     the host. ``gather`` is K2's wrapper, or its plain version to hold the
     eval through K2 against.
@@ -488,6 +656,7 @@ def make_lane_eval(model, cfg, gather=gather_fields):
         steps = n_steps if steps is None else min(int(steps), n_steps)
         dev = by_step["weight"].device
         l2 = _l2_lanes(mp, cfg.l2_emb)
+        log_vars = params["uncertainty"]["log_vars"] if cfg.uncertainty_weight else None
         counts = auc_init(lanes=(lanes,), device=dev)
         loss_sum = torch.zeros((lanes,), dtype=torch.float32, device=dev)
         n = torch.zeros((lanes,), dtype=torch.float32, device=dev)
@@ -495,7 +664,11 @@ def make_lane_eval(model, cfg, gather=gather_fields):
             for s in range(steps):
                 b = {k: v[s] for k, v in by_step.items()}
                 logits = model.apply_lanes(mp, b["uid"], b["pid"], b["domain"], gather)
-                loss = weighted_bce(logits, b["label"], b["weight"]) + l2
+                data = weighted_bce(logits, b["label"], b["weight"])
+                if log_vars is not None:  # [D, 1], read by every lane
+                    var = log_vars[b["domain"][:, 0].long(), 0]
+                    data = data / torch.square(var) + torch.log(var)
+                loss = data + l2
                 counts = auc_update(counts, b["label"], torch.sigmoid(logits), b["weight"])
                 has_data = (torch.sum(b["weight"], dim=-1) > 0.0).to(torch.float32)
                 loss_sum = loss_sum + loss * has_data

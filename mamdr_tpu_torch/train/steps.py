@@ -5,15 +5,26 @@ Counterpart of ``mamdr_tpu/train/steps.py`` for the MLP tower:
   - binary cross-entropy on logits, masked weighted mean
     sum(w*bce)/max(sum(w), 1) (Keras weighted loss with 0/1 weights);
   - l2 1e-5 on the embedding tables, frozen tables contributing a constant;
-  - one train step = fused tower gradient (ops/fused_mlp_step.py), the
-    optimizer (flat Adam, or masked SGD in the finetune stage), and the
-    all-pad gate: a batch whose weights sum to 0 leaves
-    params, optimizer slots and ``step`` exactly as they were
-    (steps.py:148-165). The gate is a ``torch.where`` on the device, so a
-    step never waits for the host;
+  - optional Kendall uncertainty weighting per domain: data loss
+    bce/var^2 + log(var), var = log_vars[domain of the batch] (reference
+    model_zoo/uncertainty_weight/weighted_loss.py:29-42);
+  - the loss gradient (``make_loss_grad``, the gate of the JAX package's
+    ``maybe_make_fast_loss_grad``, ops/fused_mlp_step.py:220-229): the plain
+    MLP takes the fused tower gradient (kernels K1 and K2,
+    ops/fused_mlp_step.py); anything else — today the uncertainty-weighted
+    loss — takes autograd through the model's forward pass, whose field
+    gather is K2 with its autograd rule;
+  - one train step = the loss gradient, the optimizer (flat Adam, or masked
+    SGD in the finetune stage), and the all-pad gate: a batch whose weights
+    sum to 0 leaves params, optimizer slots and ``step`` exactly as they
+    were (steps.py:148-165). The gate is a ``torch.where`` on the device, so
+    a step never waits for the host;
   - the subset lane step (``make_subset_train_step``, steps.py:171-236): the
     very same step function over lane-stacked state that carries only
-    trainable leaves, with the gate taken per lane.
+    trainable leaves, with the gate taken per lane;
+  - the meta-gradient accumulator's step (``make_accum_grad_fn``,
+    steps.py:239-262): the gradient of the total loss at fixed params with
+    dropout off — through K1 at rate 0 where the gate allows.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from mamdr_tpu_torch.utils import trees
 class StepConfig(NamedTuple):
     l2_emb: float = 1e-5
     emb_trainable: bool = True
+    uncertainty_weight: bool = False
 
 
 def weighted_bce(logits, labels, weights):
@@ -71,12 +83,63 @@ def make_loss_fn(model, cfg: StepConfig):
         logits = model.apply(params["model"], batch["uid"], batch["pid"],
                              batch["domain"], seeds)
         data_loss = weighted_bce(logits, batch["label"], batch["weight"])
+        if cfg.uncertainty_weight:
+            var = params["uncertainty"]["log_vars"][batch["domain"][0].long(), 0]
+            data_loss = data_loss / torch.square(var) + torch.log(var)
         loss = data_loss + _l2_term(params["model"], cfg.l2_emb, cfg.emb_trainable)
         if probs:
             return loss, data_loss, torch.sigmoid(logits)
         return loss, data_loss
 
     return loss_fn
+
+
+def _trainable(name: str, emb_trainable: bool) -> bool:
+    return emb_trainable or not ("user_emb" in name or "item_emb" in name)
+
+
+def make_autograd_loss_grad(model, cfg: StepConfig):
+    """f(params, batch, seeds, train=True) -> (data_loss, grads) by autograd
+    through ``make_loss_fn`` — the contract of ``make_fast_loss_grad`` for
+    one tower (batch columns [B]): ``grads`` has the structure of ``params``
+    with ``None`` at frozen tables, dropout from ``seeds`` when ``train``,
+    off otherwise. The tables' gradients come from K2's autograd rule
+    (``gather_fields``). The JAX package takes this route
+    (``jax.value_and_grad`` of its loss) wherever its fused kernel is not
+    eligible."""
+    loss_fn = make_loss_fn(model, cfg)
+
+    def loss_grad(params, batch, seeds, train: bool = True):
+        if batch["uid"].dim() != 1:
+            raise NotImplementedError(
+                "the autograd loss gradient takes one tower; its lane step (the "
+                "separate / finetune lanes of a loss K1 does not compute) comes with "
+                "(ROADMAP.md, open items §1: the rest of the zoo)")
+
+        def trains(name):
+            return _trainable(name, cfg.emb_trainable)
+
+        live = trees.named_tree_map(
+            lambda n, x: x.detach().requires_grad_(True) if trains(n) else x, params)
+        inputs = [x for n, x in trees.leaves_with_names(live) if trains(n)]
+        with torch.enable_grad():
+            loss, data_loss = loss_fn(live, batch, seeds if train else None)
+            got = iter(torch.autograd.grad(loss, inputs))
+        grads = trees.named_tree_map(lambda n, x: next(got) if trains(n) else None, live)
+        return data_loss.detach(), grads
+
+    return loss_grad
+
+
+def make_loss_grad(model, cfg: StepConfig):
+    """The loss gradient a train or accumulate step takes (the gate of the
+    JAX package's ``maybe_make_fast_loss_grad``, ops/fused_mlp_step.py:220-229):
+    the plain MLP without uncertainty weighting takes the fused kernel path
+    (``make_fast_loss_grad``: K2, then K1), anything else autograd
+    (``make_autograd_loss_grad``)."""
+    if type(model).__name__ == "MLP" and not cfg.uncertainty_weight:
+        return make_fast_loss_grad(model, cfg)
+    return make_autograd_loss_grad(model, cfg)
 
 
 def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = None,
@@ -86,11 +149,11 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
     batch columns [L, B], ``step`` and ``seed`` [L]): seeds, loss and
     gradient, the optimizer and the gate all broadcast over the lane axis,
     and the gate is taken per lane; the optimizer state keeps its own type
-    (flat Adam's slots, or SGD's empty state). ``loss_grad`` defaults to the fused kernel
-    path (make_fast_loss_grad); ``combine`` maps the carried params to the
+    (flat Adam's slots, or SGD's empty state). ``loss_grad`` defaults to
+    ``make_loss_grad``'s choice; ``combine`` maps the carried params to the
     tree the loss reads (make_subset_train_step)."""
     if loss_grad is None:
-        loss_grad = make_fast_loss_grad(model, cfg)
+        loss_grad = make_loss_grad(model, cfg)
     n_layers = len(model.hidden_dim)
 
     def train_step(state: TrainState, batch):
@@ -146,6 +209,32 @@ def make_subset_train_step(model, tx, cfg: StepConfig, frozen_mask, frozen_full,
     return make_train_step(model, tx, cfg, loss_grad, combine), to_sub, combine
 
 
+def make_accum_grad_fn(model, cfg: StepConfig, loss_grad: Optional[Callable] = None):
+    """grad_fn(params, batch) -> grads of the total loss at fixed params with
+    dropout off (JAX ``make_accum_grad_fn``, steps.py:239-262: the
+    reference's accumulate function runs at learning phase 0, maml.py:196-234).
+    ``grads`` has the structure of ``params`` with ``None`` at frozen tables.
+    ``loss_grad`` defaults to ``make_loss_grad``'s choice: for the plain MLP
+    kernel K2 and then K1 at dropout rate 0, which builds no mask and is
+    handed zero seeds (no seed is drawn); a check on the card passes a loss
+    gradient built on the plain versions."""
+    if loss_grad is None:
+        loss_grad = make_loss_grad(model, cfg)
+    n_layers = len(model.hidden_dim)
+    no_seeds = {}  # (device, batch shape) -> zero seeds, never read at rate 0
+
+    def grad_fn(params, batch):
+        w = batch["weight"]
+        key = (w.device, tuple(w.shape[:-1]))
+        seeds = no_seeds.get(key)
+        if seeds is None:
+            seeds = no_seeds[key] = torch.zeros((*w.shape[:-1], n_layers),
+                                                dtype=torch.int64, device=w.device)
+        return loss_grad(params, batch, seeds, train=False)[1]
+
+    return grad_fn
+
+
 def make_optimizer(name: str, learning_rate: float, params,
                    emb_trainable: bool = True, flat: bool = True):
     """Inner optimizer: flat Adam (TF1 AdamOptimizer defaults: b1=.9 b2=.999
@@ -161,8 +250,5 @@ def make_optimizer(name: str, learning_rate: float, params,
         raise NotImplementedError(
             "optimizer 'adam' with flat=False is not ported; flat Adam is the same function")
 
-    def trainable(name_: str, x) -> bool:
-        return emb_trainable or not ("user_emb" in name_ or "item_emb" in name_)
-
-    mask = trees.named_tree_map(trainable, params)
+    mask = trees.named_tree_map(lambda n, x: _trainable(n, emb_trainable), params)
     return flat_adam(learning_rate, mask) if name == "adam" else masked_sgd(learning_rate, mask)

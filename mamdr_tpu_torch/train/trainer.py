@@ -1,18 +1,21 @@
 """Trainer: model, optimizers, state, device-resident data and evaluation.
 
-Counterpart of ``mamdr_tpu/train/trainer.py`` for one device: construction,
-``train_block`` / ``steps_per_domain``, the per-domain evaluation with macro
-and example-weighted AUC (reference base_model.py:111-175) as one
-lane-batched eval over all domains, the strict-improvement early stop
-(base_model.py:202-224), the best-params checkpoint, the JSONL metrics and
-the run's result folder (``save_result``). Resume snapshots and TensorBoard
-are not ported yet (ROADMAP.md §1); a config that asks for them is refused.
+Counterpart of ``mamdr_tpu/train/trainer.py`` for one device: construction
+(with the uncertainty-weighted model's ``log_vars`` and the meta
+accumulators' ``accum_grad_fn``), ``train_block`` / ``steps_per_domain``,
+the per-domain evaluation with macro and example-weighted AUC (reference
+base_model.py:111-175) as one lane-batched eval over all domains, the
+strict-improvement early stop (base_model.py:202-224), the best-params
+checkpoint, the JSONL metrics and the run's result folder (``save_result``).
+Resume snapshots and TensorBoard are not ported yet (ROADMAP.md §1); a
+config that asks for them is refused.
 
 Randomness is explicit: ``np_rng`` (numpy, seeded by the dataset seed) makes
 the host-side draws the JAX package makes with numpy — domain order, aux
-domains — so both packages draw the same values; a CPU ``torch.Generator``
-seeds parameter init and the base dropout seeds (``draw_seed``); ``gen``, a
-generator on the run's device, makes the batch shuffles.
+domains, support/query splits — so both packages draw the same values; a CPU
+``torch.Generator`` seeds parameter init and the base dropout seeds
+(``draw_seed``); ``gen``, a generator on the run's device, makes the batch
+shuffles.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from mamdr_tpu_torch.train import checkpoints, fused
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import (
     StepConfig,
+    make_accum_grad_fn,
     make_loss_fn,
     make_optimizer,
     make_train_step,
@@ -108,12 +112,14 @@ class Trainer:
         self.model = self._build_model(init_gen)
         params = {"model": trees.tree_map(
             lambda p: p.to(self.device, copy=True), self.model.param_tree())}
+        params.update(self._uncertainty_params(self.device))
         dropout_seed = int(torch.randint(0, 2**32, (), generator=init_gen,
                                          dtype=torch.int64))
         self._seed_gen = init_gen  # later base seeds (draw_seed)
         self.gen = torch.Generator(device=self.device).manual_seed(dataset.seed)
 
-        self.step_cfg = StepConfig(l2_emb=1e-5, emb_trainable=tc.emb_trainable)
+        self.step_cfg = StepConfig(uncertainty_weight=config.spec.uncertainty_weight,
+                                   l2_emb=1e-5, emb_trainable=tc.emb_trainable)
         self.tx = make_optimizer(tc.optimizer, tc.learning_rate, params,
                                  tc.emb_trainable, flat=tc.flat_optimizer)
         self.state = TrainState.create(params, self.tx.init(params), dropout_seed,
@@ -126,6 +132,9 @@ class Trainer:
         self.finetune_tx = make_optimizer(tc.finetune_optimizer, tc.finetune_learning_rate,
                                           params, tc.emb_trainable)
         self.loss_fn = make_loss_fn(self.model, self.step_cfg)
+        # grads at fixed params for the meta accumulators (K1 at rate 0 where
+        # the gate allows, autograd otherwise)
+        self.accum_grad_fn = make_accum_grad_fn(self.model, self.step_cfg)
         self._eval_blocks: Dict[str, Dict[str, torch.Tensor]] = {}
         self._eval_fn: Optional[Callable] = None
         self.stopper = EarlyStopper(tc.patience)
@@ -154,7 +163,16 @@ class Trainer:
         per-domain specific init re-runs the initialisers per domain
         (reference mamdr.py:30-33)."""
         model = self._build_model(torch.Generator().manual_seed(seed))
-        return {"model": model.param_tree()}
+        return {"model": model.param_tree(), **self._uncertainty_params("cpu")}
+
+    def _uncertainty_params(self, device):
+        """{'uncertainty': {'log_vars': ones [n_domain, 1]}} when the model name
+        asks for uncertainty weighting (the WeightedLoss init of
+        weighted_loss.py:15-27), else {}. The model's optimizer trains it."""
+        if not self.config.spec.uncertainty_weight:
+            return {}
+        return {"uncertainty": {"log_vars": torch.ones(
+            (self.dataset.n_domain, 1), dtype=torch.float32, device=device)}}
 
     def train_block(self):
         """Device-resident ({col: [D, N_pad]}, n_steps) train block."""
@@ -168,6 +186,8 @@ class Trainer:
         return fused.domain_step_counts(self.dataset.train, self.dataset.batch_size)
 
     def train_step_fn(self):
+        """The model's train step; its loss gradient is ``steps.make_loss_grad``'s
+        choice (K1 for the plain MLP, autograd under uncertainty weighting)."""
         return make_train_step(self.model, self.tx, self.step_cfg)
 
     def draw_seed(self) -> int:

@@ -7,7 +7,10 @@ items, frozen pretrained 128-d user/item tables drawn N(0, 0.1) from
 with dropout 0.5, batch 1024, flat Adam at lr 1e-3, meta lr 0.1, one epoch,
 then the finetune stage (SGD at lr 1e-3). The same data and tables serve
 the other MLP strategies of the corpus (``BENCH_MODELS``: joint, separate,
-finetune, Domain Negotiation, Reptile), and ``write_domain_tree`` writes
+finetune, Domain Negotiation, Reptile, MAML, MLDG, PCGrad and uncertainty
+weighting), each with the corpus's Taobao-30 train-block values for its
+name (``benchmarks._train_block``: learning rates, meta split and ratio,
+sample_num) at ``epoch`` 1, and ``write_domain_tree`` writes
 them in the reference's on-disk layout, which ``MultiDomainDataset.from_disk``
 and the CLI (``python -m mamdr_tpu_torch.run``) read. Used by
 chip_smoke.py and kernel_profile.py.
@@ -23,6 +26,7 @@ from typing import Optional
 
 import numpy as np
 
+from mamdr_tpu_torch.benchmarks import BENCHMARK_DATASETS, _train_block
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.dataset import MultiDomainDataset
 from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -34,12 +38,17 @@ BENCH = dict(n_domain=30, n_uid=100_000, n_pid=100_000, n_per_domain=20_000,
 # The MLP model names of the corpus (benchmarks.MODEL_VARIANTS) that the port runs.
 BENCH_MODELS = ("mlp", "mlp_separate", "mlp_finetune",
                 "mlp_meta_domain_negotiation_finetune", "mlp_meta_reptile_finetune",
-                "mlp_meta_mamdr_finetune")
+                "mlp_meta_mamdr_finetune", "mlp_meta_maml_finetune",
+                "mlp_meta_mldg_finetune", "mlp_pcgrad", "mlp_uncertainty_weight")
+# The corpus's per-name train values a bench trainer takes (Taobao_30).
+CORPUS_KEYS = ("learning_rate", "meta_learning_rate", "meta_split", "meta_split_ratio",
+               "sample_num")
 
 
 def bench_config(dr_parallel: str = "auto", checkpoint_path: str = "checkpoint",
                  model: str = "mlp_meta_mamdr_finetune") -> ExperimentConfig:
-    return ExperimentConfig.from_dict({
+    corpus = _train_block(BENCHMARK_DATASETS["Taobao_30"], model)
+    cfg = {
         "model": {"name": model, "user_dim": 128, "item_dim": 128,
                   "domain_dim": 128, "hidden_dim": [256, 128, 64], "dropout": 0.5},
         "train": {"load_pretrain_emb": True, "emb_trainable": False,
@@ -48,7 +57,9 @@ def bench_config(dr_parallel: str = "auto", checkpoint_path: str = "checkpoint",
                   "shuffle_sequence": True, "epoch": 1,
                   "dr_parallel": dr_parallel, "checkpoint_path": checkpoint_path},
         "dataset": {"name": "synthetic", "batch_size": BENCH["batch_size"], "seed": 123},
-    })
+    }
+    cfg["train"].update({k: corpus[k] for k in CORPUS_KEYS if k in corpus})
+    return ExperimentConfig.from_dict(cfg)
 
 
 def bench_dataset() -> MultiDomainDataset:

@@ -233,9 +233,8 @@ CLI_REFUSED = [
     (["--benchmark", "Taobao-10/mlp_meta_mamdr_finetune", "--resume"], "resume state"),
     (["--benchmark", "Taobao-10/deepfm"], "the rest of the zoo"),
     (["--benchmark", "Taobao-10/star_meta_mamdr_finetune"], "the rest of the zoo"),
-    (["--benchmark", "Taobao-10/mlp_meta_maml_finetune"],
-     "MAML, MLDG, PCGrad and uncertainty weighting"),
-    (["--benchmark", "Taobao-10/mlp_pcgrad"], "MAML, MLDG, PCGrad and uncertainty weighting"),
+    (["--benchmark", "Taobao-10/mmoe"], "the rest of the zoo"),
+    (["--benchmark", "Taobao-10/star"], "the rest of the zoo"),
 ]
 
 

@@ -650,7 +650,7 @@ def test_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path):
         assert abs(card[3][k] - cpu[3][k]) <= 1e-3
 
 
-def _small_run(name, tmp_path, device=None):
+def _small_run(name, tmp_path, device=None, **train):
     """run() of `name` on 3 small domains (one batch a domain, dropout off),
     3 epochs; returns (result, strategy)."""
     from mamdr_tpu_torch.strategies.base import build_strategy
@@ -660,7 +660,7 @@ def _small_run(name, tmp_path, device=None):
                   "hidden_dim": [32, 16], "dropout": 0.0},
         "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
                   "patience": 2, "learning_rate": 1e-2, "meta_learning_rate": 0.1,
-                  "checkpoint_path": str(tmp_path)},
+                  "checkpoint_path": str(tmp_path), **train},
         "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21},
     })
     ds = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100, seed=21,
@@ -690,6 +690,39 @@ def test_strategy_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path, n
         assert fused_tower_grad.launches > 0
     assert gather_fields.launches > 0
     cpu, _ = _small_run(name, tmp_path / "cpu", "cpu")
+    for k, v in cpu[2].items():
+        assert abs(card[2][k] - v) <= 1e-3 * abs(v)
+        assert abs(card[3][k] - cpu[3][k]) <= 1e-3
+
+
+META_RUNS = [  # the corpus's meta split for MAML and MLDG
+    ("mlp_meta_maml_finetune", {"meta_split": "meta-train/val", "meta_split_ratio": 0.2}),
+    ("mlp_meta_mldg_finetune", {"meta_split": "meta-train/val", "meta_split_ratio": 0.8}),
+    ("mlp_pcgrad", {"sample_num": 2}),
+    ("mlp_uncertainty_weight", {}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,train", META_RUNS)
+def test_meta_strategy_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path, name,
+                                                             train):
+    """MAML, MLDG, PCGrad and uncertainty weighting: a whole run() through
+    the kernels (K1 at rate 0 on the accumulate steps; uncertainty weighting
+    through autograd, K2 only) against the same run() through the plain
+    versions on the CPU. Test loss within 1e-3 relative, AUC within 1e-3."""
+    train = {"meta_learning_rate": 1e-2, **train}
+    fused_tower_grad.launches = fused_tower_grad_lanes.launches = gather_fields.launches = 0
+    card, strat = _small_run(name, tmp_path / "card", **train)
+    if name == "mlp_uncertainty_weight":
+        assert fused_tower_grad.launches == 0
+        assert not torch.equal(strat.trainer.state.params["uncertainty"]["log_vars"],
+                               torch.ones_like(strat.trainer.state.params["uncertainty"]
+                                               ["log_vars"]))
+    else:
+        assert fused_tower_grad.launches > 0
+    assert gather_fields.launches > 0
+    cpu, _ = _small_run(name, tmp_path / "cpu", "cpu", **train)
     for k, v in cpu[2].items():
         assert abs(card[2][k] - v) <= 1e-3 * abs(v)
         assert abs(card[3][k] - cpu[3][k]) <= 1e-3

@@ -106,12 +106,12 @@ REFUSED = [
     ({"train": {"resume": True}}, "resume state", "trainer"),
     ({"train": {"resume_every": 2}}, "resume state", "trainer"),
     ({"train": {"dr_lane_chunk": 2}}, "dr_lane_chunk", "prepare"),
-    ({"model": "mlp_meta_maml"}, "MAML, MLDG, PCGrad and uncertainty weighting", "strategy"),
-    ({"model": "mlp_pcgrad"}, "MAML, MLDG, PCGrad and uncertainty weighting", "strategy"),
-    ({"model": "mlp_uncertainty_weight"}, "MAML, MLDG, PCGrad and uncertainty weighting",
-     "strategy"),
-    ({"model": "mlp_meta_mldg_finetune"}, "MAML, MLDG, PCGrad and uncertainty weighting",
-     "strategy"),
+    ({"model": "mlp_meta_maml", "train": {"average_meta_grad": "drop"}}, "_train_loop",
+     "train"),
+    ({"model": "mlp_pcgrad", "train": {"target_domain": 1}}, "_train_loop", "train"),
+    ({"model": "mlp_uncertainty_weight_finetune"}, "the rest of the zoo", "strategy"),
+    ({"model": "mlp_meta_mldg_finetune", "train": {"target_domain": 0}}, "_train_loop",
+     "train"),
     ({"model": "mlp_meta_domain_negotiation_finetune", "train": {"target_domain": 1}},
      "_train_loop", "train"),
     ({"model": "mlp_meta_reptile_finetune", "train": {"target_domain": 0}}, "_train_loop",
