@@ -78,6 +78,18 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      each timed with its train epoch, weights moved, meta moved on masked
      leaves only, frozen tables the same tensors, log_vars moved; and a small
      run() of each on the card against the same run() on the CPU;
+  5f. the rest of the zoo without batch statistics (WDL, DeepFM, NFM,
+     AutoInt, CCPM, PNN, SharedBottom, MMoE, PLE at the corpus's Taobao_30
+     model blocks): one autograd lane step of each at 30 lanes x 1024 ids
+     (every lane its own weights, the domain table lane-stacked) through K2
+     against the same step through K2's plain version; run() of each joint
+     name and of deepfm_meta_mamdr_finetune and mmoe_meta_mamdr_finetune at
+     bench shapes on the loaded data with their launch counts asserted (K1
+     none: every step is autograd, K2 a step and an eval lane-step), each
+     timed with its train epoch, weights moved, frozen tables (the linear
+     ones too) the same tensors, MAMDR's DR as lanes with every domain's
+     specific moved; and a small run() of each on the card against the
+     same run() on the CPU;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -768,12 +780,19 @@ def main() -> int:
 
     def zero_counts():
         fused_tower_grad.launches = fused_tower_grad_lanes.launches = 0
-        gather_fields.launches = 0
+        gather_fields.launches = gather_fields.lane_launches = 0
         torch.cuda.synchronize()
 
     def counts():
         torch.cuda.synchronize()
         return fused_tower_grad.launches, fused_tower_grad_lanes.launches, gather_fields.launches
+
+    def k2_split():
+        """K2's launches since zero_counts(), as its wrapper counted them: (with
+        ids [B], the one-tower steps; with ids [L, B], the lane-steps and evals)."""
+        torch.cuda.synchronize()
+        return (gather_fields.launches - gather_fields.lane_launches,
+                gather_fields.lane_launches)
 
     def checked(res, mode, what):
         """(macro AUC, weighted AUC) of a result; every domain's AUC finite
@@ -1118,7 +1137,11 @@ def main() -> int:
             got = counts()
             if got != want:
                 fail(f"{name}: run() launched (K1, K1-lanes, K2) {got}, expected {want}")
-            new_counts[name] = got
+            split = k2_split()
+            if split != (want[0], want[2] - want[0]):
+                fail(f"{name}: K2 launched {split} times with ids [B] and [L, B], expected "
+                     f"{(want[0], want[2] - want[0])}")
+            new_counts[name] = (*got, *split)
             auc, wauc, loss = checked(res, "test", f"{name} run()")
             start = params0["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
             if name == "mlp_separate" or strat.spec.finetune:
@@ -1242,7 +1265,7 @@ def main() -> int:
     fused.make_fused_maml = timed(originals["make_fused_maml"])
     fused.make_fused_pcgrad = timed(originals["make_fused_pcgrad"])
     fused.make_fused_separate = timed(originals["make_fused_separate"], 0)
-    meta_counts = {}  # name -> (K1, K1-lanes, K2, K2 at the step's 1024 ids)
+    meta_counts = {}  # name -> (K1, K1-lanes, K2, K2 with ids [B], K2 with ids [L, B])
     try:
         for name in ("mlp_meta_maml_finetune", "mlp_meta_mldg_finetune", "mlp_pcgrad",
                      "mlp_uncertainty_weight"):
@@ -1281,7 +1304,11 @@ def main() -> int:
             got = counts()
             if got != want:
                 fail(f"{name}: run() launched (K1, K1-lanes, K2) {got}, expected {want}")
-            meta_counts[name] = (*got, k2_steps)
+            split = k2_split()
+            if split != (k2_steps, want[2] - k2_steps):
+                fail(f"{name}: K2 launched {split} times with ids [B] and [L, B], expected "
+                     f"{(k2_steps, want[2] - k2_steps)}")
+            meta_counts[name] = (*got, *split)
             auc, wauc, loss = checked(res, "test", f"{name} run()")
             best = trainer.best_params
             start = params0["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
@@ -1351,6 +1378,190 @@ def main() -> int:
 
     for name in meta_counts:
         on_card, on_cpu = small_meta_run(name, None), small_meta_run(name, "cpu")
+        loss_rel = max(abs(on_card[2][k] - v) / abs(v) for k, v in on_cpu[2].items())
+        auc_abs = max(abs(on_card[3][k] - v) for k, v in on_cpu[3].items())
+        if not (loss_rel <= 1e-3 and auc_abs <= 1e-3):
+            fail(f"small {name} run() on the card vs the CPU: test losses {on_card[2]} vs "
+                 f"{on_cpu[2]}, AUCs {on_card[3]} vs {on_cpu[3]}")
+        print(f"small {name} run() (3 domains, 3 epochs) on the card vs the CPU's plain "
+              f"versions: test loss within {loss_rel:.2e} (tol 1e-3 relative), AUC within "
+              f"{auc_abs:.2e} (tol 1e-3)")
+
+    # ---- 5f. the rest of the zoo: nine base models and MAMDR on two of them ----
+    # One autograd lane step of each of the nine at the DR lane-step's shape
+    # (30 lanes x 1024 ids, every lane its own weights and domain, the domain
+    # table lane-stacked) through K2 against the same step through K2's plain
+    # version; then each joint name's run() and MAMDR's on DeepFM and MMoE at
+    # bench shapes on the loaded data (the corpus's Taobao_30 model block and
+    # train values per name, epoch 1), every path driven with the launch
+    # counts at 0 just before it and read just after; and a small run() of
+    # each on the card against the CPU.
+    from mamdr_tpu_torch.train.steps import make_autograd_loss_grad
+    from mamdr_tpu_torch.workload import ZOO_MAMDR_MODELS, ZOO_MODELS
+
+    zoo_lane = {}  # name -> the lane step's largest difference, K2 vs its plain version
+    for name in ZOO_MODELS:
+        trainer = build_bench_trainer(name, checkpoint_path=os.path.join(work, "lane_" + name),
+                                      dataset=disk)
+        model, cfg_ = trainer.model, trainer.step_cfg
+        frozen = trees.named_tree_map(lambda n, x: "user_emb" in n or "item_emb" in n,
+                                      trainer.state.params)
+        params = trees.tree_map(  # lane l: every trainable leaf scaled by 1 + l / 100
+            lambda f, x: x if f else torch.stack([x * (1.0 + 0.01 * l) for l in range(lanes)]),
+            frozen, trainer.state.params)
+        lane_cols = {k: v[:, :batch].contiguous() for k, v in trainer.train_block()[0].items()}
+        seeds_ = torch.randint(0, 2**32, (lanes, model.n_dropout_sites), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(7))
+        k2_before = gather_fields.launches
+        data_k, g_k = make_autograd_loss_grad(model, cfg_)(params, lane_cols, seeds_)
+        if gather_fields.launches != k2_before + 1:
+            fail(f"{name}: the autograd lane step launched K2 "
+                 f"{gather_fields.launches - k2_before}x, expected once")
+        data_p, g_p = make_autograd_loss_grad(model, cfg_, gather=gather_fields_reference)(
+            params, lane_cols, seeds_)
+        names_g = [n for n, g in trees.leaves_with_names(g_k) if g is not None]
+        if [n for n, g in trees.leaves_with_names(g_k) if g is None] != [
+                n for n, f in trees.leaves_with_names(frozen) if f]:
+            fail(f"{name}: the lane step's gradients are None off the frozen tables")
+        got_ = [data_k] + [g for g in trees.leaves(g_k) if g is not None]
+        want_ = [data_p] + [g for g in trees.leaves(g_p) if g is not None]
+        if not all(bool(torch.isfinite(g).all()) for g in got_):
+            fail(f"{name}: the lane step's losses or gradients are not finite")
+        _, lane_rel = worst_errors(got_, want_)
+        dom_g = g_k["model"]["embedding"]["domain_emb"]
+        own = torch.arange(lanes, device=dev)  # lane l's batch is domain l's
+        if (dom_g.shape != (lanes, n_domain, 128)
+                or not bool(dom_g[own, own].abs().sum(-1).gt(0).all())):
+            fail(f"{name}: the domain table's lane gradient has shape {tuple(dom_g.shape)} "
+                 "or no lane's own row moved")
+        if not lane_rel <= K1_REL_TOL:
+            fail(f"{name}: the autograd lane step through K2 and through its plain version "
+                 f"differ by {lane_rel} of a tensor's max")
+        zoo_lane[name] = lane_rel
+        print(f"{name}: one autograd lane step ({lanes} lanes x {batch} ids, every lane its "
+              f"own weights, dropout {model.dropout}), K2 vs its plain version: "
+              f"{len(names_g)} gradients (the [{lanes}, {n_domain}, 128] domain table's among "
+              f"them) and {lanes} losses within {lane_rel:.2e} of the tensor's max (tol "
+              f"{K1_REL_TOL}); frozen tables without a gradient")
+        del trainer, model, params, g_k, g_p, got_, want_, dom_g
+        torch.cuda.empty_cache()
+
+    originals = {k: getattr(fused, k) for k in ("make_fused_passes", "make_fused_separate")}
+    fused.make_fused_passes = timed(originals["make_fused_passes"])
+    fused.make_fused_separate = timed(originals["make_fused_separate"], 0)
+    zoo_counts = {}  # name -> (K1, K1-lanes, K2, K2 with ids [B], K2 with ids [L, B])
+    try:
+        for name in ZOO_MODELS + ZOO_MAMDR_MODELS:
+            trainer = build_bench_trainer(name, checkpoint_path=os.path.join(work, name),
+                                          dataset=disk)
+            strat = build_strategy(trainer)
+            tc_ = trainer.config.train
+            params0 = trainer.state.params
+            spd_ = trainer.steps_per_domain()
+            ev = max(trainer.eval_steps_per_domain("val"))
+            te = max(trainer.eval_steps_per_domain("test"))
+            ln = max(spd_)
+            ft = strat.spec.finetune
+            mamdr = isinstance(strat, MAMDRStrategy)
+            k2_steps = sum(spd_)  # one field gather a step
+            dr_steps = 0
+            if mamdr:  # K support runs, each a support epoch and a query epoch of lanes
+                k = min(tc_.sample_num, n_domain - 1) + int(tc_.add_query_domain)
+                dr_steps = k * 2 * ln
+                spec0 = list(strat.specific)
+                run_epoch = strat.run_fused_epoch
+
+                def timed_epoch():
+                    torch.cuda.synchronize()
+                    t0_ = time.perf_counter()
+                    r = run_epoch()
+                    torch.cuda.synchronize()
+                    epoch_s_of.append(time.perf_counter() - t0_)
+                    return r
+
+                strat.run_fused_epoch = timed_epoch
+            want = (0, 0, k2_steps + dr_steps + ev + te + ((ln + ev + te) if ft else 0))
+            epoch_s_of.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = strat.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            got = counts()
+            if got != want:
+                fail(f"{name}: run() launched (K1, K1-lanes, K2) {got}, expected {want}")
+            split = k2_split()
+            if split != (k2_steps, want[2] - k2_steps):
+                fail(f"{name}: K2 launched {split} times with ids [B] and [L, B], expected "
+                     f"{(k2_steps, want[2] - k2_steps)}")
+            zoo_counts[name] = (*got, *split)
+            auc, wauc, loss = checked(res, "test", f"{name} run()")
+            best = trainer.best_params
+            moved_ = [n for (n, x), x0 in zip(trees.leaves_with_names(best),
+                                               trees.leaves(params0))
+                      if not torch.equal(x, x0)]
+            tower_moved = [n for n in moved_ if "emb" not in n]
+            if "model/embedding/domain_emb" not in moved_ or not tower_moved:
+                fail(f"{name}: the trained weights did not move ({moved_})")
+            if not all(bool(torch.isfinite(x).all()) for x in trees.leaves(best)):
+                fail(f"{name}: the trained weights are not finite")
+            for tree, what in [(best, "best params")] + ([] if ft else [(trainer.state.params,
+                                                                         "params")]):
+                for (n, x), x0 in zip(trees.leaves_with_names(tree), trees.leaves(params0)):
+                    if ("user_emb" in n or "item_emb" in n) and x is not x0:
+                        fail(f"{name}: {what}' frozen table {n} is not the same tensor")
+            note = ""
+            if mamdr:
+                if not strat.dr_lanes:
+                    fail(f"{name}: the DR phase did not take the lanes")
+                for d in range(n_domain):
+                    leaves_d = [(a, b) for m, a, b in zip(trees.leaves(strat.mask),
+                                                          trees.leaves(strat.specific[d]),
+                                                          trees.leaves(spec0[d])) if m]
+                    if (not any(not torch.equal(a, b) for a, b in leaves_d)
+                            or not all(bool(torch.isfinite(a).all()) for a, _ in leaves_d)):
+                        fail(f"{name}: specific[{d}] did not move or is not finite")
+                note = (f"; DR as {n_domain} lanes ({dr_steps} autograd lane-steps), every "
+                        f"domain's specific moved and finite")
+            if len(epoch_s_of) != 1 + ft:
+                fail(f"{name}: {len(epoch_s_of)} epochs timed, expected {1 + ft}")
+            ep_s = epoch_s_of[0]
+            rows = epoch_examples if mamdr else disk_train
+            ft_note = f"; its finetune epoch {epoch_s_of[1]:.3f} s" if ft else ""
+            print(f"{name} run() at bench shapes on the loaded data (an epoch, validation, "
+                  f"best checkpoint, test{', finetune' if ft else ''}; lr {tc_.learning_rate}, "
+                  f"hidden {list(trainer.config.model.hidden_dim)}, dropout "
+                  f"{trainer.model.dropout}): {run_s:.3f} s; its train epoch {ep_s:.3f} s, "
+                  f"{rows} examples, {rows / ep_s:.0f} examples/s{ft_note}; launches (K1, "
+                  f"K1-lanes, K2) {got}; test macro AUC {auc:.6f}, weighted {wauc:.6f}, loss "
+                  f"{loss:.6f}; weights moved, frozen tables (the linear ones too) the same "
+                  f"tensors{note}; {card}")
+            del trainer, strat, params0, best
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in originals.items():
+            setattr(fused, k, v)
+
+    def small_zoo_run(name, device):
+        cfg = ExperimentConfig.from_dict({
+            "model": {"name": name, "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                      "hidden_dim": [16, 8], "dropout": 0.0, "tower_hidden_dim": [8],
+                      "num_experts": 3, "gate_dnn_hidden_units": [8],
+                      "specific_expert_num": 2, "shared_expert_num": 1, "num_levels": 1},
+            "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                      "patience": 2, "learning_rate": 1e-2, "meta_learning_rate": 0.1,
+                      "sample_num": 2,
+                      "checkpoint_path": os.path.join(work, "small_zoo", str(device))},
+            "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21}})
+        small = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100,
+                                       seed=21, long_tail=True, batch_size=64)
+        r = np.random.default_rng(0)
+        small.user_emb = r.normal(0, 0.1, (50, 8)).astype(np.float32)
+        small.item_emb = r.normal(0, 0.1, (60, 8)).astype(np.float32)
+        return build_strategy(Trainer(cfg, small, device=device, verbose=False)).run()
+
+    for name in zoo_counts:
+        on_card, on_cpu = small_zoo_run(name, None), small_zoo_run(name, "cpu")
         loss_rel = max(abs(on_card[2][k] - v) / abs(v) for k, v in on_cpu[2].items())
         auc_abs = max(abs(on_card[3][k] - v) for k, v in on_cpu[3].items())
         if not (loss_rel <= 1e-3 and auc_abs <= 1e-3):
@@ -1436,13 +1647,13 @@ def main() -> int:
         {"name": f"gather_fields (3 fields x {batch} ids, joint, DN and Reptile steps)",
          "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
-         "launches": sum(c[0] for c in new_counts.values()), "max_abs_err": k2_err,
+         "launches": sum(c[3] for c in new_counts.values()), "max_abs_err": k2_err,
          "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": dn_t["library"]},
         {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5d's lanes and evals)",
          "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
-         "launches": sum(c[2] - c[0] for c in new_counts.values()), "max_abs_err": k2l_err,
+         "launches": sum(c[4] for c in new_counts.values()), "max_abs_err": k2l_err,
          "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
          "bound_by": "bytes", "library_ms": dr_t["library"]},
         # 5e's runs (MAML, MLDG, PCGrad, uncertainty weighting at bench
@@ -1472,7 +1683,27 @@ def main() -> int:
         {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5e's lanes and evals)",
          "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
-         "launches": sum(c[2] - c[3] for c in meta_counts.values()), "max_abs_err": k2l_err,
+         "launches": sum(c[4] for c in meta_counts.values()), "max_abs_err": k2l_err,
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
+        # 5f's runs (the zoo's joint names, MAMDR on DeepFM and MMoE): K2 at
+        # the step's shapes on every autograd step (forward; its autograd
+        # rule's backward is an index_add_), at the lane-step's shapes on
+        # every autograd lane-step of DR and the finetune and in the evals;
+        # no K1. max_abs_err: K2 exact against its plain version (4, 4a);
+        # the autograd lane step through K2 held to it in 5f
+        {"name": f"gather_fields (3 fields x {batch} ids, 5f's autograd steps)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[3] for c in zoo_counts.values()), "max_abs_err": k2_err,
+         "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": dn_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5f's autograd lane-steps "
+                 "and evals)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[4] for c in zoo_counts.values()), "max_abs_err": k2l_err,
+         "autograd_lane_step_rel_err": max(zoo_lane.values()),
          "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
          "bound_by": "bytes", "library_ms": dr_t["library"]},
         # K3's path is the gather probe, which runs it at both sizes: each

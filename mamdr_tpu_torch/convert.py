@@ -2,9 +2,11 @@
 
 The port's parameter trees are nested dicts with the flax paths
 (``model/dnn/Dense_0/Dense_0/kernel``) and the flax layouts (kernels
-``[in, out]``, biases ``[out]``), so conversion is a leaf-wise copy with no
-renaming or transposing (the uncertainty-weighted model's
-``uncertainty/log_vars`` included). Inputs are nested dicts of numpy arrays (e.g.
+``[in, out]``, biases ``[out]``, MTL kernels ``[T, in, out]`` /
+``[T, t, in, out]``, CCPM's conv kernels HWIO ``[W, 1, in, out]``), so
+conversion is a leaf-wise copy with no renaming or transposing, for every
+base model (the uncertainty-weighted model's ``uncertainty/log_vars``
+included). Inputs are nested dicts of numpy arrays (e.g.
 ``jax.device_get`` of a flax tree); this module imports no JAX.
 """
 

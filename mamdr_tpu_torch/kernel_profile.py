@@ -32,7 +32,15 @@ On one CUDA card, from the repository root. Prints
      optimizer), and the uncertainty-weighted train step (autograd through
      the model, K2 in its forward, flat Adam): per step the wall time,
      device busy time, idle share, CUDA launches and the kernels that take
-     the most device time (printed after part 5).
+     the most device time (printed after part 5);
+  7. the zoo without the fused tower kernel: for DeepFM, AutoInt and PLE at
+     bench shapes (the corpus's Taobao_30 model blocks, dropout 0.5), one
+     joint autograd train step (K2 in the forward, its autograd rule's
+     scatter-add, flat Adam; domain 0's 12 steps) and one DR autograd
+     lane-step (30 query-domain lanes through ``apply_lanes``, every
+     trainable leaf lane-stacked; 12 lane-steps): per step the wall time,
+     device busy time, idle share, CUDA launches and the kernels and host
+     ops that take the most time (printed after part 6).
 
 Every line names the card and its power limit.
 """
@@ -229,6 +237,39 @@ def main() -> int:
                                            real_steps=unc.steps_per_domain()[0]),
               unc.steps_per_domain()[0], unit="step", host_top=12)
     del unc, unc_step, flat0
+
+    # ---- 7. the zoo: a joint autograd step and a DR autograd lane-step ----
+    from mamdr_tpu_torch.train.steps import make_subset_train_step
+    from mamdr_tpu_torch.utils import trees
+
+    for name in ("deepfm", "autoint", "ple"):
+        zt = build_bench_trainer(name, checkpoint_path=ckpt, dataset=trainer.dataset)
+        zblock, zn = zt.train_block()
+        zflat0 = {k: v[0] for k, v in zblock.items()}
+        zstep = zt.train_step_fn()
+        breakdown(f"{name} joint train step (autograd, K2, flat Adam)",
+                  lambda: fused._epoch_on_flat(zstep, zt.state, zflat0, zt.gen, zn,
+                                               zt.dataset.batch_size,
+                                               real_steps=zt.steps_per_domain()[0]),
+                  zt.steps_per_domain()[0], unit="step", host_top=8)
+        frozen = trees.named_tree_map(lambda n, x: "user_emb" in n or "item_emb" in n,
+                                      zt.state.params)
+        mask = trees.tree_map(lambda x: True, zt.state.params)  # meta_parms "all"
+        sub_step, to_sub, _ = make_subset_train_step(zt.model, zt.tx, zt.step_cfg, frozen,
+                                                     zt.state.params)
+        n_lanes = zt.dataset.n_domain
+        lane_state = fused.make_lane_state(zt.state, to_sub(zt.state.params), mask, n_lanes)
+        # the DR phase loads each lane's merged weights over the masked
+        # leaves' broadcast views first; here every lane gets its own copy
+        lane_state = lane_state.replace(params=trees.tree_map(
+            lambda x: x.contiguous(), lane_state.params))
+        breakdown(f"{name} DR lane-step ({n_lanes} lanes, autograd through apply_lanes)",
+                  lambda: fused._epoch_on_flat(sub_step, lane_state, zblock, zt.gen, zn,
+                                               zt.dataset.batch_size,
+                                               real_steps=max(zt.steps_per_domain())),
+                  max(zt.steps_per_domain()), host_top=8)
+        del zt, zblock, zflat0, zstep, sub_step, lane_state
+        torch.cuda.empty_cache()
 
     # ---- 4. the same DR phase, sequential ----
     del trainer, strat

@@ -1,10 +1,17 @@
-"""Sparse-feature embedding block: uid / pid / domain tables.
+"""Sparse-feature embedding blocks: uid / pid / domain tables.
 
-Counterpart of ``mamdr_tpu/models/embeddings.py::EmbeddingBlock``: three
+Counterpart of ``mamdr_tpu/models/embeddings.py``: ``EmbeddingBlock``, three
 tables, the user and item ones optionally pretrained (reference
-model_zoo/DeepCTR/deepctr.py:95-116). Freezing is not done here; the
-optimizer skips frozen tables (train/steps.py::make_optimizer). Paths all
-contain "emb" so the reference's meta_parms filters work unchanged.
+model_zoo/DeepCTR/deepctr.py:95-116), gathered by one field gather (kernel
+K2 on the card); ``LinearEmbeddingBlock``, the dim-1 tables of the wide
+term, ``linear_{user,item,domain}_emb`` [N, 1], gathered by plain indexing
+(``table_rows``: K2 takes widths that are multiples of 4, and the JAX
+package gathers these with ``jnp.take``, not a Pallas kernel); and
+``stack_fields``, the [B, 3, D] field stack as a view of the gather's one
+output. Freezing is not done here; the optimizer skips frozen tables
+(train/steps.py::make_optimizer) — every table whose path holds "user_emb"
+or "item_emb", the linear ones too, as in the JAX package. Paths all contain
+"emb" so the reference's meta_parms filters work unchanged.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch
 from torch import nn
 
 from mamdr_tpu_torch.models.layers import emb_init
-from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
+from mamdr_tpu_torch.ops.embedding_lookup import table_rows
 
 
 def _table(pretrained: Optional[np.ndarray], shape, generator) -> nn.Parameter:
@@ -29,9 +36,10 @@ def _table(pretrained: Optional[np.ndarray], shape, generator) -> nn.Parameter:
 
 
 class EmbeddingBlock(nn.Module):
-    """Field embeddings -> x [B, user_dim + item_dim + domain_dim], the
-    concatenated (u, p, d) rows, by one field gather (kernel K2 on the card,
-    differentiable in the tables)."""
+    """The three field tables; a model gathers them into x [B, user_dim +
+    item_dim + domain_dim], the concatenated (u, p, d) rows, by one field
+    gather (kernel K2 on the card, differentiable in the tables;
+    ``ZooModel.gather_inputs``)."""
 
     def __init__(self, n_uid: int, n_pid: int, n_domain: int,
                  user_dim: int, item_dim: int, domain_dim: int,
@@ -43,6 +51,36 @@ class EmbeddingBlock(nn.Module):
         self.item_emb = _table(pretrained_item, (n_pid, item_dim), generator)
         self.domain_emb = _table(None, (n_domain, domain_dim), generator)
 
-    def forward(self, uid, pid, domain):
-        return gather_fields((self.user_emb, self.item_emb, self.domain_emb),
-                             (uid, pid, domain))[0]
+
+class LinearEmbeddingBlock(nn.Module):
+    """Dim-1 tables for the linear ("wide") term of WDL / DeepFM / NFM /
+    AutoInt / CCPM: ``linear_{user,item,domain}_emb`` [N, 1], drawn N(0,
+    1e-4) as the JAX package draws them; ``linear_logit`` reads them."""
+
+    def __init__(self, n_uid: int, n_pid: int, n_domain: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.linear_user_emb = _table(None, (n_uid, 1), generator)
+        self.linear_item_emb = _table(None, (n_pid, 1), generator)
+        self.linear_domain_emb = _table(None, (n_domain, 1), generator)
+
+
+def linear_logit(tables, uid, pid, domain) -> torch.Tensor:
+    """The wide term: the three dim-1 rows summed in the JAX package's order
+    -> [*ids.shape]. ``tables`` holds the ``linear_*_emb`` leaves, each
+    [N, 1] (one tower, or read by every lane) or [L, N, 1] (a lane's own;
+    ids [L, B])."""
+    out = (table_rows(tables["linear_user_emb"], uid)[0]
+           + table_rows(tables["linear_item_emb"], pid)[0]
+           + table_rows(tables["linear_domain_emb"], domain)[0])
+    return out[..., 0]
+
+
+def stack_fields(x: torch.Tensor, dims) -> torch.Tensor:
+    """The field stack [..., 3, D] as a view of the gather's output x
+    [..., 3 * D]; the fields must have one width (true of every shipped
+    config)."""
+    if len(set(dims)) != 1:
+        raise ValueError("field-interaction models require user_dim == item_dim == "
+                         f"domain_dim, got {tuple(dims)}")
+    return x.unflatten(-1, (len(dims), dims[0]))

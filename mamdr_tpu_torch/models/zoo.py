@@ -1,7 +1,9 @@
 """Model factory: config -> torch module (substring dispatch like run.py:37-47).
 
-Only the MLP tower is ported so far; other base models raise, naming
-their ROADMAP item.
+Counterpart of ``mamdr_tpu/models/zoo.py``: the single-tower models of
+``models/deepctr.py`` and the MTL models of ``models/mtl.py``. STAR and a
+``compute_dtype`` other than float32 are not ported and raise, naming their
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -12,7 +14,19 @@ import numpy as np
 import torch
 
 from mamdr_tpu_torch.config import ExperimentConfig
-from mamdr_tpu_torch.models.deepctr import MLP
+from mamdr_tpu_torch.models import deepctr
+from mamdr_tpu_torch.models.mtl import MMoE, PLE, SharedBottom
+
+_DEEPCTR = {
+    "mlp": deepctr.MLP,
+    "wdl": deepctr.WDL,
+    "nfm": deepctr.NFM,
+    "autoint": deepctr.AutoInt,
+    "ccpm": deepctr.CCPM,
+    "pnn": deepctr.PNN,
+    "deepfm": deepctr.DeepFM,
+}
+_MTL = {"shared_bottom": SharedBottom, "mmoe": MMoE, "ple": PLE}
 
 
 def build_model(
@@ -24,22 +38,46 @@ def build_model(
     pretrained_item: Optional[np.ndarray] = None,
     generator: Optional[torch.Generator] = None,
 ):
-    """Instantiate the base model for a config. Pretrained tables are used
-    only when ``train.load_pretrain_emb`` is set (reference deepctr.py:104-116)."""
+    """Instantiate the base model for a config, its init drawn from
+    ``generator``. Pretrained tables are used only when
+    ``train.load_pretrain_emb`` is set (reference deepctr.py:104-116)."""
     mc = config.model
     spec = mc.spec
-    if spec.base != "mlp":
+    if spec.base_family == "star":
         raise NotImplementedError(
             f"base model {spec.base!r} is not ported yet "
-            "(ROADMAP.md, open items §1: the rest of the zoo)")
+            "(ROADMAP.md, open items §1: STAR)")
     if mc.compute_dtype != "float32":
-        raise NotImplementedError("the port computes the tower in float32 only")
+        raise NotImplementedError(
+            f"compute_dtype {mc.compute_dtype!r}: the port computes the tower in float32 only "
+            "(ROADMAP.md, open items §1: compute_dtype)")
     if not config.train.load_pretrain_emb:
         pretrained_user = pretrained_item = None
-    return MLP(
+    common = dict(
         n_uid=n_uid, n_pid=n_pid, n_domain=n_domain,
         user_dim=mc.user_dim, item_dim=mc.item_dim, domain_dim=mc.domain_dim,
         hidden_dim=tuple(mc.hidden_dim), dropout=mc.dropout,
         pretrained_user=pretrained_user, pretrained_item=pretrained_item,
         generator=generator,
     )
+    if spec.base_family == "deepctr":
+        extra = {}
+        if spec.base == "autoint":
+            extra = dict(att_head_num=mc.att_head_num, att_layer_num=mc.att_layer_num)
+        elif spec.base == "ccpm":
+            extra = dict(conv_kernel_width=tuple(mc.conv_kernel_width),
+                         conv_filters=tuple(mc.conv_filters))
+        elif spec.base == "pnn":
+            extra = dict(use_inner=mc.use_inner, use_outter=mc.use_outter)
+        return _DEEPCTR[spec.base](**common, **extra)
+    if spec.base_family == "mtl":
+        return _MTL[spec.base](
+            tower_hidden_dim=tuple(mc.tower_hidden_dim),
+            num_experts=mc.num_experts,
+            gate_dnn_hidden_units=tuple(mc.gate_dnn_hidden_units),
+            specific_expert_num=mc.specific_expert_num,
+            shared_expert_num=mc.shared_expert_num,
+            num_levels=mc.num_levels,
+            **common,
+        )
+    raise ValueError(f"unknown base family {spec.base_family}")

@@ -210,6 +210,7 @@ def _launch_k2(tables, ids, want: Tuple[bool, ...]):
     _cuda.check(_bind()(ctypes.byref(c), plan.blocks, plan.threads, x.data_ptr(),
                         _cuda.stream_ptr(dev)), "gather_fields")
     gather_fields.launches += 1
+    gather_fields.lane_launches += ids[0].dim() == 2
     return x, flat
 
 
@@ -252,7 +253,8 @@ def gather_fields(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
     ``train_mask`` marks, else None.
 
     CUDA tensors go through kernel K2: one launch, counted in
-    ``gather_fields.launches``, differentiable in the tables that require a
+    ``gather_fields.launches`` (and in ``gather_fields.lane_launches`` too
+    when the ids are [L, B]), differentiable in the tables that require a
     gradient. A CUDA call the kernel does not take raises. CPU tensors run
     the plain version.
     """
@@ -274,6 +276,7 @@ def gather_fields(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
 
 
 gather_fields.launches = 0
+gather_fields.lane_launches = 0
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

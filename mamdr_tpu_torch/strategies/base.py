@@ -6,7 +6,9 @@ stopping, test with the best weights (for ``*_separate``: every domain
 trained on its own instead), then, for a ``*_finetune`` model name, the
 per-domain finetune stage. ``build_strategy`` dispatches joint (with
 uncertainty weighting too), separate, PCGrad, MAML, MLDG, Domain
-Negotiation, Reptile and MAMDR; a setting whose path is not ported yet is
+Negotiation, Reptile and MAMDR, on every base model the port builds (the
+lanes of separate, finetune and DR take K1-lanes for the plain MLP and the
+autograd lane step otherwise); a setting whose path is not ported yet is
 refused, naming its ROADMAP item.
 """
 
@@ -26,11 +28,6 @@ def _refuse_unported(trainer: Trainer) -> None:
         raise NotImplementedError(
             "separate_fused=false: the sequential per-domain finetune loop is not "
             "ported yet (ROADMAP.md, open items §1: _separate_loop)")
-    if spec.uncertainty_weight and (spec.finetune or spec.strategy in ("separate", "mamdr")):
-        raise NotImplementedError(
-            f"{spec.raw!r}: the uncertainty-weighted loss in the separate, finetune or DR "
-            "lanes needs the autograd lane step, which comes with "
-            "(ROADMAP.md, open items §1: the rest of the zoo)")
 
 
 class Strategy:

@@ -74,7 +74,9 @@ class MAMDRStrategy(MetaStrategy):
 
     def _frozen_mask(self):
         """True at the leaves the optimizer never trains (the user/item
-        tables when emb_trainable is false)."""
+        tables when emb_trainable is false, the wide term's linear ones
+        too: every path holding "user_emb" or "item_emb", as in the JAX
+        package)."""
         return trees.named_tree_map(
             lambda n, x: (not self.tc.emb_trainable)
             and ("user_emb" in n or "item_emb" in n),
@@ -85,12 +87,21 @@ class MAMDRStrategy(MetaStrategy):
 
         The lanes need (a) the meta mask to cover EVERY trainable leaf — a
         trainable leaf outside it would need the sequential phase's lineage
-        chained through the query domains; the MLP carries no batch
-        statistics, the other thing that would; and (b) under "auto" the
-        lane state (params + 2 Adam slots per trainable leaf, times
-        n_domain) to stay under 40% of the card's free memory — with
-        trainable tables the lanes stack whole tables. The budget is not
-        checked on the CPU. "on" raises with the reason when (a) fails.
+        chained through the query domains; none of the port's base models
+        carries batch statistics, the other thing that would (STAR is not
+        ported); and (b) under "auto" the lane state (params + 2 Adam slots
+        per trainable leaf, every leaf of the model's tree counted — PLE's
+        expert kernels, the linear tables — times n_domain) to stay under
+        40% of the card's free memory — with trainable tables the lanes
+        stack whole tables. The budget counts no activations: an autograd
+        lane step also holds the forward's intermediates for its backward,
+        and for the MTL bases they outweigh the parameters (PLE's at bench
+        shapes are [30 lanes, 30 tasks, 3 experts, 1024, 512] float32, about
+        5.7 GB each), so the gate does not keep such a step inside the card.
+        The budget is not checked on the CPU. "on"
+        raises with the reason when (a) fails. The lane step is K1-lanes
+        for the plain MLP and the autograd lane step for any other base
+        model or the uncertainty-weighted loss.
         """
         mode = self.tc.dr_parallel
         if mode not in ("auto", "on", "off"):

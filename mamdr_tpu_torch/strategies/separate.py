@@ -13,8 +13,9 @@ bucketed routes). Reference: BaseModel.separate_train_val_test
 Per domain: full epochs with an early stop on its val AUC (patience,
 ``min_delta``; a domain out of patience is frozen), keeping its best weights,
 then its test split with them. Every domain is a lane: one lane-batched
-train step (``steps.make_subset_train_step``, kernel K1 over all lanes on
-the card) advances all of them, each with fresh optimizer state, step 0 and
+train step (``steps.make_subset_train_step``: kernel K1 over all lanes on
+the card for the plain MLP, the autograd lane step through the model's
+``apply_lanes`` for any other base model or loss) advances all of them, each with fresh optimizer state, step 0 and
 its own dropout stream (``fast_random.lane_seeds``), and one lane eval
 scores them. The [D] val AUCs are read once an epoch for the early stop.
 Long-tailed data is trained in buckets of similar step counts, so lanes

@@ -27,7 +27,8 @@ branches, ``stack_specific`` / ``unstack_specific``, the fused evals and
     with fewer real steps than the longest see all-pad batches, which the
     per-lane gate turns into exact no-ops;
   - evaluation runs every domain as a lane too, each lane with its own
-    weights (``make_lane_eval``): a lane-step evaluates a [D, B] batch, so a
+    weights (``make_lane_eval``, the model's ``apply_lanes``): a lane-step
+    evaluates a [D, B] batch, so a
     split takes S = max_d ceil(n_d/B) lane-steps, not sum_d ceil(n_d/B)
     calls. A short domain's trailing lane-steps are all-pad batches, which
     add exact zeros to its confusion counts and are left out of its mean
@@ -56,7 +57,7 @@ from mamdr_tpu_torch.ops.fast_random import lane_seeds
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.train.flat_optimizer import apply_updates
 from mamdr_tpu_torch.train.state import TrainState
-from mamdr_tpu_torch.train.steps import weighted_bce
+from mamdr_tpu_torch.train.steps import l2_lanes, uncertainty_loss, weighted_bce
 from mamdr_tpu_torch.utils import trees
 
 Tree = Any
@@ -614,21 +615,6 @@ def stack_domains_eval(splits: List[DomainSplit], batch_size: int,
     return {k: v.reshape(v.shape[0], n_steps, batch_size) for k, v in cols.items()}
 
 
-def _l2_lanes(model_params, l2_emb: float):
-    """The eval loss's l2 term (steps._l2_term's sum, leaves in the same
-    order) for lane-stacked params: a [L] tensor where an embedding table
-    carries a lane axis, else one value. Taken once per eval call: the
-    frozen tables alone are 100 MB to read at bench shapes."""
-    if l2_emb <= 0.0:
-        return 0.0
-    total = 0.0
-    for name, x in trees.leaves_with_names(model_params):
-        if "emb" in name:
-            total = total + (torch.sum(torch.square(x), dim=(1, 2)) if x.dim() == 3
-                             else torch.sum(torch.square(x)))
-    return l2_emb * total
-
-
 def make_lane_eval(model, cfg, gather=gather_fields):
     """The one lane-batched eval every eval path runs (JAX ``_make_eval_step``
     and its scans, fused.py:254-336).
@@ -636,11 +622,14 @@ def make_lane_eval(model, cfg, gather=gather_fields):
     Returns eval_lanes(params, block, steps=None) -> (losses [L], AucState
     [L, T]). ``params`` ({'model': tree}) holds lane l's weights at index l
     of every leaf with a lane axis; a leaf without one is read by every lane
-    (``MLP.apply_lanes``). ``block`` is {col: [L, S, B]}; ``steps`` lane-steps
+    (the model's ``apply_lanes`` and ``lane_axes``, for any base model).
+    ``block`` is {col: [L, S, B]}; ``steps`` lane-steps
     run (all S by default: a lane's trailing all-pad batches change
     nothing). Per lane: the loss is the total loss (data loss — under
     uncertainty weighting bce/var^2 + log(var), var the log_vars entry of the
-    lane's batch's domain — plus the l2 of the lane's embedding tables)
+    lane's batch's domain, from the lane's own log_vars where they carry a
+    lane axis — plus the l2 of the lane's embedding tables, the wide term's
+    dim-1 tables among them, as ``steps._l2_term`` counts them)
     averaged over the batches that hold data, a partial batch by its
     weighted mean; the confusion counts of every
     batch (500 thresholds) are formed from zero and added. Nothing waits for
@@ -655,7 +644,7 @@ def make_lane_eval(model, cfg, gather=gather_fields):
         n_steps, lanes = by_step["weight"].shape[:2]
         steps = n_steps if steps is None else min(int(steps), n_steps)
         dev = by_step["weight"].device
-        l2 = _l2_lanes(mp, cfg.l2_emb)
+        l2 = l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable)
         log_vars = params["uncertainty"]["log_vars"] if cfg.uncertainty_weight else None
         counts = auc_init(lanes=(lanes,), device=dev)
         loss_sum = torch.zeros((lanes,), dtype=torch.float32, device=dev)
@@ -665,9 +654,8 @@ def make_lane_eval(model, cfg, gather=gather_fields):
                 b = {k: v[s] for k, v in by_step.items()}
                 logits = model.apply_lanes(mp, b["uid"], b["pid"], b["domain"], gather)
                 data = weighted_bce(logits, b["label"], b["weight"])
-                if log_vars is not None:  # [D, 1], read by every lane
-                    var = log_vars[b["domain"][:, 0].long(), 0]
-                    data = data / torch.square(var) + torch.log(var)
+                if log_vars is not None:
+                    data = uncertainty_loss(data, log_vars, b["domain"])
                 loss = data + l2
                 counts = auc_update(counts, b["label"], torch.sigmoid(logits), b["weight"])
                 has_data = (torch.sum(b["weight"], dim=-1) > 0.0).to(torch.float32)

@@ -1,24 +1,29 @@
 """The train step shared by every execution path, and its loss and optimizer.
 
-Counterpart of ``mamdr_tpu/train/steps.py`` for the MLP tower:
+Counterpart of ``mamdr_tpu/train/steps.py`` for every base model the port
+builds:
 
   - binary cross-entropy on logits, masked weighted mean
     sum(w*bce)/max(sum(w), 1) (Keras weighted loss with 0/1 weights);
-  - l2 1e-5 on the embedding tables, frozen tables contributing a constant;
+  - l2 1e-5 on the embedding tables (the wide term's dim-1 tables too),
+    frozen tables contributing a constant;
   - optional Kendall uncertainty weighting per domain: data loss
     bce/var^2 + log(var), var = log_vars[domain of the batch] (reference
     model_zoo/uncertainty_weight/weighted_loss.py:29-42);
   - the loss gradient (``make_loss_grad``, the gate of the JAX package's
     ``maybe_make_fast_loss_grad``, ops/fused_mlp_step.py:220-229): the plain
     MLP takes the fused tower gradient (kernels K1 and K2,
-    ops/fused_mlp_step.py); anything else — today the uncertainty-weighted
-    loss — takes autograd through the model's forward pass, whose field
+    ops/fused_mlp_step.py), for one tower or for L lanes; anything else —
+    every other base model, and the uncertainty-weighted loss — takes
+    autograd (``make_autograd_loss_grad``) through the model's forward pass
+    (one tower) or its lane forward (``apply_lanes``, L lanes), whose field
     gather is K2 with its autograd rule;
   - one train step = the loss gradient, the optimizer (flat Adam, or masked
     SGD in the finetune stage), and the all-pad gate: a batch whose weights
     sum to 0 leaves params, optimizer slots and ``step`` exactly as they
     were (steps.py:148-165). The gate is a ``torch.where`` on the device, so
-    a step never waits for the host;
+    a step never waits for the host. Its dropout seeds are one a dropout
+    site of the model (``n_dropout_sites``);
   - the subset lane step (``make_subset_train_step``, steps.py:171-236): the
     very same step function over lane-stacked state that carries only
     trainable leaves, with the gate taken per lane;
@@ -33,6 +38,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from mamdr_tpu_torch.models.deepctr import MLP
+from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import step_seeds
 from mamdr_tpu_torch.ops.fused_mlp_step import make_fast_loss_grad
 from mamdr_tpu_torch.train.flat_optimizer import apply_updates, flat_adam, masked_sgd
@@ -74,18 +81,19 @@ def _l2_term(model_params, l2_emb: float, emb_trainable: bool):
     return l2_emb * total
 
 
-def make_loss_fn(model, cfg: StepConfig):
+def make_loss_fn(model, cfg: StepConfig, gather=gather_fields):
     """loss_fn(params, batch, seeds=None, probs=False) -> (loss, data_loss),
     or (loss, data_loss, probabilities) when ``probs``: the model's forward
-    pass (dropout iff seeds are given) and the loss on it."""
+    pass (dropout iff seeds are given; the fields by ``gather``, K2's
+    wrapper by default) and the loss on it."""
 
     def loss_fn(params, batch, seeds=None, probs: bool = False):
         logits = model.apply(params["model"], batch["uid"], batch["pid"],
-                             batch["domain"], seeds)
+                             batch["domain"], seeds, gather)
         data_loss = weighted_bce(logits, batch["label"], batch["weight"])
         if cfg.uncertainty_weight:
-            var = params["uncertainty"]["log_vars"][batch["domain"][0].long(), 0]
-            data_loss = data_loss / torch.square(var) + torch.log(var)
+            data_loss = uncertainty_loss(data_loss, params["uncertainty"]["log_vars"],
+                                     batch["domain"])
         loss = data_loss + _l2_term(params["model"], cfg.l2_emb, cfg.emb_trainable)
         if probs:
             return loss, data_loss, torch.sigmoid(logits)
@@ -98,35 +106,92 @@ def _trainable(name: str, emb_trainable: bool) -> bool:
     return emb_trainable or not ("user_emb" in name or "item_emb" in name)
 
 
-def make_autograd_loss_grad(model, cfg: StepConfig):
-    """f(params, batch, seeds, train=True) -> (data_loss, grads) by autograd
-    through ``make_loss_fn`` — the contract of ``make_fast_loss_grad`` for
-    one tower (batch columns [B]): ``grads`` has the structure of ``params``
-    with ``None`` at frozen tables, dropout from ``seeds`` when ``train``,
-    off otherwise. The tables' gradients come from K2's autograd rule
-    (``gather_fields``). The JAX package takes this route
-    (``jax.value_and_grad`` of its loss) wherever its fused kernel is not
+def _lane_loss(model, cfg: StepConfig, params, batch, seeds, gather):
+    """Per-lane total losses and data losses ([L] each) of a lane-stacked
+    batch (columns [L, B]) through the model's lane forward. Lane l's loss
+    reads its own leaves (a leaf with a lane axis, ``model.lane_axes``) or
+    the one every lane reads; under uncertainty weighting var is the lane's
+    ``log_vars`` entry for its batch's domain."""
+    mp = params["model"]
+    logits = model.apply_lanes(mp, batch["uid"], batch["pid"], batch["domain"], gather, seeds)
+    data_loss = weighted_bce(logits, batch["label"], batch["weight"])
+    if cfg.uncertainty_weight:
+        data_loss = uncertainty_loss(data_loss, params["uncertainty"]["log_vars"],
+                                     batch["domain"])
+    return data_loss + l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable), data_loss
+
+
+def uncertainty_loss(data_loss, log_vars, domain):
+    """bce/var^2 + log(var), var = log_vars[the batch's domain]: log_vars
+    [D, 1] read by every lane, or [L, D, 1] a lane's own (batch columns
+    [L, B]); one tower's [D, 1] with domain [B]."""
+    dom = domain[..., 0].long()
+    if log_vars.dim() == 3:
+        var = log_vars[torch.arange(log_vars.shape[0], device=dom.device), dom, 0]
+    else:
+        var = log_vars[dom, 0]
+    return data_loss / torch.square(var) + torch.log(var)
+
+
+def l2_lanes(model, model_params, l2_emb: float, emb_trainable: bool):
+    """``_l2_term`` of each lane: [L] where an embedding table carries a lane
+    axis (``model.lane_axes``), else one value; frozen tables detached."""
+    if l2_emb <= 0.0:
+        return 0.0
+    axes = dict(trees.leaves_with_names(model.lane_axes(model_params)))
+    total = 0.0
+    for name, x in trees.leaves_with_names(model_params):
+        if "emb" not in name:
+            continue
+        t = (torch.sum(torch.square(x.flatten(1)), dim=1) if axes[name] == 0
+             else torch.sum(torch.square(x)))
+        if not _trainable(name, emb_trainable):
+            t = t.detach()
+        total = total + t
+    return l2_emb * total
+
+
+def make_autograd_loss_grad(model, cfg: StepConfig, gather=gather_fields):
+    """f(params, batch, seeds, train=True) -> (data_loss, grads) by autograd:
+    the contract of ``make_fast_loss_grad``. Batch columns [B] (one tower,
+    through ``make_loss_fn``; ``data_loss`` []) or [L, B] (L lanes, through
+    the model's lane forward ``apply_lanes``; ``data_loss`` [L], seeds
+    [L, n_dropout_sites], and ``grads`` the gradient of the SUM of the
+    lanes' losses, which are independent: a lane-stacked leaf gets each
+    lane's own gradient). ``grads`` has the structure of ``params`` with
+    ``None`` at frozen tables (the linear user/item ones too); a trainable
+    leaf the loss does not reach gets zeros (PLE's last shared gate), as
+    ``jax.grad`` gives. Dropout from ``seeds`` when ``train``, off
+    otherwise. The tables' gradients come from K2's autograd rule
+    (``gather_fields``; a check on the card passes ``gather``, its plain
+    version). The JAX package takes this route (``jax.value_and_grad`` of
+    its loss, vmapped over the lanes) wherever its fused kernel is not
     eligible."""
-    loss_fn = make_loss_fn(model, cfg)
+    loss_fn = make_loss_fn(model, cfg, gather)
 
     def loss_grad(params, batch, seeds, train: bool = True):
-        if batch["uid"].dim() != 1:
-            raise NotImplementedError(
-                "the autograd loss gradient takes one tower; its lane step (the "
-                "separate / finetune lanes of a loss K1 does not compute) comes with "
-                "(ROADMAP.md, open items §1: the rest of the zoo)")
-
         def trains(name):
             return _trainable(name, cfg.emb_trainable)
 
         live = trees.named_tree_map(
             lambda n, x: x.detach().requires_grad_(True) if trains(n) else x, params)
         inputs = [x for n, x in trees.leaves_with_names(live) if trains(n)]
+        s = seeds if train else None
         with torch.enable_grad():
-            loss, data_loss = loss_fn(live, batch, seeds if train else None)
-            got = iter(torch.autograd.grad(loss, inputs))
-        grads = trees.named_tree_map(lambda n, x: next(got) if trains(n) else None, live)
-        return data_loss.detach(), grads
+            if batch["uid"].dim() == 1:
+                loss, data_loss = loss_fn(live, batch, s)
+            else:
+                loss, data_loss = _lane_loss(model, cfg, live, batch, s, gather)
+                loss = torch.sum(loss)
+            got = iter(torch.autograd.grad(loss, inputs, allow_unused=True))
+
+        def grad_of(name, x):
+            if not trains(name):
+                return None
+            g = next(got)
+            return torch.zeros_like(x) if g is None else g
+
+        return data_loss.detach(), trees.named_tree_map(grad_of, live)
 
     return loss_grad
 
@@ -135,9 +200,10 @@ def make_loss_grad(model, cfg: StepConfig):
     """The loss gradient a train or accumulate step takes (the gate of the
     JAX package's ``maybe_make_fast_loss_grad``, ops/fused_mlp_step.py:220-229):
     the plain MLP without uncertainty weighting takes the fused kernel path
-    (``make_fast_loss_grad``: K2, then K1), anything else autograd
-    (``make_autograd_loss_grad``)."""
-    if type(model).__name__ == "MLP" and not cfg.uncertainty_weight:
+    (``make_fast_loss_grad``: K2, then K1 or K1-lanes), anything else —
+    the other base models, the uncertainty-weighted loss — autograd
+    (``make_autograd_loss_grad``), for one tower or for lanes."""
+    if isinstance(model, MLP) and not cfg.uncertainty_weight:
         return make_fast_loss_grad(model, cfg)
     return make_autograd_loss_grad(model, cfg)
 
@@ -150,11 +216,16 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
     gradient, the optimizer and the gate all broadcast over the lane axis,
     and the gate is taken per lane; the optimizer state keeps its own type
     (flat Adam's slots, or SGD's empty state). ``loss_grad`` defaults to
-    ``make_loss_grad``'s choice; ``combine`` maps the carried params to the
-    tree the loss reads (make_subset_train_step)."""
+    ``make_loss_grad``'s choice — K1 (one tower) or K1-lanes for the plain
+    MLP, and for every other model or loss autograd through the model's
+    forward or, over lanes, its lane forward; either way the fields come
+    from one K2 launch a step. ``combine`` maps the carried params to the
+    tree the loss reads (make_subset_train_step). A step draws one dropout
+    seed a dropout site of the model (``model.n_dropout_sites``: the MLP's
+    layers; an MTL model's bottom, expert, gate and tower layers)."""
     if loss_grad is None:
         loss_grad = make_loss_grad(model, cfg)
-    n_layers = len(model.hidden_dim)
+    n_layers = model.n_dropout_sites
 
     def train_step(state: TrainState, batch):
         seeds = step_seeds(state.seed, state.step, n_layers)
@@ -194,7 +265,8 @@ def make_subset_train_step(model, tx, cfg: StepConfig, frozen_mask, frozen_full,
     their place, ``combine(sub)`` restores the one shared tensor, so L lanes
     never hold L copies of a table. ``train_step`` is make_train_step's step
     reading ``combine(params)``: one call advances all lanes through the
-    lane-batched kernel K1, and a lane whose batch weights sum to 0 keeps
+    lane-batched kernel K1 (the plain MLP) or the autograd lane step (every
+    other model or loss), and a lane whose batch weights sum to 0 keeps
     its params, slots and step exactly while the others move, with no host
     sync.
     """
@@ -220,7 +292,7 @@ def make_accum_grad_fn(model, cfg: StepConfig, loss_grad: Optional[Callable] = N
     gradient built on the plain versions."""
     if loss_grad is None:
         loss_grad = make_loss_grad(model, cfg)
-    n_layers = len(model.hidden_dim)
+    n_layers = model.n_dropout_sites
     no_seeds = {}  # (device, batch shape) -> zero seeds, never read at rate 0
 
     def grad_fn(params, batch):

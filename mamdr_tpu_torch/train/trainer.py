@@ -152,6 +152,8 @@ class Trainer:
         self._eval_epoch_counter = 0
 
     def _build_model(self, generator: torch.Generator):
+        """The config's base model (any of the zoo's but STAR), its init
+        drawn from ``generator``."""
         ds = self.dataset
         return build_model(self.config, n_uid=ds.n_uid, n_pid=ds.n_pid,
                            n_domain=ds.n_domain, pretrained_user=ds.user_emb,
@@ -187,7 +189,8 @@ class Trainer:
 
     def train_step_fn(self):
         """The model's train step; its loss gradient is ``steps.make_loss_grad``'s
-        choice (K1 for the plain MLP, autograd under uncertainty weighting)."""
+        choice (K1 for the plain MLP, autograd for the other base models and
+        under uncertainty weighting)."""
         return make_train_step(self.model, self.tx, self.step_cfg)
 
     def draw_seed(self) -> int:

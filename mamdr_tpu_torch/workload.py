@@ -1,4 +1,5 @@
-"""The bench workload at the shapes of the JAX package's bench.py.
+"""The bench workload at the shapes of the JAX package's bench.py, and the
+same data under the corpus's other base models.
 
 ``mlp_meta_mamdr_finetune`` at Taobao-30 shapes (bench.py:47-121): 30
 domains of 20000 rows (12000 train, 4000 val, 4000 test), 100k users and
@@ -10,7 +11,11 @@ the other MLP strategies of the corpus (``BENCH_MODELS``: joint, separate,
 finetune, Domain Negotiation, Reptile, MAML, MLDG, PCGrad and uncertainty
 weighting), each with the corpus's Taobao-30 train-block values for its
 name (``benchmarks._train_block``: learning rates, meta split and ratio,
-sample_num) at ``epoch`` 1, and ``write_domain_tree`` writes
+sample_num) at ``epoch`` 1. The zoo's names (WDL, DeepFM, NFM, AutoInt,
+CCPM, PNN, SharedBottom, MMoE, PLE, and MAMDR on DeepFM and MMoE) take the
+corpus's model block for their name at Taobao_30 (``benchmarks._model_block``:
+the MTL widths and expert counts, AutoInt / CCPM / PNN defaults, dropout
+0.5) on the same data. ``write_domain_tree`` writes
 them in the reference's on-disk layout, which ``MultiDomainDataset.from_disk``
 and the CLI (``python -m mamdr_tpu_torch.run``) read. Used by
 chip_smoke.py and kernel_profile.py.
@@ -26,7 +31,7 @@ from typing import Optional
 
 import numpy as np
 
-from mamdr_tpu_torch.benchmarks import BENCHMARK_DATASETS, _train_block
+from mamdr_tpu_torch.benchmarks import BENCHMARK_DATASETS, _model_block, _train_block
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.dataset import MultiDomainDataset
 from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -36,10 +41,17 @@ from mamdr_tpu_torch.train.trainer import Trainer
 BENCH = dict(n_domain=30, n_uid=100_000, n_pid=100_000, n_per_domain=20_000,
              batch_size=1024, emb_dim=128)
 # The MLP model names of the corpus (benchmarks.MODEL_VARIANTS) that the port runs.
-BENCH_MODELS = ("mlp", "mlp_separate", "mlp_finetune",
-                "mlp_meta_domain_negotiation_finetune", "mlp_meta_reptile_finetune",
-                "mlp_meta_mamdr_finetune", "mlp_meta_maml_finetune",
-                "mlp_meta_mldg_finetune", "mlp_pcgrad", "mlp_uncertainty_weight")
+MLP_MODELS = ("mlp", "mlp_separate", "mlp_finetune",
+              "mlp_meta_domain_negotiation_finetune", "mlp_meta_reptile_finetune",
+              "mlp_meta_mamdr_finetune", "mlp_meta_maml_finetune",
+              "mlp_meta_mldg_finetune", "mlp_pcgrad", "mlp_uncertainty_weight")
+# The corpus's other base models without batch statistics (joint), and MAMDR
+# on one single-tower and one MTL base (not corpus names; the substring
+# dispatch builds them, and the JAX package runs them).
+ZOO_MODELS = ("wdl", "deepfm", "nfm", "autoint", "ccpm", "pnn", "shared_bottom", "mmoe",
+              "ple")
+ZOO_MAMDR_MODELS = ("deepfm_meta_mamdr_finetune", "mmoe_meta_mamdr_finetune")
+BENCH_MODELS = MLP_MODELS + ZOO_MODELS + ZOO_MAMDR_MODELS
 # The corpus's per-name train values a bench trainer takes (Taobao_30).
 CORPUS_KEYS = ("learning_rate", "meta_learning_rate", "meta_split", "meta_split_ratio",
                "sample_num")
@@ -49,8 +61,7 @@ def bench_config(dr_parallel: str = "auto", checkpoint_path: str = "checkpoint",
                  model: str = "mlp_meta_mamdr_finetune") -> ExperimentConfig:
     corpus = _train_block(BENCHMARK_DATASETS["Taobao_30"], model)
     cfg = {
-        "model": {"name": model, "user_dim": 128, "item_dim": 128,
-                  "domain_dim": 128, "hidden_dim": [256, 128, 64], "dropout": 0.5},
+        "model": _model_block(model, "Taobao_30"),
         "train": {"load_pretrain_emb": True, "emb_trainable": False,
                   "learning_rate": 1e-3, "meta_learning_rate": 0.1,
                   "merged_method": "plus", "sample_num": 5, "add_query_domain": True,

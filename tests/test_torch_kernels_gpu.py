@@ -726,3 +726,81 @@ def test_meta_strategy_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_pa
     for k, v in cpu[2].items():
         assert abs(card[2][k] - v) <= 1e-3 * abs(v)
         assert abs(card[3][k] - cpu[3][k]) <= 1e-3
+
+
+ZOO_SMALL = {"user_dim": 8, "item_dim": 8, "domain_dim": 8, "hidden_dim": [16, 8],
+             "tower_hidden_dim": [8], "num_experts": 3, "gate_dnn_hidden_units": [8],
+             "specific_expert_num": 2, "shared_expert_num": 1, "num_levels": 1}
+ZOO = ["wdl", "deepfm", "nfm", "autoint", "ccpm", "pnn", "shared_bottom", "mmoe", "ple"]
+
+
+def _zoo_trainer(name, tmp_path, device, dropout=0.0, **train):
+    cfg = ExperimentConfig.from_dict({
+        "model": {"name": name, **ZOO_SMALL, "dropout": dropout},
+        "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                  "patience": 2, "learning_rate": 1e-2, "meta_learning_rate": 0.1,
+                  "sample_num": 2, "checkpoint_path": str(tmp_path), **train},
+        "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21},
+    })
+    ds = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100, seed=21,
+                                long_tail=True, batch_size=64)
+    rng = np.random.default_rng(0)
+    ds.user_emb = rng.normal(0, 0.1, (50, 8)).astype(np.float32)
+    ds.item_emb = rng.normal(0, 0.1, (60, 8)).astype(np.float32)
+    return Trainer(cfg, ds, device=device, verbose=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ZOO)
+def test_autograd_lane_step_through_k2_equals_the_plain_gather(cuda_device, tmp_path, name):
+    """The zoo's autograd lane step (3 lanes, each its own weights, domain
+    and dropout seeds; the domain table lane-stacked, the frozen tables
+    shared) through K2 against the same step through K2's plain version:
+    K2 copies rows exactly, so the losses agree and the gradients (the
+    lane-stacked domain table's among them, summed by index_add_ in another
+    order) within 1e-5 of each tensor's max."""
+    from mamdr_tpu_torch.train.steps import make_autograd_loss_grad
+    from mamdr_tpu_torch.utils.kernel_check import worst_errors
+
+    t = _zoo_trainer(name, tmp_path, None, dropout=0.5)
+    lanes = 3
+    frozen = trees.named_tree_map(lambda n, x: "user_emb" in n or "item_emb" in n,
+                                  t.state.params)
+    params = trees.tree_map(
+        lambda f, x: x if f else torch.stack([x * (1.0 + 0.1 * l) for l in range(lanes)]),
+        frozen, t.state.params)
+    cols = {k: v[:, :64].contiguous() for k, v in t.train_block()[0].items()}
+    seeds = torch.randint(0, 2**32, (lanes, t.model.n_dropout_sites), device=cuda_device)
+    gather_fields.launches = 0
+    data_k, g_k = make_autograd_loss_grad(t.model, t.step_cfg)(params, cols, seeds)
+    assert gather_fields.launches == 1
+    data_p, g_p = make_autograd_loss_grad(t.model, t.step_cfg, gather_fields_reference)(
+        params, cols, seeds)
+    assert data_k.shape == (lanes,)
+    assert g_k["model"]["embedding"]["domain_emb"].shape == (lanes, 3, 8)
+    got = [data_k] + [g for g in trees.leaves(g_k) if g is not None]
+    want = [data_p] + [g for g in trees.leaves(g_p) if g is not None]
+    assert [g is None for g in trees.leaves(g_k)] == trees.leaves(frozen)
+    _, rel = worst_errors(got, want)
+    assert rel <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ZOO + ["deepfm_meta_mamdr_finetune",
+                                        "mmoe_meta_mamdr_finetune",
+                                        "mlp_uncertainty_weight_finetune"])
+def test_zoo_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path, name):
+    """A whole run() of each new name through K2 (forward and its autograd
+    rule; no K1) against the same run() through the plain versions on the
+    CPU. Test loss within 1e-3 relative, AUC within 1e-3."""
+    from mamdr_tpu_torch.strategies.base import build_strategy
+
+    fused_tower_grad.launches = fused_tower_grad_lanes.launches = gather_fields.launches = 0
+    card = build_strategy(_zoo_trainer(name, tmp_path / "card", None)).run()
+    if not name.startswith("mlp"):
+        assert fused_tower_grad.launches == fused_tower_grad_lanes.launches == 0
+    assert gather_fields.launches > 0
+    cpu = build_strategy(_zoo_trainer(name, tmp_path / "cpu", "cpu")).run()
+    for k, v in cpu[2].items():
+        assert abs(card[2][k] - v) <= 1e-3 * abs(v)
+        assert abs(card[3][k] - cpu[3][k]) <= 1e-3

@@ -314,17 +314,33 @@ def test_uncertainty_loss_and_grads_match_jax(tmp_path, emb_trainable):
 
 def test_loss_grad_gate():
     """The plain MLP takes the fused kernel path; the uncertainty-weighted
-    loss autograd; the autograd path refuses lane-stacked batches."""
+    loss autograd; the autograd path also takes lane-stacked batches: [L]
+    data losses, each lane's the one-tower loss of its own params."""
     from mamdr_tpu_torch.models.deepctr import MLP
 
-    model = MLP(10, 10, 3, 4, 4, 4, (8,))
+    model = MLP(10, 10, 3, 4, 4, 4, (8,), generator=torch.Generator().manual_seed(0))
     fast = make_loss_grad(model, StepConfig())
     auto = make_loss_grad(model, StepConfig(uncertainty_weight=True))
     assert fast.__qualname__ == make_fast_loss_grad(model, StepConfig()).__qualname__
     assert auto.__qualname__ == make_autograd_loss_grad(model, StepConfig()).__qualname__
-    lanes = {"uid": torch.zeros((2, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="open items §1: the rest of the zoo"):
-        auto({}, lanes, None)
+    g = torch.Generator().manual_seed(1)
+    lanes = {"uid": torch.randint(0, 10, (2, 4), generator=g, dtype=torch.int32),
+             "pid": torch.randint(0, 10, (2, 4), generator=g, dtype=torch.int32),
+             "domain": torch.tensor([[0] * 4, [2] * 4], dtype=torch.int32),
+             "label": torch.randint(0, 2, (2, 4), generator=g).float(),
+             "weight": torch.ones((2, 4))}
+    one = {"model": model.param_tree(),
+           "uncertainty": {"log_vars": torch.tensor([[1.0], [1.5], [0.7]])}}
+    params = trees.tree_map(lambda x: torch.stack([x, x * 1.1]), one)
+    data, grads = auto(params, lanes, None, train=False)
+    assert data.shape == (2,)
+    for lane in range(2):
+        p = trees.tree_map(lambda x: x[lane], params)
+        b = {k: v[lane] for k, v in lanes.items()}
+        d1, g1 = auto(p, b, None, train=False)
+        torch.testing.assert_close(data[lane], d1, rtol=2e-6, atol=0)
+        for a, b_ in zip(trees.leaves(grads), trees.leaves(g1)):
+            torch.testing.assert_close(a[lane], b_, rtol=2e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("long_tail", [False, True])
