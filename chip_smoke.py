@@ -90,6 +90,16 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      ones too) the same tensors, MAMDR's DR as lanes with every domain's
      specific moved; and a small run() of each on the card against the
      same run() on the CPU;
+  5g. STAR with its per-domain batch statistics (PartitionedNorm, StarFCN
+     [256, 128, 64], the corpus's Taobao_30 model block): one autograd train
+     step (3 fields x 1024 ids, the statistics updated) and one finetune
+     lane-step (30 domain lanes of SGD, the statistics lane-stacked) through
+     K2 against the same through K2's plain version, the step moving only
+     its domain's statistics row; run() of star and star_meta_mamdr_finetune
+     at bench shapes on the loaded data with their launch counts asserted
+     (K2 only; MAMDR's DR sequential, 4320 steps), each timed with its train
+     epoch, weights and statistics moved and finite, frozen tables the same
+     tensors; and a small run() of each on the card against the CPU;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -1570,6 +1580,232 @@ def main() -> int:
         print(f"small {name} run() (3 domains, 3 epochs) on the card vs the CPU's plain "
               f"versions: test loss within {loss_rel:.2e} (tol 1e-3 relative), AUC within "
               f"{auc_abs:.2e} (tol 1e-3)")
+
+    # ---- 5g. STAR: per-domain batch statistics on K2 and autograd ----
+    # One autograd train step and one finetune lane-step through K2 against
+    # the same through K2's plain version; then star's and
+    # star_meta_mamdr_finetune's run() at bench shapes on the loaded data
+    # (every path driven with the launch counts at 0 just before it and read
+    # just after); and a small run() of each on the card against the CPU.
+    from mamdr_tpu_torch.workload import STAR_MODELS
+
+    trainer = build_bench_trainer("star_meta_mamdr_finetune",
+                                  checkpoint_path=os.path.join(work, "star_step"), dataset=disk)
+    model, cfg_ = trainer.model, trainer.step_cfg
+    stats0 = trainer.state.batch_stats
+    step_cols = {k: v[0, :batch] for k, v in trainer.train_block()[0].items()}  # domain 0
+    k2_before = gather_fields.launches
+    out_k = make_autograd_loss_grad(model, cfg_)(trainer.state.params, step_cols, None,
+                                                 stats=stats0)
+    if gather_fields.launches != k2_before + 1:
+        fail(f"STAR's autograd step launched K2 {gather_fields.launches - k2_before}x")
+    out_p = make_autograd_loss_grad(model, cfg_, gather=gather_fields_reference)(
+        trainer.state.params, step_cols, None, stats=stats0)
+    # The domain table's gradient is held to the step's largest gradient: the
+    # norm's backward cancels the rows' terms on the domain columns (constant
+    # in a one-domain batch), leaving its l2 term and the rounding of a sum
+    # that K2's scatter-add takes in another order
+    flat_out = lambda o: [o[0]] + [g for n, g in trees.leaves_with_names(o[1])
+                                   if g is not None and n != "model/domain_emb"] + trees.leaves(
+        o[2])
+    got_, want_ = flat_out(out_k), flat_out(out_p)
+    dom_k, dom_p = out_k[1]["model"]["domain_emb"], out_p[1]["model"]["domain_emb"]
+    if not all(bool(torch.isfinite(g).all()) for g in got_ + [dom_k]):
+        fail("STAR's autograd step: a loss, gradient or statistic is not finite")
+    star_step_abs, star_step_rel = worst_errors(got_, want_)
+    dom_rel = float((dom_k - dom_p).abs().max()) / max(
+        float(g.abs().max()) for g in trees.leaves(out_p[1]) if g is not None)
+    if not (star_step_rel <= K1_REL_TOL and dom_rel <= K1_REL_TOL):
+        fail(f"STAR's autograd step through K2 and through its plain version differ by "
+             f"{star_step_rel} of a tensor's max, the domain table's gradient by {dom_rel} "
+             "of the step's largest gradient")
+    new_state, _ = trainer.train_step_fn()(trainer.state, step_cols)
+    for key in ("moving_mean", "moving_var"):
+        now = new_state.batch_stats["partitioned_norm"][key]
+        was = stats0["partitioned_norm"][key]
+        if not torch.equal(now[1:], was[1:]) or torch.equal(now[0], was[0]):
+            fail(f"STAR's train step on domain 0 did not move exactly row 0 of {key}")
+    print(f"STAR autograd train step ({batch} ids, PartitionedNorm in train mode), K2 vs its "
+          f"plain version: the loss, {len(got_) - 3} gradients and the 2 new statistics within "
+          f"{star_step_rel:.2e} of the tensor's max, the domain table's gradient within "
+          f"{dom_rel:.2e} of the step's largest (tol {K1_REL_TOL}); a step on domain 0 "
+          f"moved row 0 of the [{n_domain}, 384] moving mean and variance and no other row")
+    del out_k, out_p, got_, want_, new_state, dom_k, dom_p
+
+    star_strat = build_strategy(trainer)
+    ft_lanes = separate.make_lanes(trainer, init_params=False,
+                                   params_fn=star_strat._best_params_fn)
+    ft_cols = {k: v[:, :batch].contiguous() for k, v in ft_lanes.block.items()}
+    frozen = trees.named_tree_map(lambda n, x: "user_emb" in n or "item_emb" in n,
+                                  trainer.state.params)
+    plain_step, _, _ = make_subset_train_step(
+        model, trainer.finetune_tx, cfg_, frozen, trainer.state.params,
+        loss_grad=make_autograd_loss_grad(model, cfg_, gather=gather_fields_reference))
+    kernel_step, _, _ = make_subset_train_step(model, trainer.finetune_tx, cfg_, frozen,
+                                               trainer.state.params)
+    k2_before = gather_fields.lane_launches
+    lane_k, loss_lk = kernel_step(ft_lanes.states, ft_cols)
+    if gather_fields.lane_launches != k2_before + 1:
+        fail(f"STAR's finetune lane-step launched K2 {gather_fields.lane_launches - k2_before}x")
+    lane_p, loss_lp = plain_step(ft_lanes.states, ft_cols)
+    flat_state = lambda st, loss: [loss] + [x for x in trees.leaves(st.params) if x.dim() > 0] + (
+        trees.leaves(st.batch_stats))
+    got_, want_ = flat_state(lane_k, loss_lk), flat_state(lane_p, loss_lp)
+    star_lane_abs, star_lane_rel = worst_errors(got_, want_)
+    mm_lanes = lane_k.batch_stats["partitioned_norm"]["moving_mean"]
+    if (not all(bool(torch.isfinite(g).all()) for g in got_)
+            or tuple(mm_lanes.shape) != (lanes, n_domain, 384)
+            or not star_lane_rel <= K1_REL_TOL):
+        fail(f"STAR's finetune lane-step through K2 vs its plain version: "
+             f"{star_lane_rel} of a tensor's max, statistics {tuple(mm_lanes.shape)}")
+    print(f"STAR finetune lane-step ({lanes} domain lanes x {batch} ids, SGD, statistics "
+          f"[{lanes}, {n_domain}, 384] lane-stacked), K2 vs its plain version: the new "
+          f"params, statistics and losses within {star_lane_rel:.2e} of the tensor's max "
+          f"(tol {K1_REL_TOL})")
+    del trainer, star_strat, ft_lanes, lane_k, lane_p, got_, want_, model
+    torch.cuda.empty_cache()
+
+    originals = {k: getattr(fused, k) for k in ("make_fused_passes", "make_fused_separate")}
+    fused.make_fused_passes = timed(originals["make_fused_passes"])
+    fused.make_fused_separate = timed(originals["make_fused_separate"], 0)
+    star_counts = {}  # name -> (K1, K1-lanes, K2, K2 with ids [B], K2 with ids [L, B])
+    try:
+        for name in STAR_MODELS:
+            trainer = build_bench_trainer(name, checkpoint_path=os.path.join(work, name),
+                                          dataset=disk)
+            strat = build_strategy(trainer)
+            tc_ = trainer.config.train
+            params0, stats0 = trainer.state.params, trainer.state.batch_stats
+            spd_ = trainer.steps_per_domain()
+            ev = max(trainer.eval_steps_per_domain("val"))
+            te = max(trainer.eval_steps_per_domain("test"))
+            ft = strat.spec.finetune
+            mamdr = isinstance(strat, MAMDRStrategy)
+            k2_steps = sum(spd_)  # one field gather a step
+            phase_s = {}
+            if mamdr:  # sequential DR: per query, K support runs of a support and a query
+                # epoch (the bench data is balanced: every domain the same steps)
+                k = min(tc_.sample_num, n_domain - 1) + int(tc_.add_query_domain)
+                k2_steps += n_domain * k * 2 * max(spd_)
+                spec0 = list(strat.specific)
+                run_epoch, run_dr = strat.run_fused_epoch, strat.run_dr_phase
+
+                def timed_dr():
+                    torch.cuda.synchronize()
+                    phase_s["dn"] = time.perf_counter() - phase_s.pop("start")
+                    t0_ = time.perf_counter()
+                    run_dr()
+                    torch.cuda.synchronize()
+                    phase_s["dr"] = time.perf_counter() - t0_
+
+                def timed_epoch():
+                    torch.cuda.synchronize()
+                    t0_ = phase_s["start"] = time.perf_counter()
+                    r = run_epoch()
+                    torch.cuda.synchronize()
+                    epoch_s_of.append(time.perf_counter() - t0_)
+                    return r
+
+                strat.run_fused_epoch, strat.run_dr_phase = timed_epoch, timed_dr
+            want = (0, 0, k2_steps + ev + te + ((max(spd_) + ev + te) if ft else 0))
+            epoch_s_of.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = strat.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            got = counts()
+            if got != want:
+                fail(f"{name}: run() launched (K1, K1-lanes, K2) {got}, expected {want}")
+            split = k2_split()
+            if split != (k2_steps, want[2] - k2_steps):
+                fail(f"{name}: K2 launched {split} times with ids [B] and [L, B], expected "
+                     f"{(k2_steps, want[2] - k2_steps)}")
+            star_counts[name] = (*got, *split)
+            auc, wauc, loss = checked(res, "test", f"{name} run()")
+            best = trainer.best_params
+            moved_ = [n for (n, x), x0 in zip(trees.leaves_with_names(best),
+                                               trees.leaves(params0)) if not torch.equal(x, x0)]
+            if ("model/domain_emb" not in moved_
+                    or not any("star_fcn" in n for n in moved_)
+                    or not all(bool(torch.isfinite(x).all()) for x in trees.leaves(best))):
+                fail(f"{name}: the trained weights did not move or are not finite ({moved_})")
+            for (n, x), x0 in zip(trees.leaves_with_names(best), trees.leaves(params0)):
+                if ("user_emb" in n or "item_emb" in n) and x is not x0:
+                    fail(f"{name}: the best params' frozen table {n} is not the same tensor")
+            for (n, x), x0 in zip(trees.leaves_with_names(trainer.state.batch_stats),
+                                  trees.leaves(stats0)):
+                # every domain trained, so every domain's row moved
+                if (not bool(torch.isfinite(x).all())
+                        or not bool((x != x0).any(dim=-1).all())):
+                    fail(f"{name}: a domain's row of the statistics {n} did not move or is "
+                         "not finite")
+            note = ""
+            if mamdr:
+                if strat.dr_lanes:
+                    fail(f"{name}: the DR phase took the lanes with batch statistics")
+                for d in range(n_domain):
+                    leaves_d = [(a, b) for m, a, b in zip(trees.leaves(strat.mask),
+                                                          trees.leaves(strat.specific[d]),
+                                                          trees.leaves(spec0[d])) if m]
+                    if (not any(not torch.equal(a, b) for a, b in leaves_d)
+                            or not all(bool(torch.isfinite(a).all()) for a, _ in leaves_d)):
+                        fail(f"{name}: specific[{d}] did not move or is not finite")
+                dr_n = k2_steps - sum(spd_)
+                note = (f"; DN {phase_s['dn']:.3f} s; DR sequential ({dr_n} autograd steps) "
+                        f"{phase_s['dr']:.3f} s, {phase_s['dr'] / dr_n * 1e6:.1f} us/step; "
+                        f"every domain's specific moved and finite")
+            if len(epoch_s_of) != 1 + ft:
+                fail(f"{name}: {len(epoch_s_of)} epochs timed, expected {1 + ft}")
+            ep_s = epoch_s_of[0]
+            rows = epoch_examples if mamdr else disk_train
+            ft_note = f"; its finetune epoch {epoch_s_of[1]:.3f} s" if ft else ""
+            print(f"{name} run() at bench shapes on the loaded data (an epoch, validation, "
+                  f"best checkpoint, test{', finetune' if ft else ''}; lr {tc_.learning_rate}, "
+                  f"norm {trainer.config.model.norm}, dense {trainer.config.model.dense}, "
+                  f"meta_parms {tc_.meta_parms}): {run_s:.3f} s; its train epoch {ep_s:.3f} s, "
+                  f"{rows} examples, {rows / ep_s:.0f} examples/s{ft_note}; launches (K1, "
+                  f"K1-lanes, K2) {got}, K2 split {split}; test macro AUC {auc:.6f}, weighted "
+                  f"{wauc:.6f}, loss {loss:.6f}; weights and every domain's statistics row "
+                  f"moved, frozen tables the same tensors{note}; {card}")
+            del trainer, strat, params0, stats0, best
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in originals.items():
+            setattr(fused, k, v)
+
+    def small_star_run(name, device):
+        # MAMDR's inner optimizer is SGD here: PartitionedNorm makes the
+        # domain columns' gradients rounding noise (constant in a one-domain
+        # batch), which Adam would scale up differently on the two devices
+        inner = {"optimizer": "sgd", "learning_rate": 0.1} if "mamdr" in name else {
+            "learning_rate": 1e-2}
+        cfg = ExperimentConfig.from_dict({
+            "model": {"name": name, "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                      "hidden_dim": [16, 8], "auxiliary_dim": 8, "norm": "pn",
+                      "dense": "star"},
+            "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                      "patience": 2, "meta_learning_rate": 0.1, "sample_num": 2,
+                      "meta_parms": ["emb", "kernel_shared", "bias_shared"], **inner,
+                      "checkpoint_path": os.path.join(work, "small_star", str(device))},
+            "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21}})
+        small = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100,
+                                       seed=21, long_tail=True, batch_size=64)
+        r = np.random.default_rng(0)
+        small.user_emb = r.normal(0, 0.1, (50, 8)).astype(np.float32)
+        small.item_emb = r.normal(0, 0.1, (60, 8)).astype(np.float32)
+        return build_strategy(Trainer(cfg, small, device=device, verbose=False)).run()
+
+    for name in STAR_MODELS:
+        on_card, on_cpu = small_star_run(name, None), small_star_run(name, "cpu")
+        loss_rel = max(abs(on_card[2][k] - v) / abs(v) for k, v in on_cpu[2].items())
+        auc_abs = max(abs(on_card[3][k] - v) for k, v in on_cpu[3].items())
+        if not (loss_rel <= 1e-3 and auc_abs <= 1e-3):
+            fail(f"small {name} run() on the card vs the CPU: test losses {on_card[2]} vs "
+                 f"{on_cpu[2]}, AUCs {on_card[3]} vs {on_cpu[3]}")
+        print(f"small {name} run() (3 domains, 3 epochs) on the card vs the CPU's plain "
+              f"versions: test loss within {loss_rel:.2e} (tol 1e-3 relative), AUC within "
+              f"{auc_abs:.2e} (tol 1e-3)")
     del disk
     shutil.rmtree(work, ignore_errors=True)
 
@@ -1704,6 +1940,26 @@ def main() -> int:
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
          "launches": sum(c[4] for c in zoo_counts.values()), "max_abs_err": k2l_err,
          "autograd_lane_step_rel_err": max(zoo_lane.values()),
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
+        # 5g's runs (star joint, star_meta_mamdr_finetune): K2 at the step's
+        # shapes on every autograd step (joint, DN and the sequential DR), at
+        # the lane-step's shapes on the finetune's autograd lane-steps and in
+        # the evals; no K1. STAR's step and lane-step through K2 held to K2's
+        # plain version in 5g
+        {"name": f"gather_fields (3 fields x {batch} ids, 5g's STAR steps)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[3] for c in star_counts.values()), "max_abs_err": k2_err,
+         "autograd_step_rel_err": star_step_rel,
+         "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": dn_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5g's STAR lane-steps and "
+                 "evals)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[4] for c in star_counts.values()), "max_abs_err": k2l_err,
+         "autograd_lane_step_rel_err": star_lane_rel,
          "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
          "bound_by": "bytes", "library_ms": dr_t["library"]},
         # K3's path is the gather probe, which runs it at both sizes: each

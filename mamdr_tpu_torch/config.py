@@ -94,9 +94,8 @@ def parse_model_name(name: str) -> NameSpec:
 @dataclass
 class ModelConfig:
     """``model`` block (README.md:100-117). Every field of the JAX package's
-    is read, so a config of any base model parses; every base model but
-    STAR is built (``models/zoo.py`` refuses STAR and a compute dtype other
-    than float32)."""
+    is read, so a config of any base model parses, and every base model is
+    built (``models/zoo.py`` refuses a compute dtype other than float32)."""
 
     name: str = "mlp"
     norm: str = "none"            # star only: pn | bn | none

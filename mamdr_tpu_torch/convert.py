@@ -6,7 +6,9 @@ The port's parameter trees are nested dicts with the flax paths
 ``[T, t, in, out]``, CCPM's conv kernels HWIO ``[W, 1, in, out]``), so
 conversion is a leaf-wise copy with no renaming or transposing, for every
 base model (the uncertainty-weighted model's ``uncertainty/log_vars``
-included). Inputs are nested dicts of numpy arrays (e.g.
+included). STAR's batch statistics, flax's ``batch_stats`` collection, keep
+their paths too (``partitioned_norm/{moving_mean,moving_var}``,
+``bn/{mean,var}``; ``batch_stats_from_jax``). Inputs are nested dicts of numpy arrays (e.g.
 ``jax.device_get`` of a flax tree); this module imports no JAX.
 """
 
@@ -24,6 +26,15 @@ from mamdr_tpu_torch.utils import trees
 def params_from_jax(tree_of_numpy: Any) -> Any:
     """Nested dict of arrays -> nested dict of CPU tensors (copies, same dtypes)."""
     return trees.tree_map(lambda x: torch.tensor(np.asarray(x)), tree_of_numpy)
+
+
+def batch_stats_from_jax(tree_of_numpy: Any, device="cpu") -> Any:
+    """A flax ``batch_stats`` collection (nested numpy, ``{}`` for a model
+    without a norm) -> the port's ``TrainState.batch_stats``: the same paths,
+    float32 tensors on `device`."""
+    return trees.tree_map(
+        lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=device),
+        dict(tree_of_numpy))
 
 
 def params_to_numpy(port_params: Any) -> Any:

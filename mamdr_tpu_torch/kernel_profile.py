@@ -40,7 +40,16 @@ On one CUDA card, from the repository root. Prints
      lane-step (30 query-domain lanes through ``apply_lanes``, every
      trainable leaf lane-stacked; 12 lane-steps): per step the wall time,
      device busy time, idle share, CUDA launches and the kernels and host
-     ops that take the most time (printed after part 6).
+     ops that take the most time (printed after part 6);
+  8. STAR (``star_meta_mamdr_finetune`` at bench shapes: PartitionedNorm,
+     StarFCN [256, 128, 64], the batch statistics in the state): one joint
+     autograd train step (domain 0's 12 steps), one step of the sequential
+     DR phase (one query domain's 6 support runs of 12 support and 12 query
+     steps, 144 steps; DR cannot take the lanes with batch statistics), and
+     one finetune lane-step (30 domain lanes of SGD, the statistics
+     lane-stacked; 12 lane-steps): per step the wall time, device busy
+     time, idle share, CUDA launches and the kernels and host ops that take
+     the most time (printed after part 7).
 
 Every line names the card and its power limit.
 """
@@ -270,6 +279,38 @@ def main() -> int:
                   max(zt.steps_per_domain()), host_top=8)
         del zt, zblock, zflat0, zstep, sub_step, lane_state
         torch.cuda.empty_cache()
+
+    # ---- 8. STAR: a joint step, a sequential-DR step, a finetune lane-step ----
+    from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
+
+    st = build_bench_trainer("star_meta_mamdr_finetune", checkpoint_path=ckpt,
+                             dataset=trainer.dataset)
+    sblock, sn = st.train_block()
+    sflat0 = {k: v[0] for k, v in sblock.items()}
+    sstep = st.train_step_fn()
+    breakdown("STAR joint train step (autograd, K2, PartitionedNorm stats, flat Adam)",
+              lambda: fused._epoch_on_flat(sstep, st.state, sflat0, st.gen, sn,
+                                           st.dataset.batch_size,
+                                           real_steps=st.steps_per_domain()[0]),
+              st.steps_per_domain()[0], unit="step", host_top=8)
+    sstrat = MAMDRStrategy(st)
+    sstrat.prepare_fused()
+    if sstrat.dr_lanes:
+        print("kernel_profile: STAR's DR took the lanes", file=sys.stderr)
+        return 1
+    sorder, saux = sstrat.draw_epoch()
+    one_query = 2 * saux.shape[1] * st.steps_per_domain()[0]
+    breakdown(f"STAR sequential DR step (one query domain, {saux.shape[1]} support runs)",
+              lambda: sstrat._dr_phase(st.state, sstrat.shared, sstrat._spec_stack, sblock,
+                                       sorder[:1], saux[:1], st.gen,
+                                       float(sstrat.tc.meta_learning_rate)),
+              one_query, unit="step", host_top=8)
+    slanes = separate.make_lanes(st, init_params=False, params_fn=sstrat._best_params_fn)
+    breakdown(f"STAR finetune lane-step ({len(slanes.ids)} lanes, SGD, stats lane-stacked)",
+              lambda: slanes.epoch_all(slanes.states, slanes.block, st.gen),
+              st.steps_per_domain()[0], host_top=8)
+    del st, sstrat, sblock, sflat0, sstep, slanes
+    torch.cuda.empty_cache()
 
     # ---- 4. the same DR phase, sequential ----
     del trainer, strat

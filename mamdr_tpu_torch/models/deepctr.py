@@ -80,6 +80,7 @@ class ZooModel(nn.Module):
     ``tower`` and ``n_dropout_sites``."""
 
     has_linear = False  # a wide term of dim-1 tables
+    has_batch_stats = False  # STAR's norms carry moving statistics (models/star.py)
 
     def __init__(self, n_uid: int, n_pid: int, n_domain: int,
                  user_dim: int = 128, item_dim: int = 128, domain_dim: int = 128,
@@ -108,6 +109,10 @@ class ZooModel(nn.Module):
     @property
     def n_dropout_sites(self) -> int:
         raise NotImplementedError
+
+    def init_stats(self):
+        """The initial batch statistics: none for a model without a norm."""
+        return {}
 
     def tower(self, x, lin, domain, seeds):
         """Logits [B] from the gathered inputs: x [B, 3D] and the wide term

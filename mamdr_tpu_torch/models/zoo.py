@@ -1,9 +1,9 @@
 """Model factory: config -> torch module (substring dispatch like run.py:37-47).
 
 Counterpart of ``mamdr_tpu/models/zoo.py``: the single-tower models of
-``models/deepctr.py`` and the MTL models of ``models/mtl.py``. STAR and a
-``compute_dtype`` other than float32 are not ported and raise, naming their
-ROADMAP items.
+``models/deepctr.py``, the MTL models of ``models/mtl.py`` and STAR
+(``models/star.py``). A ``compute_dtype`` other than float32 is not ported
+and raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.models import deepctr
 from mamdr_tpu_torch.models.mtl import MMoE, PLE, SharedBottom
+from mamdr_tpu_torch.models.star import Star
 
 _DEEPCTR = {
     "mlp": deepctr.MLP,
@@ -43,11 +44,8 @@ def build_model(
     ``train.load_pretrain_emb`` is set (reference deepctr.py:104-116)."""
     mc = config.model
     spec = mc.spec
-    if spec.base_family == "star":
-        raise NotImplementedError(
-            f"base model {spec.base!r} is not ported yet "
-            "(ROADMAP.md, open items §1: STAR)")
-    if mc.compute_dtype != "float32":
+    # STAR computes float32 whatever compute_dtype says, as the JAX package's does
+    if mc.compute_dtype != "float32" and spec.base_family != "star":
         raise NotImplementedError(
             f"compute_dtype {mc.compute_dtype!r}: the port computes the tower in float32 only "
             "(ROADMAP.md, open items §1: compute_dtype)")
@@ -60,6 +58,10 @@ def build_model(
         pretrained_user=pretrained_user, pretrained_item=pretrained_item,
         generator=generator,
     )
+    if spec.base_family == "star":
+        common.pop("dropout")  # STAR has no dropout (the JAX model keeps the field unused)
+        return Star(auxiliary_dim=mc.auxiliary_dim, norm=mc.norm, dense=mc.dense,
+                    auxiliary_net=mc.auxiliary_net, **common)
     if spec.base_family == "deepctr":
         extra = {}
         if spec.base == "autoint":

@@ -85,11 +85,12 @@ class MAMDRStrategy(MetaStrategy):
     def _dr_parallel_eligible(self) -> bool:
         """Gate for the query-domain-lanes DR phase (fused.make_fused_dr_parallel).
 
-        The lanes need (a) the meta mask to cover EVERY trainable leaf — a
-        trainable leaf outside it would need the sequential phase's lineage
-        chained through the query domains; none of the port's base models
-        carries batch statistics, the other thing that would (STAR is not
-        ported); and (b) under "auto" the lane state (params + 2 Adam slots
+        The lanes need (a) no batch statistics (STAR's norms): they chain
+        through the query domains in the sequential phase, and lanes would
+        keep only one lane's (JAX mamdr.py:143-150); (b) the meta mask to
+        cover EVERY trainable leaf — a trainable leaf outside it would need
+        the sequential phase's lineage too (STAR's specific kernels under
+        meta_parms ["emb", "kernel_shared", "bias_shared"]); and (c) under "auto" the lane state (params + 2 Adam slots
         per trainable leaf, every leaf of the model's tree counted — PLE's
         expert kernels, the linear tables — times n_domain) to stay under
         40% of the card's free memory — with trainable tables the lanes
@@ -99,7 +100,7 @@ class MAMDRStrategy(MetaStrategy):
         shapes are [30 lanes, 30 tasks, 3 experts, 1024, 512] float32, about
         5.7 GB each), so the gate does not keep such a step inside the card.
         The budget is not checked on the CPU. "on"
-        raises with the reason when (a) fails. The lane step is K1-lanes
+        raises with the reason when (a) or (b) fails. The lane step is K1-lanes
         for the plain MLP and the autograd lane step for any other base
         model or the uncertainty-weighted loss.
         """
@@ -112,6 +113,13 @@ class MAMDRStrategy(MetaStrategy):
                 "ported yet (ROADMAP.md, open items §1: dr_lane_chunk and the "
                 "sharded lanes)")
         if mode == "off":
+            return False
+        if self.trainer.state.batch_stats:
+            if mode == "on":
+                raise ValueError(
+                    "dr_parallel='on' but the model carries batch statistics (e.g. "
+                    "PartitionedNorm), whose cross-query lineage needs the sequential "
+                    "dr_phase")
             return False
         params = self.trainer.state.params
         frozen = self._frozen_mask()
@@ -218,14 +226,17 @@ class MAMDRStrategy(MetaStrategy):
 
     def _merged_eval(self, mode: str, shared, specific_list):
         """Every domain with its merged weights, as one lane eval
-        (fused.make_fused_eval_merged); one host read of the [D] results."""
+        (fused.make_fused_eval_merged); one host read of the [D] results.
+        The batch statistics are the trainer's current ones, whatever
+        snapshot the weights come from (JAX mamdr.py:227-259): test and the
+        finetune read the end-of-training statistics."""
         t = self.trainer
         if self._eval_merged is None:
             self._eval_merged = fused.make_fused_eval_merged(
                 t.model, t.step_cfg, self.mask, self.tc.merged_method)
         spec_stack = fused.stack_specific(specific_list, self.mask)
         losses, aucs = self._eval_merged(t.state.params, shared, spec_stack,
-                                         t.eval_block(mode))
+                                         t.eval_block(mode), stats=t.state.batch_stats)
         return t.summarize(mode, *t.domain_dicts(losses, aucs))
 
     def validate(self):

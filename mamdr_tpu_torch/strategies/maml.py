@@ -51,11 +51,12 @@ class MAMLStrategy(MetaStrategy):
             return 1.0 / (self.n_domain * self.tc.meta_train_step)
         return 1.0
 
-    def accumulate_split(self, params, split, acc, cap: bool = True):
+    def accumulate_split(self, params, split, acc, cap: bool = True, stats=None):
         """Add the gradients over one split at fixed params to ``acc`` (JAX
         ``accumulate_split``): the split's rows in an order drawn from
         ``np_rng`` (as the JAX package's ``stack_batches`` draws it), at most
-        ``meta_train_step`` batches when ``cap``."""
+        ``meta_train_step`` batches when ``cap``; the norms read ``stats``
+        (a model's batch statistics)."""
         t = self.trainer
         order = t.np_rng.permutation(split.n)
         block, n_steps = fused.stack_domains_on_device([split.take(order)],
@@ -63,7 +64,7 @@ class MAMLStrategy(MetaStrategy):
         return fused._grad_epoch_on_flat(
             t.accum_grad_fn, params, {k: v[0] for k, v in block.items()}, t.gen, n_steps,
             t.dataset.batch_size, acc, self.mask, self._accumulate(),
-            self.tc.meta_train_step if cap else 0, shuffle=False)
+            self.tc.meta_train_step if cap else 0, shuffle=False, stats=stats)
 
     def meta_apply(self, meta, grads):
         """meta + one meta-Adam step on grads * grad_scale() (masked leaves)."""

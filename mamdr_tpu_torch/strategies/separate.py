@@ -19,7 +19,10 @@ the card for the plain MLP, the autograd lane step through the model's
 its own dropout stream (``fast_random.lane_seeds``), and one lane eval
 scores them. The [D] val AUCs are read once an epoch for the early stop.
 Long-tailed data is trained in buckets of similar step counts, so lanes
-pad little. The sequential per-domain loop (``_separate_loop``) is not
+pad little. A model with batch statistics (STAR) gives every lane the
+trainer's current ones, as the JAX package's ``params_fn`` pairs do
+(separate.py:143-195); each lane trains its own, and keeps its best
+statistics with its best weights. The sequential per-domain loop (``_separate_loop``) is not
 ported.
 """
 
@@ -91,9 +94,9 @@ def _separate_bucketed(trainer: Trainer, init_params: bool, params_fn):
 class Lanes(NamedTuple):
     """One separate / finetune run's lanes: lane l trains domain ``ids[l]``."""
     ids: List[int]
-    states: TrainState      # the lanes' start: trainable leaves [L, ...]
+    states: TrainState      # the lanes' start: trainable leaves, batch statistics [L, ...]
     epoch_all: Callable     # (states, block, gen) -> (states, [L] losses)
-    eval_all: Callable      # (params, eval block, steps) -> ([L] losses, [L] AUCs)
+    eval_all: Callable      # (params, eval block, steps, stats) -> ([L] losses, [L] AUCs)
     select_best: Callable   # (best, current, improved [L]) -> best
     block: Dict[str, torch.Tensor]  # the lanes' train rows {col: [L, N_pad]}
     val_block: Dict[str, torch.Tensor]
@@ -140,6 +143,7 @@ def make_lanes(trainer: Trainer, init_params: bool, params_fn=None,
         opt_state=type(opt0)(*(x.expand(n, *x.shape) for x in opt0)),
         seed=lane_seeds(t.draw_seed(), n, t.device),
         step=torch.zeros((n,), dtype=torch.int32, device=t.device),
+        batch_stats=trees.tree_map(lambda x: x.expand(n, *x.shape), t.state.batch_stats),
     )
     longest = lambda mode: max(t.eval_steps_per_domain(mode)[i] for i in ids)  # noqa: E731
     return Lanes(ids, states, epoch_all, eval_all, select_best, block,
@@ -153,26 +157,28 @@ def _separate_fused(trainer: Trainer, init_params: bool, params_fn,
     lanes = make_lanes(t, init_params, params_fn, domains)
     n = len(lanes.ids)
     states = lanes.states
-    best = states.params
+    best, best_stats = states.params, states.batch_stats
     best_auc = np.full(n, -np.inf)
     counter = np.zeros(n, np.int32)
     for _ in range(tc.epoch):
         states, _ = lanes.epoch_all(states, lanes.block, t.gen)
-        _, aucs = lanes.eval_all(states.params, lanes.val_block, lanes.val_steps)
+        _, aucs = lanes.eval_all(states.params, lanes.val_block, lanes.val_steps,
+                                 states.batch_stats)
         aucs = aucs.cpu().numpy()  # the epoch's one host sync
         # A domain out of patience is frozen (the reference's per-domain
         # Keras EarlyStopping ends its fit, base_model.py:79-82): it keeps
         # training in its lane but can no longer replace its best weights.
         improved = (aucs > best_auc + tc.min_delta) & (counter < tc.patience)
         if improved.any():
-            best = lanes.select_best(best, states.params,
-                                     torch.as_tensor(improved, device=t.device))
+            imp = torch.as_tensor(improved, device=t.device)
+            best = lanes.select_best(best, states.params, imp)
+            best_stats = lanes.select_best(best_stats, states.batch_stats, imp)
         best_auc = np.where(improved, aucs, best_auc)
         counter = np.where(improved, 0, counter + 1)
         if (counter >= tc.patience).all():
             break
 
-    losses, aucs = lanes.eval_all(best, lanes.test_block, lanes.test_steps)
+    losses, aucs = lanes.eval_all(best, lanes.test_block, lanes.test_steps, best_stats)
     local_loss, local_auc = t.domain_dicts(losses, aucs)
     domain_loss = {str(g): local_loss[str(i)] for i, g in enumerate(lanes.ids)}
     domain_auc = {str(g): local_auc[str(i)] for i, g in enumerate(lanes.ids)}

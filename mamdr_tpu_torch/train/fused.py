@@ -35,7 +35,14 @@ branches, ``stack_specific`` / ``unstack_specific``, the fused evals and
     loss, so the result is the JAX package's ragged scan's
     (``_make_ragged_eval``). The finetune stage trains its domains as lanes
     through the same lane-batched train step the DR phase uses
-    (``make_fused_separate``).
+    (``make_fused_separate``);
+  - a model's batch statistics (STAR's norms, ``TrainState.batch_stats``)
+    ride in the state: every sequential pass chains them through its steps,
+    domains and query runs, as the JAX package's scans carry them; the
+    accumulators read the state's at fixed params; the evals take one tree
+    every lane reads (each lane its own domain's row), the finetune lanes an
+    [L]-stacked one. The DR lanes would keep only one lane's statistics, so
+    they refuse a state that has any.
 
 The JAX package fuses each phase into one jit dispatch; here a phase is a
 Python loop issuing work to one CUDA stream, and nothing in it waits for the
@@ -57,7 +64,7 @@ from mamdr_tpu_torch.ops.fast_random import lane_seeds
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.train.flat_optimizer import apply_updates
 from mamdr_tpu_torch.train.state import TrainState
-from mamdr_tpu_torch.train.steps import l2_lanes, uncertainty_loss, weighted_bce
+from mamdr_tpu_torch.train.steps import l2_lanes, model_logits, uncertainty_loss, weighted_bce
 from mamdr_tpu_torch.utils import trees
 
 Tree = Any
@@ -259,10 +266,11 @@ def make_fused_reptile(train_step, mask, n_steps: int, batch: int, batch_mode: b
 
 def _grad_epoch_on_flat(grad_fn, params, flat, gen: torch.Generator, n_steps: int,
                         batch: int, acc, mask, accumulate: str = "sum", cap_steps: int = 0,
-                        shuffle: bool = True, real_steps: Optional[int] = None):
+                        shuffle: bool = True, real_steps: Optional[int] = None, stats=None):
     """Accumulate the gradients of one shuffled epoch over a flat column
     block at fixed params (JAX ``_grad_epoch_on_flat``, fused.py:566-622):
-    ``grad_fn(params, batch)`` (``steps.make_accum_grad_fn``: dropout off)
+    ``grad_fn(params, batch, stats)`` (``steps.make_accum_grad_fn``: dropout
+    off, the norms reading ``stats``, a model's batch statistics or None)
     on at most ``cap_steps`` batches (0: all), only the first ``real_steps``
     of them when given. ``accumulate`` "sum" adds each batch's gradient,
     "ema" takes acc*0.999 + g*0.001. Only the leaves ``mask`` marks
@@ -281,7 +289,7 @@ def _grad_epoch_on_flat(grad_fn, params, flat, gen: torch.Generator, n_steps: in
     batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle)
     for s in range(steps):
         b = {k: v[s] for k, v in batches.items()}
-        grads = grad_fn(params, b)
+        grads = grad_fn(params, b, stats)
         new = (ops.ema_accumulate(acc, grads, mask) if accumulate == "ema"
                else ops.tree_add_trees(acc, grads))
         if real_steps is None:
@@ -350,7 +358,8 @@ def make_fused_maml(train_step, grad_fn, mask, meta_tx, n_steps_support: int,
             if mldg:
                 acc = _grad_epoch_on_flat(grad_fn, state.params, sup_flat, gen,
                                           n_steps_support, batch, acc, mask, accumulate,
-                                          cap_steps, shuffle, real_steps=sup_rs)
+                                          cap_steps, shuffle, real_steps=sup_rs,
+                                          stats=state.batch_stats)
                 adapted, meta_opt = meta_step(meta_tx, state.params, meta_opt, acc, mask,
                                               grad_scale)
                 state = state.replace(params=adapted)
@@ -360,7 +369,7 @@ def make_fused_maml(train_step, grad_fn, mask, meta_tx, n_steps_support: int,
                                           real_steps=sup_rs)
             acc = _grad_epoch_on_flat(grad_fn, state.params, q_flat, gen, n_steps_query,
                                       batch, acc, mask, accumulate, cap_steps, shuffle,
-                                      real_steps=q_rs)
+                                      real_steps=q_rs, stats=state.batch_stats)
             if not batch_mode:
                 meta, meta_opt = meta_step(meta_tx, meta, meta_opt, acc, mask, grad_scale)
                 acc = zeros_acc(mask, meta)
@@ -400,13 +409,15 @@ def make_fused_pcgrad(grad_fn, mask, meta_tx, n_steps: int, batch: int, cap_step
             params = state.params
             qg = _grad_epoch_on_flat(grad_fn, params, {k: v[q] for k, v in block.items()},
                                      gen, n_steps, batch, zeros_acc(mask, params), mask, "sum",
-                                     cap_steps, shuffle, real_steps=real(q))
+                                     cap_steps, shuffle, real_steps=real(q),
+                                     stats=state.batch_stats)
             running = qg
             for a in aux_q:
                 a = int(a)
                 ag = _grad_epoch_on_flat(grad_fn, params, {k: v[a] for k, v in block.items()},
                                          gen, n_steps, batch, zeros_acc(mask, params), mask,
-                                         "sum", 0, shuffle, real_steps=real(a))
+                                         "sum", 0, shuffle, real_steps=real(a),
+                                         stats=state.batch_stats)
                 proj = ops.pcgrad_project(running if mode == "reference" else qg, ag, mode)
                 running = ops.tree_add_trees(running, proj)
             new_params, meta_opt = meta_step(meta_tx, params, meta_opt, running, mask,
@@ -543,7 +554,9 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
     meta mask must cover every trainable leaf.
 
     Returns dr_parallel with dr_phase's signature; the returned state is the
-    last lane's.
+    last lane's. A state with batch statistics is refused: they chain
+    through the query domains in the sequential phase, and lanes would keep
+    one lane's.
     """
     steps_of = None if steps_list is None else [int(s) for s in steps_list]
 
@@ -552,6 +565,9 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
 
     def dr_parallel(state: TrainState, shared, specific_stack, block, order, aux, gen,
                     meta_lr):
+        if state.batch_stats:
+            raise ValueError("the DR lanes cannot carry batch statistics, whose lineage "
+                             "chains through the query domains: run the sequential dr_phase")
         device = block["weight"].device
         n_lanes = len(order)
         order_t = torch.as_tensor(np.asarray(order), dtype=torch.long, device=device)
@@ -619,10 +635,13 @@ def make_lane_eval(model, cfg, gather=gather_fields):
     """The one lane-batched eval every eval path runs (JAX ``_make_eval_step``
     and its scans, fused.py:254-336).
 
-    Returns eval_lanes(params, block, steps=None) -> (losses [L], AucState
-    [L, T]). ``params`` ({'model': tree}) holds lane l's weights at index l
-    of every leaf with a lane axis; a leaf without one is read by every lane
-    (the model's ``apply_lanes`` and ``lane_axes``, for any base model).
+    Returns eval_lanes(params, block, steps=None, stats=None) -> (losses [L],
+    AucState [L, T]). ``params`` ({'model': tree}) holds lane l's weights at
+    index l of every leaf with a lane axis; a leaf without one is read by
+    every lane (the model's ``apply_lanes`` and ``lane_axes``, for any base
+    model). ``stats``, a model's batch statistics, likewise: one tree every
+    lane reads (each lane its own batch's domain row) or [L]-stacked; the
+    norms run in eval mode.
     ``block`` is {col: [L, S, B]}; ``steps`` lane-steps
     run (all S by default: a lane's trailing all-pad batches change
     nothing). Per lane: the loss is the total loss (data loss — under
@@ -637,7 +656,7 @@ def make_lane_eval(model, cfg, gather=gather_fields):
     eval through K2 against.
     """
 
-    def eval_lanes(params, block, steps: Optional[int] = None):
+    def eval_lanes(params, block, steps: Optional[int] = None, stats=None):
         mp = params["model"]
         # [S, L, B]: a lane-step's columns contiguous, as K2 takes its ids
         by_step = {k: v.transpose(0, 1).contiguous() for k, v in block.items()}
@@ -652,7 +671,7 @@ def make_lane_eval(model, cfg, gather=gather_fields):
         with torch.no_grad():
             for s in range(steps):
                 b = {k: v[s] for k, v in by_step.items()}
-                logits = model.apply_lanes(mp, b["uid"], b["pid"], b["domain"], gather)
+                logits, _ = model_logits(model, mp, b, None, gather, stats)
                 data = weighted_bce(logits, b["label"], b["weight"])
                 if log_vars is not None:
                     data = uncertainty_loss(data, log_vars, b["domain"])
@@ -668,12 +687,13 @@ def make_lane_eval(model, cfg, gather=gather_fields):
 
 def make_fused_eval(model, cfg):
     """Every domain with one set of weights (JAX ``make_fused_eval``,
-    fused.py:339-367): eval_all(params, block [D, S, B]) -> ([D] losses,
-    [D] AUCs), domain d as lane d, every lane reading ``params``."""
+    fused.py:339-367): eval_all(params, block [D, S, B], stats=None) -> ([D]
+    losses, [D] AUCs), domain d as lane d, every lane reading ``params`` and
+    the batch statistics ``stats``."""
     run = make_lane_eval(model, cfg)
 
-    def eval_all(params, block):
-        losses, counts = run(params, block)
+    def eval_all(params, block, stats=None):
+        losses, counts = run(params, block, stats=stats)
         return losses, auc_result(counts)
 
     return eval_all
@@ -682,15 +702,16 @@ def make_fused_eval(model, cfg):
 def make_fused_eval_merged(model, cfg, mask, merged_method: str):
     """Every domain with its own merged weights (MAMDR's eval, JAX
     ``make_fused_eval_merged``, fused.py:370-425): eval_all(params, shared,
-    specific_stack, block) -> ([D] losses, [D] AUCs), where lane d reads
-    ``load_masked(params, merge(shared, specific[d]))``. The merge is one
-    ``ops.merge_weights`` over the [D]-stacked specific tree, as the DR
-    lanes merge."""
+    specific_stack, block, stats=None) -> ([D] losses, [D] AUCs), where lane d
+    reads ``load_masked(params, merge(shared, specific[d]))`` and the batch
+    statistics ``stats`` (one tree, each lane its own domain's row). The
+    merge is one ``ops.merge_weights`` over the [D]-stacked specific tree,
+    as the DR lanes merge."""
     run = make_lane_eval(model, cfg)
 
-    def eval_all(params, shared, specific_stack, block):
+    def eval_all(params, shared, specific_stack, block, stats=None):
         merged = ops.merge_weights(shared, specific_stack, mask, merged_method)
-        losses, counts = run(ops.load_masked(params, merged, mask), block)
+        losses, counts = run(ops.load_masked(params, merged, mask), block, stats=stats)
         return losses, auc_result(counts)
 
     return eval_all
@@ -704,20 +725,21 @@ def make_fused_separate(train_step, model, cfg, n_steps: int, batch: int, combin
       losses): one shuffled epoch of ``n_steps`` (the longest lane's real
       steps) of every lane through the lane-batched ``train_step``
       (``_epoch_on_flat``); a shorter lane's extra steps are all-pad no-ops;
-    - eval_all(params, eval_block [L, S, B]) -> ([L] losses, [L] AUCs), lane
-      l with lane l's params (``combine`` maps carried params to the full
-      tree, as ``steps.make_subset_train_step``'s does);
+    - eval_all(params, eval_block [L, S, B], steps=None, stats=None) -> ([L]
+      losses, [L] AUCs), lane l with lane l's params (``combine`` maps
+      carried params to the full tree, as ``steps.make_subset_train_step``'s
+      does) and its batch statistics (the lanes' [L]-stacked ones);
     - select_best(best, current, improved [L] bool) -> best with lane l
-      taken from ``current`` where improved[l]; placeholders of frozen
-      leaves (no lane axis) pass through.
+      taken from ``current`` where improved[l], for params or batch
+      statistics; placeholders of frozen leaves (no lane axis) pass through.
     """
     run = make_lane_eval(model, cfg)
 
     def epoch_all(states: TrainState, block, gen: torch.Generator):
         return _epoch_on_flat(train_step, states, block, gen, n_steps, batch)
 
-    def eval_all(params, eval_block, steps: Optional[int] = None):
-        losses, counts = run(combine(params), eval_block, steps)
+    def eval_all(params, eval_block, steps: Optional[int] = None, stats=None):
+        losses, counts = run(combine(params), eval_block, steps, stats)
         return losses, auc_result(counts)
 
     def select_best(best, current, improved: torch.Tensor):

@@ -18,10 +18,14 @@ builds:
     autograd (``make_autograd_loss_grad``) through the model's forward pass
     (one tower) or its lane forward (``apply_lanes``, L lanes), whose field
     gather is K2 with its autograd rule;
+  - the batch statistics of a model with a norm (STAR, ``model.init_stats``):
+    the forward reads them (``model_logits``), a train-mode forward returns
+    them updated, and they ride through the loss gradient as aux, as the
+    JAX package's ``mutable=["batch_stats"]`` does (steps.py:84-113);
   - one train step = the loss gradient, the optimizer (flat Adam, or masked
     SGD in the finetune stage), and the all-pad gate: a batch whose weights
-    sum to 0 leaves params, optimizer slots and ``step`` exactly as they
-    were (steps.py:148-165). The gate is a ``torch.where`` on the device, so
+    sum to 0 leaves params, optimizer slots, batch statistics and ``step``
+    exactly as they were (steps.py:148-165). The gate is a ``torch.where`` on the device, so
     a step never waits for the host. Its dropout seeds are one a dropout
     site of the model (``n_dropout_sites``);
   - the subset lane step (``make_subset_train_step``, steps.py:171-236): the
@@ -29,7 +33,8 @@ builds:
     trainable leaves, with the gate taken per lane;
   - the meta-gradient accumulator's step (``make_accum_grad_fn``,
     steps.py:239-262): the gradient of the total loss at fixed params with
-    dropout off — through K1 at rate 0 where the gate allows.
+    dropout off and the norms in eval mode — through K1 at rate 0 where the
+    gate allows.
 """
 
 from __future__ import annotations
@@ -54,13 +59,14 @@ class StepConfig(NamedTuple):
 
 
 def weighted_bce(logits, labels, weights):
-    """sum(w * bce) / max(sum(w), 1) over the last axis —
-    optax.sigmoid_binary_cross_entropy math; [B] gives [], [L, B] gives [L]."""
-    bce = (
-        torch.clamp(logits, min=0.0)
-        - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
+    """sum(w * bce) / max(sum(w), 1) over the last axis; [B] gives [], [L, B]
+    gives [L]. ``bce`` is optax's ``sigmoid_binary_cross_entropy``,
+    -y log σ(z) - (1 - y) log σ(-z), whose autograd gradient is σ(z) - y at
+    every z: at a logit of exactly 0 (a row whose ReLUs are all dead, under
+    a head with no bias or a zero one) a form through clamp and abs would
+    give 1 - y where ``jax.grad`` gives 0.5 - y."""
+    bce = (-labels * torch.nn.functional.logsigmoid(logits)
+           - (1.0 - labels) * torch.nn.functional.logsigmoid(-logits))
     denom = torch.clamp(torch.sum(weights, dim=-1), min=1.0)
     return torch.sum(bce * weights, dim=-1) / denom
 
@@ -81,44 +87,71 @@ def _l2_term(model_params, l2_emb: float, emb_trainable: bool):
     return l2_emb * total
 
 
-def make_loss_fn(model, cfg: StepConfig, gather=gather_fields):
-    """loss_fn(params, batch, seeds=None, probs=False) -> (loss, data_loss),
-    or (loss, data_loss, probabilities) when ``probs``: the model's forward
-    pass (dropout iff seeds are given; the fields by ``gather``, K2's
-    wrapper by default) and the loss on it."""
+def model_logits(model, model_params, batch, seeds=None, gather=gather_fields,
+                 stats=None, train: bool = False):
+    """(logits, batch statistics): the model's forward on a batch, one tower
+    (columns [B], ``model.apply``) or L lanes (columns [L, B],
+    ``model.apply_lanes``); dropout iff ``seeds`` are given, the fields by
+    ``gather`` (K2's wrapper by default). A model with batch statistics
+    reads ``stats`` and, when ``train``, returns them updated (the norms
+    take the batch's own statistics); for any other model ``stats`` passes
+    through unread."""
+    uid, pid, dom = batch["uid"], batch["pid"], batch["domain"]
+    lanes = uid.dim() == 2
+    if not model.has_batch_stats:
+        logits = (model.apply_lanes(model_params, uid, pid, dom, gather, seeds) if lanes
+                  else model.apply(model_params, uid, pid, dom, seeds, gather))
+        return logits, stats
+    kw = {"stats": stats, "train": train}
+    out = (model.apply_lanes(model_params, uid, pid, dom, gather, seeds, **kw) if lanes
+           else model.apply(model_params, uid, pid, dom, seeds, gather, **kw))
+    return out if train else (out, stats)
 
-    def loss_fn(params, batch, seeds=None, probs: bool = False):
-        logits = model.apply(params["model"], batch["uid"], batch["pid"],
-                             batch["domain"], seeds, gather)
-        data_loss = weighted_bce(logits, batch["label"], batch["weight"])
-        if cfg.uncertainty_weight:
-            data_loss = uncertainty_loss(data_loss, params["uncertainty"]["log_vars"],
+
+def _losses(model, cfg: StepConfig, params, batch, seeds, gather, stats=None,
+            train: bool = False):
+    """(total loss, data loss, logits, batch statistics) of a batch through
+    ``model_logits``: one tower (columns [B]; losses []) or L lanes (columns
+    [L, B]; losses [L], lane l reading its own leaves where they carry a
+    lane axis, ``model.lane_axes``). Under uncertainty weighting var is the
+    ``log_vars`` entry (a lane's own, where they carry a lane axis) for the
+    batch's domain; the l2 term is ``_l2_term``'s, a lane's own tables' over
+    lanes (``l2_lanes``)."""
+    mp = params["model"]
+    logits, new_stats = model_logits(model, mp, batch, seeds, gather, stats, train)
+    data_loss = weighted_bce(logits, batch["label"], batch["weight"])
+    if cfg.uncertainty_weight:
+        data_loss = uncertainty_loss(data_loss, params["uncertainty"]["log_vars"],
                                      batch["domain"])
-        loss = data_loss + _l2_term(params["model"], cfg.l2_emb, cfg.emb_trainable)
+    l2 = (_l2_term(mp, cfg.l2_emb, cfg.emb_trainable) if batch["uid"].dim() == 1
+          else l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable))
+    return data_loss + l2, data_loss, logits, new_stats
+
+
+def make_loss_fn(model, cfg: StepConfig, gather=gather_fields):
+    """loss_fn(params, batch, seeds=None, probs=False, stats=None,
+    train=False) -> (loss, data_loss), then the probabilities when
+    ``probs``, then the batch statistics when ``stats`` is given (a model
+    with a norm: updated when ``train``, else ``stats``): the model's
+    forward pass on one tower's batch (``model_logits``) and the loss on
+    it."""
+
+    def loss_fn(params, batch, seeds=None, probs: bool = False, stats=None,
+                train: bool = False):
+        loss, data_loss, logits, new_stats = _losses(model, cfg, params, batch, seeds, gather,
+                                                     stats, train)
+        out = (loss, data_loss)
         if probs:
-            return loss, data_loss, torch.sigmoid(logits)
-        return loss, data_loss
+            out += (torch.sigmoid(logits),)
+        if stats is not None:
+            out += (new_stats,)
+        return out
 
     return loss_fn
 
 
 def _trainable(name: str, emb_trainable: bool) -> bool:
     return emb_trainable or not ("user_emb" in name or "item_emb" in name)
-
-
-def _lane_loss(model, cfg: StepConfig, params, batch, seeds, gather):
-    """Per-lane total losses and data losses ([L] each) of a lane-stacked
-    batch (columns [L, B]) through the model's lane forward. Lane l's loss
-    reads its own leaves (a leaf with a lane axis, ``model.lane_axes``) or
-    the one every lane reads; under uncertainty weighting var is the lane's
-    ``log_vars`` entry for its batch's domain."""
-    mp = params["model"]
-    logits = model.apply_lanes(mp, batch["uid"], batch["pid"], batch["domain"], gather, seeds)
-    data_loss = weighted_bce(logits, batch["label"], batch["weight"])
-    if cfg.uncertainty_weight:
-        data_loss = uncertainty_loss(data_loss, params["uncertainty"]["log_vars"],
-                                     batch["domain"])
-    return data_loss + l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable), data_loss
 
 
 def uncertainty_loss(data_loss, log_vars, domain):
@@ -152,10 +185,14 @@ def l2_lanes(model, model_params, l2_emb: float, emb_trainable: bool):
 
 
 def make_autograd_loss_grad(model, cfg: StepConfig, gather=gather_fields):
-    """f(params, batch, seeds, train=True) -> (data_loss, grads) by autograd:
-    the contract of ``make_fast_loss_grad``. Batch columns [B] (one tower,
-    through ``make_loss_fn``; ``data_loss`` []) or [L, B] (L lanes, through
-    the model's lane forward ``apply_lanes``; ``data_loss`` [L], seeds
+    """f(params, batch, seeds, train=True, stats=None) -> (data_loss, grads)
+    by autograd: the contract of ``make_fast_loss_grad``; with ``stats``
+    (a model with batch statistics) -> (data_loss, grads, new stats), the
+    statistics updated when ``train`` (the norms then normalise with the
+    batch's own, and the gradient flows through them), read otherwise.
+    Batch columns [B] (one tower, the model's ``apply``; ``data_loss`` [])
+    or [L, B] (L lanes, the model's lane forward ``apply_lanes``;
+    ``data_loss`` [L], seeds
     [L, n_dropout_sites], and ``grads`` the gradient of the SUM of the
     lanes' losses, which are independent: a lane-stacked leaf gets each
     lane's own gradient). ``grads`` has the structure of ``params`` with
@@ -167,9 +204,8 @@ def make_autograd_loss_grad(model, cfg: StepConfig, gather=gather_fields):
     version). The JAX package takes this route (``jax.value_and_grad`` of
     its loss, vmapped over the lanes) wherever its fused kernel is not
     eligible."""
-    loss_fn = make_loss_fn(model, cfg, gather)
 
-    def loss_grad(params, batch, seeds, train: bool = True):
+    def loss_grad(params, batch, seeds, train: bool = True, stats=None):
         def trains(name):
             return _trainable(name, cfg.emb_trainable)
 
@@ -178,12 +214,9 @@ def make_autograd_loss_grad(model, cfg: StepConfig, gather=gather_fields):
         inputs = [x for n, x in trees.leaves_with_names(live) if trains(n)]
         s = seeds if train else None
         with torch.enable_grad():
-            if batch["uid"].dim() == 1:
-                loss, data_loss = loss_fn(live, batch, s)
-            else:
-                loss, data_loss = _lane_loss(model, cfg, live, batch, s, gather)
-                loss = torch.sum(loss)
-            got = iter(torch.autograd.grad(loss, inputs, allow_unused=True))
+            loss, data_loss, _, new_stats = _losses(model, cfg, live, batch, s, gather,
+                                                    stats, train)
+            got = iter(torch.autograd.grad(torch.sum(loss), inputs, allow_unused=True))
 
         def grad_of(name, x):
             if not trains(name):
@@ -191,7 +224,10 @@ def make_autograd_loss_grad(model, cfg: StepConfig, gather=gather_fields):
             g = next(got)
             return torch.zeros_like(x) if g is None else g
 
-        return data_loss.detach(), trees.named_tree_map(grad_of, live)
+        grads = trees.named_tree_map(grad_of, live)
+        if stats is None:
+            return data_loss.detach(), grads
+        return data_loss.detach(), grads, trees.tree_map(torch.Tensor.detach, new_stats)
 
     return loss_grad
 
@@ -201,9 +237,10 @@ def make_loss_grad(model, cfg: StepConfig):
     JAX package's ``maybe_make_fast_loss_grad``, ops/fused_mlp_step.py:220-229):
     the plain MLP without uncertainty weighting takes the fused kernel path
     (``make_fast_loss_grad``: K2, then K1 or K1-lanes), anything else —
-    the other base models, the uncertainty-weighted loss — autograd
-    (``make_autograd_loss_grad``), for one tower or for lanes."""
-    if isinstance(model, MLP) and not cfg.uncertainty_weight:
+    the other base models, a model with batch statistics (STAR), the
+    uncertainty-weighted loss — autograd (``make_autograd_loss_grad``), for
+    one tower or for lanes."""
+    if isinstance(model, MLP) and not model.has_batch_stats and not cfg.uncertainty_weight:
         return make_fast_loss_grad(model, cfg)
     return make_autograd_loss_grad(model, cfg)
 
@@ -222,15 +259,22 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
     from one K2 launch a step. ``combine`` maps the carried params to the
     tree the loss reads (make_subset_train_step). A step draws one dropout
     seed a dropout site of the model (``model.n_dropout_sites``: the MLP's
-    layers; an MTL model's bottom, expert, gate and tower layers)."""
+    layers; an MTL model's bottom, expert, gate and tower layers). A model
+    with batch statistics carries them in ``state.batch_stats`` ([L]-stacked
+    over lanes): the step's forward updates them, under the same gate."""
     if loss_grad is None:
         loss_grad = make_loss_grad(model, cfg)
     n_layers = model.n_dropout_sites
+    has_stats = model.has_batch_stats
 
     def train_step(state: TrainState, batch):
         seeds = step_seeds(state.seed, state.step, n_layers)
         params = state.params if combine is None else combine(state.params)
-        data_loss, grads = loss_grad(params, batch, seeds, train=True)
+        if has_stats:
+            data_loss, grads, new_stats = loss_grad(params, batch, seeds, train=True,
+                                                    stats=state.batch_stats)
+        else:
+            data_loss, grads = loss_grad(params, batch, seeds, train=True)
         updates, new_opt = tx.update(grads, state.opt_state)
         new_params = apply_updates(state.params, updates)
         has_data = torch.sum(batch["weight"], dim=-1) > 0.0  # [] or [L]
@@ -245,6 +289,8 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
             params=trees.tree_map(keep, new_params, state.params),
             opt_state=type(state.opt_state)(
                 *(keep(n, o) for n, o in zip(new_opt, state.opt_state))),
+            batch_stats=(trees.tree_map(keep, new_stats, state.batch_stats) if has_stats
+                         else state.batch_stats),
             step=state.step + has_data.to(state.step.dtype),
         )
         return new_state, data_loss
@@ -282,9 +328,12 @@ def make_subset_train_step(model, tx, cfg: StepConfig, frozen_mask, frozen_full,
 
 
 def make_accum_grad_fn(model, cfg: StepConfig, loss_grad: Optional[Callable] = None):
-    """grad_fn(params, batch) -> grads of the total loss at fixed params with
-    dropout off (JAX ``make_accum_grad_fn``, steps.py:239-262: the
-    reference's accumulate function runs at learning phase 0, maml.py:196-234).
+    """grad_fn(params, batch, stats=None) -> grads of the total loss at fixed
+    params with dropout off and the norms in eval mode, reading ``stats``
+    (a model with batch statistics; any other model ignores it) and leaving
+    them as they are (JAX
+    ``make_accum_grad_fn``, steps.py:239-262: the reference's accumulate
+    function runs at learning phase 0, maml.py:196-234).
     ``grads`` has the structure of ``params`` with ``None`` at frozen tables.
     ``loss_grad`` defaults to ``make_loss_grad``'s choice: for the plain MLP
     kernel K2 and then K1 at dropout rate 0, which builds no mask and is
@@ -293,16 +342,18 @@ def make_accum_grad_fn(model, cfg: StepConfig, loss_grad: Optional[Callable] = N
     if loss_grad is None:
         loss_grad = make_loss_grad(model, cfg)
     n_layers = model.n_dropout_sites
+    has_stats = model.has_batch_stats
     no_seeds = {}  # (device, batch shape) -> zero seeds, never read at rate 0
 
-    def grad_fn(params, batch):
+    def grad_fn(params, batch, stats=None):
         w = batch["weight"]
         key = (w.device, tuple(w.shape[:-1]))
         seeds = no_seeds.get(key)
         if seeds is None:
             seeds = no_seeds[key] = torch.zeros((*w.shape[:-1], n_layers),
                                                 dtype=torch.int64, device=w.device)
-        return loss_grad(params, batch, seeds, train=False)[1]
+        kw = {"stats": stats} if has_stats else {}
+        return loss_grad(params, batch, seeds, train=False, **kw)[1]
 
     return grad_fn
 

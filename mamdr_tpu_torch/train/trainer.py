@@ -122,8 +122,10 @@ class Trainer:
                                    l2_emb=1e-5, emb_trainable=tc.emb_trainable)
         self.tx = make_optimizer(tc.optimizer, tc.learning_rate, params,
                                  tc.emb_trainable, flat=tc.flat_optimizer)
+        # a model with a norm starts from its initial moving statistics (STAR)
+        stats = trees.tree_map(lambda x: x.to(self.device), self.model.init_stats())
         self.state = TrainState.create(params, self.tx.init(params), dropout_seed,
-                                       self.device)
+                                       self.device, batch_stats=stats)
         self._train_block: Optional[Tuple[Dict[str, torch.Tensor], int]] = None
 
         # The finetune stage's optimizer: SGD at lr 1e-3 in the reference
@@ -152,8 +154,7 @@ class Trainer:
         self._eval_epoch_counter = 0
 
     def _build_model(self, generator: torch.Generator):
-        """The config's base model (any of the zoo's but STAR), its init
-        drawn from ``generator``."""
+        """The config's base model, its init drawn from ``generator``."""
         ds = self.dataset
         return build_model(self.config, n_uid=ds.n_uid, n_pid=ds.n_pid,
                            n_domain=ds.n_domain, pretrained_user=ds.user_emb,
@@ -235,7 +236,8 @@ class Trainer:
 
     def fused_eval_fn(self):
         """The all-domain lane eval (fused.make_fused_eval): eval_all(params,
-        block) -> ([D] losses, [D] AUCs), params lane-stacked or shared."""
+        block, stats) -> ([D] losses, [D] AUCs), params lane-stacked or
+        shared, one batch-statistics tree every lane reads."""
         if self._eval_fn is None:
             self._eval_fn = fused.make_fused_eval(self.model, self.step_cfg)
         return self._eval_fn
@@ -244,6 +246,9 @@ class Trainer:
                      params=None) -> Tuple[float, float, Dict, Dict]:
         """Every domain's loss and AUC on a split -> (macro loss, macro AUC,
         per-domain dicts), as one lane eval: domain d is lane d.
+        Every domain reads the state's current batch statistics (its own row
+        of a PartitionedNorm's), as the JAX package's evals do, whatever
+        weights it is given.
 
         ``params_fn(d)`` gives domain d's params (MAMDR's merged weights,
         specific_base_model.py:64-97); they are stacked into lanes, a leaf
@@ -258,7 +263,8 @@ class Trainer:
                 lambda *xs: xs[0] if all(x is xs[0] for x in xs) else torch.stack(xs), *per)
         elif params is None:
             params = self.state.params
-        losses, aucs = self.fused_eval_fn()(params, self.eval_block(mode))
+        losses, aucs = self.fused_eval_fn()(params, self.eval_block(mode),
+                                            stats=self.state.batch_stats)
         return self.summarize(mode, *self.domain_dicts(losses, aucs))
 
     @staticmethod
@@ -297,7 +303,8 @@ class Trainer:
 
     def save_checkpoint(self, params=None) -> None:
         """Keep ``params`` (default: the state's) as the best, on the device,
-        and write them to ``checkpoint_path``."""
+        and write them to ``checkpoint_path``: the params only, no batch
+        statistics, as the JAX package writes them."""
         params = params if params is not None else self.state.params
         self.best_params = params
         checkpoints.save_pytree(self.checkpoint_path, params)

@@ -15,7 +15,10 @@ sample_num) at ``epoch`` 1. The zoo's names (WDL, DeepFM, NFM, AutoInt,
 CCPM, PNN, SharedBottom, MMoE, PLE, and MAMDR on DeepFM and MMoE) take the
 corpus's model block for their name at Taobao_30 (``benchmarks._model_block``:
 the MTL widths and expert counts, AutoInt / CCPM / PNN defaults, dropout
-0.5) on the same data. ``write_domain_tree`` writes
+0.5) on the same data, and so do STAR's (``star``, ``star_meta_mamdr_finetune``:
+PartitionedNorm, StarFCN [256, 128, 64], auxiliary width 64 unused, no
+dropout; MAMDR with ``meta_parms`` ["emb", "kernel_shared", "bias_shared"]
+and ``sample_num`` 5). ``write_domain_tree`` writes
 them in the reference's on-disk layout, which ``MultiDomainDataset.from_disk``
 and the CLI (``python -m mamdr_tpu_torch.run``) read. Used by
 chip_smoke.py and kernel_profile.py.
@@ -51,10 +54,12 @@ MLP_MODELS = ("mlp", "mlp_separate", "mlp_finetune",
 ZOO_MODELS = ("wdl", "deepfm", "nfm", "autoint", "ccpm", "pnn", "shared_bottom", "mmoe",
               "ple")
 ZOO_MAMDR_MODELS = ("deepfm_meta_mamdr_finetune", "mmoe_meta_mamdr_finetune")
-BENCH_MODELS = MLP_MODELS + ZOO_MODELS + ZOO_MAMDR_MODELS
+# STAR, the model with per-domain batch statistics: its two corpus names.
+STAR_MODELS = ("star", "star_meta_mamdr_finetune")
+BENCH_MODELS = MLP_MODELS + ZOO_MODELS + ZOO_MAMDR_MODELS + STAR_MODELS
 # The corpus's per-name train values a bench trainer takes (Taobao_30).
 CORPUS_KEYS = ("learning_rate", "meta_learning_rate", "meta_split", "meta_split_ratio",
-               "sample_num")
+               "sample_num", "meta_parms")
 
 
 def bench_config(dr_parallel: str = "auto", checkpoint_path: str = "checkpoint",

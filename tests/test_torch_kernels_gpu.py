@@ -804,3 +804,98 @@ def test_zoo_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path, name):
     for k, v in cpu[2].items():
         assert abs(card[2][k] - v) <= 1e-3 * abs(v)
         assert abs(card[3][k] - cpu[3][k]) <= 1e-3
+
+
+def _star_trainer(name, tmp_path, device, **train):
+    """A small STAR trainer (PartitionedNorm, StarFCN, the corpus's meta_parms)."""
+    cfg = ExperimentConfig.from_dict({
+        "model": {"name": name, "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                  "hidden_dim": [16, 8], "auxiliary_dim": 8, "norm": "pn", "dense": "star"},
+        "train": {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                  "patience": 2, "learning_rate": 1e-2, "meta_learning_rate": 0.1,
+                  "sample_num": 2, "meta_parms": ["emb", "kernel_shared", "bias_shared"],
+                  "checkpoint_path": str(tmp_path), **train},
+        "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21},
+    })
+    ds = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=100, seed=21,
+                                long_tail=True, batch_size=64)
+    rng = np.random.default_rng(0)
+    ds.user_emb = rng.normal(0, 0.1, (50, 8)).astype(np.float32)
+    ds.item_emb = rng.normal(0, 0.1, (60, 8)).astype(np.float32)
+    return Trainer(cfg, ds, device=device, verbose=False)
+
+
+@pytest.mark.gpu
+def test_star_step_and_finetune_lane_step_through_k2_equal_the_plain_gather(cuda_device,
+                                                                           tmp_path):
+    """STAR's autograd train step (one tower, PartitionedNorm in train mode)
+    and one finetune lane-step (3 domain lanes of SGD, the statistics
+    lane-stacked) through K2 against the same through K2's plain version:
+    the loss, gradients, new params and new statistics within 1e-4 of each
+    tensor's max; one K2 launch each. The domain table's gradient is held
+    to 1e-4 of the step's largest gradient instead: the norm's backward
+    cancels the rows' terms on the domain columns (constant in a one-domain
+    batch), so that gradient is its l2 term (~1e-6) plus the rounding of a
+    sum of terms of the other gradients' size, which K2's scatter-add takes
+    in another order."""
+    from mamdr_tpu_torch.strategies import separate
+    from mamdr_tpu_torch.strategies.base import build_strategy
+    from mamdr_tpu_torch.train.steps import make_autograd_loss_grad, make_subset_train_step
+    from mamdr_tpu_torch.utils.kernel_check import worst_errors
+
+    t = _star_trainer("star_meta_mamdr_finetune", tmp_path, None)
+    cols = {k: v[0, :64] for k, v in t.train_block()[0].items()}
+    gather_fields.launches = 0
+    out_k = make_autograd_loss_grad(t.model, t.step_cfg)(t.state.params, cols, None,
+                                                         stats=t.state.batch_stats)
+    assert gather_fields.launches == 1
+    out_p = make_autograd_loss_grad(t.model, t.step_cfg, gather_fields_reference)(
+        t.state.params, cols, None, stats=t.state.batch_stats)
+    dom_k, dom_p = out_k[1]["model"]["domain_emb"], out_p[1]["model"]["domain_emb"]
+    flat = lambda o: [o[0]] + [g for n, g in trees.leaves_with_names(o[1])
+                               if g is not None and n != "model/domain_emb"] + trees.leaves(o[2])
+    _, rel = worst_errors(flat(out_k), flat(out_p))
+    assert rel <= 1e-4
+    largest = max(float(g.abs().max()) for g in trees.leaves(out_p[1]) if g is not None)
+    assert float((dom_k - dom_p).abs().max()) <= 1e-4 * largest
+
+    lanes = separate.make_lanes(t, init_params=False,
+                                params_fn=build_strategy(t)._best_params_fn)
+    lane_cols = {k: v[:, :64].contiguous() for k, v in lanes.block.items()}
+    frozen = trees.named_tree_map(lambda n, x: "user_emb" in n or "item_emb" in n,
+                                  t.state.params)
+    kernel_step, _, _ = make_subset_train_step(t.model, t.finetune_tx, t.step_cfg, frozen,
+                                               t.state.params)
+    plain_step, _, _ = make_subset_train_step(
+        t.model, t.finetune_tx, t.step_cfg, frozen, t.state.params,
+        loss_grad=make_autograd_loss_grad(t.model, t.step_cfg, gather_fields_reference))
+    gather_fields.lane_launches = 0
+    sk, lk = kernel_step(lanes.states, lane_cols)
+    assert gather_fields.lane_launches == 1
+    sp, lp = plain_step(lanes.states, lane_cols)
+    assert sk.batch_stats["partitioned_norm"]["moving_mean"].shape == (3, 3, 24)
+    state_flat = lambda st, loss: [loss] + [x for x in trees.leaves(st.params)
+                                            if x.dim() > 0] + trees.leaves(st.batch_stats)
+    _, rel = worst_errors(state_flat(sk, lk), state_flat(sp, lp))
+    assert rel <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["star", "star_meta_mamdr_finetune"])
+def test_star_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path, name):
+    """A whole STAR run() through K2 (no K1) against the same run() on the
+    CPU: test loss within 1e-3 relative, AUC within 1e-3. MAMDR's inner
+    optimizer is SGD: PartitionedNorm makes the domain columns' gradients
+    rounding noise, which Adam would scale up differently on the two
+    devices."""
+    from mamdr_tpu_torch.strategies.base import build_strategy
+
+    train = {"optimizer": "sgd", "learning_rate": 0.1} if "mamdr" in name else {}
+    fused_tower_grad.launches = fused_tower_grad_lanes.launches = gather_fields.launches = 0
+    card = build_strategy(_star_trainer(name, tmp_path / "card", None, **train)).run()
+    assert fused_tower_grad.launches == fused_tower_grad_lanes.launches == 0
+    assert gather_fields.launches > 0
+    cpu = build_strategy(_star_trainer(name, tmp_path / "cpu", "cpu", **train)).run()
+    for k, v in cpu[2].items():
+        assert abs(card[2][k] - v) <= 1e-3 * abs(v)
+        assert abs(card[3][k] - cpu[3][k]) <= 1e-3

@@ -118,7 +118,7 @@ REFUSED = [
     ({"model": "mlp_meta_reptile_finetune", "train": {"target_domain": 0}}, "_train_loop",
      "train"),
     ({"model": "deepfm"}, None, "trainer"),
-    ({"model": "star"}, "STAR", "trainer"),
+    ({"model": "star"}, None, "trainer"),
     ({"model": "mlp", "compute_dtype": "bfloat16"}, "compute_dtype", "trainer"),
 ]
 
