@@ -100,6 +100,21 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      (K2 only; MAMDR's DR sequential, 4320 steps), each timed with its train
      epoch, weights and statistics moved and finite, frozen tables the same
      tensors; and a small run() of each on the card against the CPU;
+  5h. the per-call route (Trainer.stack_train_epoch / fit_domain /
+     evaluate_domain) and the loops on it: one per-call train step and one
+     per-call accumulate step through the kernels against the same steps
+     through the plain versions (1e-4), K1 held to its plain version on
+     their operands; run() at bench shapes of mlp_meta_mamdr_finetune under
+     fixed_train (the per-call _train_loop, then _separate_loop as the
+     finetune), mlp_meta_mamdr_batch_finetune with finetune_every_epoch,
+     mlp_meta_domain_negotiation_finetune with target_domain 0 and
+     meta_finetune_step 1 (the meta-finetune lanes: K1-lanes),
+     mlp_meta_maml_finetune with average_meta_grad "drop" and mlp_pcgrad
+     with target_domain 0, each with its launch counts asserted, timed with
+     its train epoch and its host-paced steps, weights moved, frozen tables
+     the same tensors; and a small run() of each, and of
+     star_meta_mamdr_finetune under fixed_train, on the card against the
+     CPU;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -750,7 +765,7 @@ def main() -> int:
 
     # One DR lane-step through the kernels vs the same lane-step through the
     # plain versions: every lane its own merged weights, seeds and batch.
-    frozen_mask = strat._frozen_mask()
+    frozen_mask = trainer.frozen_mask()
     _, to_sub, _ = make_subset_train_step(
         trainer.model, trainer.tx, trainer.step_cfg, frozen_mask, trainer.state.params)
     lane_state = fused.make_lane_state(trainer.state, to_sub(trainer.state.params),
@@ -914,7 +929,7 @@ def main() -> int:
 
     _, _, _, ft_step_err, _, ft_step_note, seen = hold_step(
         lambda tower, gather: make_subset_train_step(
-            trainer.model, trainer.finetune_tx, trainer.step_cfg, strat._frozen_mask(),
+            trainer.model, trainer.finetune_tx, trainer.step_cfg, trainer.frozen_mask(),
             trainer.state.params,
             loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
                                           tower_grad=tower, gather=gather))[0],
@@ -1806,6 +1821,239 @@ def main() -> int:
         print(f"small {name} run() (3 domains, 3 epochs) on the card vs the CPU's plain "
               f"versions: test loss within {loss_rel:.2e} (tol 1e-3 relative), AUC within "
               f"{auc_abs:.2e} (tol 1e-3)")
+    # ---- 5h. the per-call route: fit_domain / evaluate_domain and the loops on it ----
+    # One per-call train step (the first batch of stack_train_epoch: K2, K1,
+    # flat Adam, the gate) and one per-call accumulate step (a batch of
+    # stack_split: K2, K1 at rate 0, the gradient tree) through the kernels
+    # against the same steps through the plain versions; then the run() of
+    # five names that take the per-call loops at bench shapes on the loaded
+    # data (epoch 1, the corpus's values per name), every path driven with the
+    # launch counts at 0 just before it and read just after, each timed with
+    # its train epoch; and a small run() of each, and of
+    # star_meta_mamdr_finetune under fixed_train, on the card against the CPU.
+    from mamdr_tpu_torch.train.steps import make_accum_grad_fn
+
+    def percall_trainer(name, fixed, **train):
+        cfg = bench_config(checkpoint_path=os.path.join(work, "percall", name), model=name)
+        for k, v in train.items():
+            setattr(cfg.train, k, v)
+        disk.fixed_train = fixed
+        return Trainer(cfg, disk, verbose=False)
+
+    trainer = percall_trainer("mlp_meta_mamdr_finetune", True)
+    if trainer.fused_padding_ok(ragged=True):
+        fail("fixed_train did not close the fused passes' gate")
+    pc_cols = {k: v[0] for k, v in trainer.stack_train_epoch(3).items()}
+    zero_counts()
+    trainer.fit_domain(trainer.state, 3, max_steps=1)
+    if counts() != (1, 0, 1) or k2_split() != (1, 0):
+        fail(f"one per-call train step launched (K1, K1-lanes, K2) {counts()}, expected "
+             "(1, 0, 1) with ids [B]")
+    _, pc_lk, pc_lp, pc_step_err, _, pc_step_note, pc_seen = hold_step(
+        lambda tower, gather: make_train_step(
+            trainer.model, trainer.tx, trainer.step_cfg,
+            loss_grad=make_fast_loss_grad(trainer.model, trainer.step_cfg,
+                                          tower_grad=tower, gather=gather)),
+        fused_tower_grad, tower_grad_reference, trainer.state, pc_cols)
+    k1pc = k1_vs_plain(fused_tower_grad, tower_grad_reference, *pc_seen, K1_REL_TOL)
+    print(f"per-call train step (a batch of stack_train_epoch under fixed_train), kernels vs "
+          f"plain versions: loss {float(pc_lk):.6f} vs {float(pc_lp):.6f}, largest difference "
+          f"in loss, mu, nu {pc_step_err:.2e} of the tensor's max (tol {K1_REL_TOL}); "
+          f"{pc_step_note}; K1 on its operands: {report(k1pc)}")
+    acc_cols = {k: v[0] for k, v in trainer.stack_split(disk.train[5], shuffle=True).items()}
+
+    def build_pc_accum(tower, gather):
+        grad_fn = make_accum_grad_fn(trainer.model, trainer.step_cfg, loss_grad=make_fast_loss_grad(
+            trainer.model, trainer.step_cfg, tower_grad=tower, gather=gather))
+        return lambda params, cols: (grad_fn(params, cols), torch.zeros((), device=dev))
+
+    _, _, _, pc_acc_err, _, pc_acc_note, pc_acc_seen = hold_step(
+        build_pc_accum, fused_tower_grad, tower_grad_reference, trainer.state.params, acc_cols,
+        measure=lambda g, _: [x for x in trees.leaves(g) if x is not None])
+    k1pa = k1_vs_plain(fused_tower_grad, tower_grad_reference, *pc_acc_seen, K1_REL_TOL)
+    if pc_acc_seen[6] != 0.0:
+        fail(f"the per-call accumulate step ran K1 at rate {pc_acc_seen[6]}, expected 0")
+    print(f"per-call accumulate step (a batch of stack_split, shuffled), kernels vs plain "
+          f"versions: largest difference in the gradients {pc_acc_err:.2e} of the tensor's "
+          f"max (tol {K1_REL_TOL}); {pc_acc_note}; K1 at rate 0 on its operands: "
+          f"{report(k1pa)}")
+    del trainer
+
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    percall_runs = (
+        ("mlp_meta_mamdr_finetune", True, {}, "fixed_train"),
+        ("mlp_meta_mamdr_batch_finetune", False, {"finetune_every_epoch": True},
+         "finetune_every_epoch"),
+        ("mlp_meta_domain_negotiation_finetune", False,
+         {"target_domain": 0, "meta_finetune_step": 1}, "target_domain 0, meta_finetune_step 1"),
+        ("mlp_meta_maml_finetune", False, {"average_meta_grad": "drop"},
+         'average_meta_grad "drop"'),
+        ("mlp_pcgrad", False, {"target_domain": 0}, "target_domain 0"),
+    )
+    percall_counts = {}  # name -> (K1, K1-lanes, K2, K2 with ids [B], K2 with ids [L, B])
+    percall_s = {}       # name -> (run s, train epoch s, host-paced steps in it)
+    try:
+        for name, fixed, train_kw, what in percall_runs:
+            trainer = percall_trainer(name, fixed, **train_kw)
+            strat = build_strategy(trainer)
+            tc_ = trainer.config.train
+            params0 = trainer.state.params
+            spd_ = trainer.steps_per_domain()
+            ln, d_ = max(spd_), n_domain
+            ev = max(trainer.eval_steps_per_domain("val"))
+            te = max(trainer.eval_steps_per_domain("test"))
+            lanes_ft = ln + ev + te  # the finetune lanes: an epoch, val, test
+            k_ = min(tc_.sample_num, d_ - 1) + int(tc_.add_query_domain)
+            if isinstance(strat, MAMDRStrategy):
+                if strat.use_fused:
+                    fail(f"{name} ({what}) took the fused epoch")
+                k1_want = sum(spd_) + d_ * k_ * 2 * ln  # DN, then DR (balanced domains)
+                if tc_.finetune_every_epoch:
+                    k1_want += sum(spd_)
+                if fixed:  # the finetune: _separate_loop, one epoch a domain
+                    k1_want += sum(spd_)
+                    evals_b = sum(cdiv(s.n, batch) for s in disk.val + disk.test)
+                    want = (k1_want, 0, k1_want + evals_b + ev + te)
+                    split_want = (k1_want + evals_b, ev + te)
+                else:
+                    want = (k1_want, ln, k1_want + ev + te + lanes_ft)
+            elif name == "mlp_meta_domain_negotiation_finetune":
+                # 29 domains, the target appended, one more target epoch; then the
+                # meta-finetune lanes (an epoch, val), test, the finetune lanes
+                k1_want = sum(spd_) + spd_[0]
+                want = (k1_want, 2 * ln, k1_want + ln + ev + te + lanes_ft)
+            elif name == "mlp_meta_maml_finetune":
+                k1_want = sum(cdiv(max(1, int(s.n * tc_.meta_split_ratio)), batch)
+                              + cdiv(s.n - max(1, int(s.n * tc_.meta_split_ratio)), batch)
+                              for s in disk.train)
+                want = (k1_want, ln, k1_want + ev + te + lanes_ft)
+            else:  # PCGrad without the target: each query, then k aux whole epochs
+                k1_want = (d_ - 1) * (1 + min(tc_.sample_num, d_ - 2)) * ln
+                want = (k1_want, 0, k1_want + ev + te)
+            if not (isinstance(strat, MAMDRStrategy) and fixed):
+                split_want = (k1_want, want[2] - k1_want)
+            marks = {}
+            train_fn, tail_fn = strat.train, strat.epoch_tail
+
+            def timed_train(train_fn=train_fn):
+                torch.cuda.synchronize()
+                marks["start"] = time.perf_counter()
+                return train_fn()
+
+            def timed_tail(epoch, tail_fn=tail_fn):
+                torch.cuda.synchronize()
+                marks["epoch"] = time.perf_counter() - marks["start"]
+                marks["steps"] = fused_tower_grad.launches
+                return tail_fn(epoch)
+
+            strat.train, strat.epoch_tail = timed_train, timed_tail
+            spec0 = list(getattr(strat, "specific", []))
+            zero_counts()
+            t0 = time.perf_counter()
+            res = strat.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            got = counts()
+            if got != want:
+                fail(f"{name} ({what}): run() launched (K1, K1-lanes, K2) {got}, expected "
+                     f"{want}")
+            split = k2_split()
+            if split != split_want:
+                fail(f"{name} ({what}): K2 launched {split} times with ids [B] and [L, B], "
+                     f"expected {split_want}")
+            percall_counts[name] = (*got, *split)
+            auc, wauc, loss = checked(res, "test", f"{name} run()")
+            best = trainer.best_params
+            start = params0["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
+            moved = best["model"]["dnn"]["Dense_0"]["Dense_0"]["kernel"]
+            if not bool(torch.isfinite(moved).all()) or torch.equal(moved, start):
+                fail(f"{name}: the trained weights are not finite or did not move")
+            for (n, x), x0 in zip(trees.leaves_with_names(best), trees.leaves(params0)):
+                if ("user_emb" in n or "item_emb" in n) and x is not x0:
+                    fail(f"{name}: the best params' frozen table {n} is not the same tensor")
+            note = ""
+            if spec0:
+                for d in range(n_domain):
+                    leaves_d = [(a, b) for m, a, b in zip(trees.leaves(strat.mask),
+                                                          trees.leaves(strat.specific[d]),
+                                                          trees.leaves(spec0[d])) if m]
+                    if (not any(not torch.equal(a, b) for a, b in leaves_d)
+                            or not all(bool(torch.isfinite(a).all()) for a, _ in leaves_d)):
+                        fail(f"{name}: specific[{d}] did not move or is not finite")
+                note = "; every domain's specific moved and finite"
+            if fixed:
+                for d in range(n_domain):
+                    with np.load(os.path.join(trainer.checkpoint_dir, f"domain_{d}.npz")) as z:
+                        k = z["model//dnn//Dense_0//Dense_0//kernel"]
+                        tables = [z[n].shape for n in z.files if "user_emb" in n or "item_emb" in n]
+                    if (not np.all(np.isfinite(k)) or tables != [(), ()]
+                            or np.array_equal(k, best["model"]["dnn"]["Dense_0"]["Dense_0"]
+                                              ["kernel"].cpu().numpy())):
+                        fail(f"{name}: _separate_loop's domain_{d}.npz: kernel not finite or "
+                             f"not moved from the best weights, frozen tables {tables}")
+                note += ("; _separate_loop finetuned every domain (domain_{d}.npz moved, "
+                         "frozen tables as placeholders)")
+            ep_s, ep_steps = marks["epoch"], marks["steps"]
+            percall_s[name] = (run_s, ep_s, ep_steps)
+            print(f"{name} ({what}) run() at bench shapes on the loaded data, the per-call "
+                  f"loop (an epoch, validation, best checkpoint, test"
+                  f"{', finetune' if strat.spec.finetune else ''}): {run_s:.3f} s; its train "
+                  f"epoch {ep_s:.3f} s, {ep_steps} host-paced steps of K1 (train and "
+                  f"accumulate), {ep_s / ep_steps * 1e6:.1f} us a step, "
+                  f"{disk_train / ep_s:.0f} train rows/s; launches (K1, K1-lanes, K2) {got}, "
+                  f"K2 split {split}; test macro AUC {auc:.6f}, weighted {wauc:.6f}, loss "
+                  f"{loss:.6f}; weights moved, frozen tables the same tensors{note}; {card}")
+            del trainer, strat, params0, start, best, moved, spec0
+            torch.cuda.empty_cache()
+    finally:
+        disk.fixed_train = False
+
+    def small_percall_run(name, train_kw, fixed, device, star=False):
+        # 2-3 batches a domain where every path is per-call (its orders come
+        # from np_rng on both devices); one where a lane route runs too (the
+        # lanes shuffle with the device's own generator)
+        per_call_only = fixed or name == "mlp_pcgrad"
+        model = ({"hidden_dim": [16, 8], "auxiliary_dim": 8, "norm": "pn", "dense": "star"}
+                 if star else {"hidden_dim": [32, 16], "dropout": 0.0})
+        train = {"load_pretrain_emb": True, "emb_trainable": False, "epoch": 3,
+                 "patience": 2, "learning_rate": 1e-2, "sample_num": 2,
+                 "meta_learning_rate": 1e-2 if "maml" in name or "pcgrad" in name else 0.1,
+                 "checkpoint_path": os.path.join(work, "small_percall", name, str(device)),
+                 **train_kw}
+        if "maml" in name:
+            train.update(meta_split="meta-train/val", meta_split_ratio=0.5)
+        if star:  # SGD inner: see small_star_run
+            train.update(optimizer="sgd", learning_rate=0.1,
+                         meta_parms=["emb", "kernel_shared", "bias_shared"])
+        cfg = ExperimentConfig.from_dict({
+            "model": {"name": name, "user_dim": 8, "item_dim": 8, "domain_dim": 8, **model},
+            "train": train, "dataset": {"name": "synthetic", "batch_size": 64, "seed": 21}})
+        small = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60,
+                                       n_per_domain=300 if per_call_only else 100,
+                                       seed=21, long_tail=True, batch_size=64)
+        r = np.random.default_rng(0)
+        small.user_emb = r.normal(0, 0.1, (50, 8)).astype(np.float32)
+        small.item_emb = r.normal(0, 0.1, (60, 8)).astype(np.float32)
+        small.fixed_train = fixed
+        strat_ = build_strategy(Trainer(cfg, small, device=device, verbose=False))
+        if fixed and strat_.trainer.fused_padding_ok(ragged=True):
+            fail(f"small {name}: fixed_train did not close the fused passes' gate")
+        return strat_.run()
+
+    small_percall = [(name, kw, fixed, False) for name, fixed, kw, _ in percall_runs]
+    small_percall.append(("star_meta_mamdr_finetune", {}, True, True))
+    for name, kw, fixed, star in small_percall:
+        on_card = small_percall_run(name, kw, fixed, None, star)
+        on_cpu = small_percall_run(name, kw, fixed, "cpu", star)
+        loss_rel = max(abs(on_card[2][k] - v) / abs(v) for k, v in on_cpu[2].items())
+        auc_abs = max(abs(on_card[3][k] - v) for k, v in on_cpu[3].items())
+        if not (loss_rel <= 1e-3 and auc_abs <= 1e-3):
+            fail(f"small {name} run() on the card vs the CPU: test losses {on_card[2]} vs "
+                 f"{on_cpu[2]}, AUCs {on_card[3]} vs {on_cpu[3]}")
+        print(f"small {name} ({kw or 'fixed_train'}) run() (3 domains, 3 epochs, the "
+              f"per-call loop) on the card vs the CPU's plain versions: test loss within "
+              f"{loss_rel:.2e} (tol 1e-3 relative), AUC within {auc_abs:.2e} (tol 1e-3)")
+
     del disk
     shutil.rmtree(work, ignore_errors=True)
 
@@ -1960,6 +2208,42 @@ def main() -> int:
          "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
          "launches": sum(c[4] for c in star_counts.values()), "max_abs_err": k2l_err,
          "autograd_lane_step_rel_err": star_lane_rel,
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
+        # 5h's per-call runs (MAMDR under fixed_train and with the batch update
+        # and finetune_every_epoch, DN with a target and the meta-finetune
+        # lanes, MAML with "drop", PCGrad with a target): K1 one lane on every
+        # per-call train step (rate 0.5) and accumulate step (rate 0), K2 with
+        # ids [B] on each of them and on every evaluate_domain batch, K1-lanes
+        # and K2 with ids [L, B] in the meta-finetune and finetune lanes and
+        # the lane evals. Errors from 5h's step checks (K1 on the per-call
+        # steps' operands), times from phases 3-4a at the same shapes
+        {"name": "fused_tower_grad (5h's per-call steps and accumulate steps)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": sum(c[0] for c in percall_counts.values()),
+         "max_abs_err": max(k1pc["err"], k1pa["err"]),
+         "relu_edge_units": k1pc["flips"] + k1pa["flips"],
+         "per_call_step_rel_err": pc_step_err, "per_call_accumulate_rel_err": pc_acc_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "bound_by": "operations", "library_ms": None},
+        {"name": "fused_tower_grad_lanes (5h's meta-finetune and finetune lanes)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": sum(c[1] for c in percall_counts.values()), "max_abs_err": k1l_err,
+         "relu_edge_units": k1l_flips, "ms": k1l_ms, "plain_ms": k1l_plain_ms,
+         "bound_ms": k1l_bound, "bound_by": "operations", "library_ms": None},
+        {"name": f"gather_fields (3 fields x {batch} ids, 5h's per-call steps, accumulate "
+                 "steps and evaluate_domain)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[3] for c in percall_counts.values()), "max_abs_err": k2_err,
+         "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": dn_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5h's lanes and evals)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": sum(c[4] for c in percall_counts.values()), "max_abs_err": k2l_err,
          "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
          "bound_by": "bytes", "library_ms": dr_t["library"]},
         # K3's path is the gather probe, which runs it at both sizes: each

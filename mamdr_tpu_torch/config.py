@@ -215,7 +215,7 @@ class TrainConfig:
     # lanes are not ported yet (ROADMAP.md, open items §1).
     dr_lane_chunk: int = 0
     # The finetune / separate lanes (strategies/separate.py); False asks for
-    # the sequential per-domain loop, which is not ported.
+    # the sequential per-domain loop (_separate_loop).
     separate_fused: bool = True
 
 
@@ -233,8 +233,10 @@ class DatasetConfig:
     shuffle_buffer_size: int = 10000
     num_parallel_reads: int = 8
     seed: int = 123
-    # A fixed train order (reference utils/dataset.py:78); refused: the
-    # port's epochs shuffle on the device.
+    # A fixed train order (reference utils/dataset.py:78): from_disk sets
+    # the dataset's attribute, which sends every strategy to its per-call
+    # loop (Trainer.fused_padding_ok); the synthetic data ignore the key, as
+    # the JAX package's do.
     fixed_train: bool = False
     # synthetic-only knobs (used by tests/bench)
     n_domain: int = 3

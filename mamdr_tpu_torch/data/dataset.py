@@ -1,6 +1,6 @@
 """Multi-domain dataset: per-domain splits as packed numpy columns.
 
-A copy of ``DomainSplit``, ``split_support_query`` and
+A copy of ``DomainSplit``, ``stack_batches``, ``split_support_query`` and
 ``MultiDomainDataset`` from ``mamdr_tpu/data/dataset.py``. Each domain split
 is four numpy columns (uid, pid, domain, label — the on-disk CSV schema,
 reference dataset/Amazon/split.py:20); the training engine
@@ -71,6 +71,37 @@ class DomainSplit:
         )
 
 
+def batch_rows(n: int, batch_size: int, shuffle: bool,
+               rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """The row indices of one epoch of an n-row split, [n_steps * batch_size]:
+    ``rng.permutation(n)`` (natural order when not shuffling), the last
+    partial batch padded by wrapping around to the start of that order
+    (modular: a split smaller than the pad tiles repeatedly). Positions from
+    n on are the pad rows, which carry weight 0. One permutation draw, as the
+    JAX package's ``stack_batches`` makes it."""
+    if n == 0:
+        raise ValueError("empty split")
+    order = np.arange(n)
+    if shuffle:
+        assert rng is not None
+        order = rng.permutation(n)
+    n_steps = -(-n // batch_size)
+    return np.concatenate([order, order[np.arange(n_steps * batch_size - n) % n]])
+
+
+def stack_batches(split: DomainSplit, batch_size: int, shuffle: bool,
+                  rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
+    """One epoch packed into [n_steps, batch_size] numpy columns (JAX
+    ``stack_batches``, dataset.py:90-120, bit for bit, pad rows included):
+    the rows of ``batch_rows``, weight 1 on the real rows, 0 on the pad."""
+    idx = batch_rows(split.n, batch_size, shuffle, rng)
+    weight = np.ones(idx.shape[0], np.float32)
+    weight[split.n:] = 0.0
+    out = {k: getattr(split, k)[idx] for k in COLUMNS}
+    out["weight"] = weight
+    return {k: v.reshape(-1, batch_size) for k, v in out.items()}
+
+
 def split_support_query(split: DomainSplit, mode: str, ratio: float,
                         rng: np.random.Generator):
     """Support/query division for the meta strategies (reference
@@ -128,7 +159,9 @@ class MultiDomainDataset:
         self.seed = seed
         self.batch_size = batch_size
         self.ctr_ratio = ctr_ratio or {}
-        self.fixed_train = fixed_train  # refused by Trainer
+        # a stable train order: the trainer's fused passes shuffle, so it
+        # routes every strategy to its per-call loop (Trainer.fused_padding_ok)
+        self.fixed_train = fixed_train
 
     @property
     def dataset_info(self) -> Dict:

@@ -49,7 +49,16 @@ On one CUDA card, from the repository root. Prints
      one finetune lane-step (30 domain lanes of SGD, the statistics
      lane-stacked; 12 lane-steps): per step the wall time, device busy
      time, idle share, CUDA launches and the kernels and host ops that take
-     the most time (printed after part 7).
+     the most time (printed after part 7);
+  9. the per-call route (``Trainer.fit_domain`` / ``evaluate_domain``, the
+     loops' path): one ``fit_domain`` epoch of domain 0 (12 steps: the
+     np_rng order uploaded, the batches gathered on the device, K2, K1,
+     flat Adam), one MAML ``accumulate_split`` of domain 0's train split in
+     the "drop" mode (12 accumulate steps: K2, K1 at rate 0, the hash
+     masks) and one ``evaluate_domain`` of domain 0's val split (4 eval
+     steps, K2 with ids [B], the AUC, one host read): per step the wall
+     time, device busy time, idle share, CUDA launches and the kernels and
+     host ops that take the most time (printed after part 8).
 
 Every line names the card and its power limit.
 """
@@ -310,6 +319,28 @@ def main() -> int:
               lambda: slanes.epoch_all(slanes.states, slanes.block, st.gen),
               st.steps_per_domain()[0], host_top=8)
     del st, sstrat, sblock, sflat0, sstep, slanes
+    torch.cuda.empty_cache()
+
+    # ---- 9. the per-call route: fit_domain, accumulate_split, evaluate_domain ----
+    from mamdr_tpu_torch.strategies.base import build_strategy
+
+    pt = build_bench_trainer("mlp_meta_maml_finetune", checkpoint_path=ckpt,
+                             dataset=trainer.dataset)
+    pt.config.train.average_meta_grad = "drop"
+    pstrat = build_strategy(pt)
+    per_call = pt.steps_per_domain()[0]
+    breakdown("per-call train step (fit_domain: the order uploaded, K2, K1, flat Adam)",
+              lambda: pt.fit_domain(pt.state, 0), per_call, unit="step", host_top=8)
+    split0 = pt.dataset.train[0]
+    breakdown('per-call accumulate step (accumulate_split, "drop": K2, K1 at rate 0, hash masks)',
+              lambda: pstrat.accumulate_split(pt.state.params, split0,
+                                              fused.zeros_acc(pstrat.mask, pt.state.params),
+                                              cap=False),
+              per_call, unit="step", host_top=8)
+    breakdown("per-call eval step (evaluate_domain: K2 with ids [B], the AUC, one read)",
+              lambda: pt.evaluate_domain("val", 0, pt.state.params, pt.state.batch_stats),
+              pt.eval_steps_per_domain("val")[0], unit="step", host_top=8)
+    del pt, pstrat
     torch.cuda.empty_cache()
 
     # ---- 4. the same DR phase, sequential ----

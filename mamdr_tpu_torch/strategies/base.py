@@ -8,8 +8,9 @@ per-domain finetune stage. ``build_strategy`` dispatches joint (with
 uncertainty weighting too), separate, PCGrad, MAML, MLDG, Domain
 Negotiation, Reptile and MAMDR, on every base model the port builds (the
 lanes of separate, finetune and DR take K1-lanes for the plain MLP and the
-autograd lane step otherwise); a setting whose path is not ported yet is
-refused, naming its ROADMAP item.
+autograd lane step otherwise), each by its fused passes or by its
+per-call loop over ``Trainer.fit_domain``; a setting whose path is not
+ported yet is refused, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,18 +22,8 @@ from mamdr_tpu_torch.train.trainer import Trainer
 Result = Tuple[float, float, Dict, Dict]
 
 
-def _refuse_unported(trainer: Trainer) -> None:
-    """Raise for a strategy setting whose path the port does not have yet."""
-    tc, spec = trainer.config.train, trainer.config.spec
-    if spec.finetune and not tc.separate_fused:
-        raise NotImplementedError(
-            "separate_fused=false: the sequential per-domain finetune loop is not "
-            "ported yet (ROADMAP.md, open items §1: _separate_loop)")
-
-
 class Strategy:
     def __init__(self, trainer: Trainer):
-        _refuse_unported(trainer)
         self.trainer = trainer
         self.config = trainer.config
         self.spec = trainer.config.spec

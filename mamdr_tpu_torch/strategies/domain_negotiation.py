@@ -9,28 +9,28 @@ domain without reset (optimizer slots carried throughout; each domain's
 epoch at most ``meta_train_step`` steps), then meta += (θ_final - meta) *
 meta_lr (``fused.make_fused_dn``: K1 and K2 on every step on the card),
 followed by the validation, early stop and best snapshot of every meta epoch
-(``MetaStrategy.epoch_tail``). A target domain, and a train block past the
-fused pass's memory budget, take the JAX package's per-call loop, which is
-not ported and is refused.
+(``MetaStrategy.epoch_tail``). A target domain, a fixed train order or a
+train block past the fused pass's memory budget take the per-call loop
+(``_train_loop``, JAX :61-93): the target domain is appended to the
+sequence, its epoch uncapped, and after the outer update one more epoch on
+it (``fit_target_domain``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.train import fused
 
 
 class DomainNegotiationStrategy(MetaStrategy):
     def train(self) -> None:
-        t = self.trainer
-        if self.target_domain >= 0 or not t.fused_padding_ok(ragged=True):
-            raise NotImplementedError(
-                "DN with a target domain, or with a train block past the fused pass's "
-                "memory budget, takes the JAX package's per-call loop, which is not ported "
-                "yet (ROADMAP.md, open items §1: _train_loop)")
-        self._train_fused()
+        if self.target_domain < 0 and self.trainer.fused_padding_ok(ragged=True):
+            self._train_fused()
+        else:
+            self._train_loop()
 
     def _train_fused(self) -> None:
         t = self.trainer
@@ -48,5 +48,33 @@ class DomainNegotiationStrategy(MetaStrategy):
             t.state, self.meta, _ = dn_epoch(
                 t.state, self.meta, block, np.asarray(sequence, np.int32), t.gen,
                 float(self.tc.meta_learning_rate))
+            if self.epoch_tail(epoch):
+                break
+
+    def _train_loop(self) -> None:
+        t = self.trainer
+        self.meta = t.state.params
+        sequence = self.meta_sequence()
+        for epoch in range(self.tc.epoch):
+            if t.verbose:
+                print(f"Epoch: {epoch}", "-" * 30)
+            if self.tc.shuffle_sequence:
+                t.np_rng.shuffle(sequence)
+            train_sequence = list(sequence)
+            if self.target_domain >= 0:
+                train_sequence.append(self.target_domain)
+            # meta loaded once an epoch; the domains chain without reset
+            t.state = t.state.replace(params=ops.load_masked(t.state.params, self.meta,
+                                                             self.mask))
+            for idx in train_sequence:
+                cap = self.tc.meta_train_step if idx != self.target_domain else 0
+                t.state, loss = t.fit_domain(t.state, idx, max_steps=cap)
+                if t.verbose:
+                    print(f"Train on: Domain {idx}, Loss: {float(loss):.4f}")
+            self.meta = ops.reptile_update(self.meta, t.state.params,
+                                           float(self.tc.meta_learning_rate), self.mask)
+            t.state = t.state.replace(params=ops.load_masked(t.state.params, self.meta,
+                                                             self.mask))
+            t.state = self.fit_target_domain(t.state)
             if self.epoch_tail(epoch):
                 break

@@ -6,9 +6,10 @@ model_zoo/DeepCTR/deepctr.py:63-93. Per epoch: shuffle the domain order
 without reset (``fused.make_fused_passes``: K1 and K2 on every step on the
 card), the ``train_epoch`` metrics event, validation of every domain, the
 early stop on the macro val AUC with the best weights kept, and, when
-verbose, the best weights' test report. The per-domain loop of the JAX
-package (``Trainer.fit_domain``, taken past the block's memory budget) is
-not ported and is refused.
+verbose, the best weights' test report. Where the fused pass does not
+apply (``Trainer.fused_padding_ok``: a fixed train order, or a block past
+its memory budget) the epoch is the per-domain loop of ``Trainer.fit_domain``
+calls (JAX joint.py:59-63), which logs no train event, as there.
 """
 
 from __future__ import annotations
@@ -22,23 +23,27 @@ from mamdr_tpu_torch.train import fused
 class JointStrategy(Strategy):
     def train(self) -> None:
         t = self.trainer
-        if not t.fused_padding_ok(ragged=True):
-            raise NotImplementedError(
-                "the train block is past the fused pass's memory budget; the per-domain "
-                "loop (Trainer.fit_domain) is not ported yet "
-                "(ROADMAP.md, open items §1: _train_loop)")
-        block, n_steps = t.train_block()
-        sequential_pass = fused.make_fused_passes(
-            t.train_step_fn(), n_steps, t.dataset.batch_size, steps_list=t.steps_per_domain())
+        use_fused = t.fused_padding_ok(ragged=True)
+        if use_fused:
+            block, n_steps = t.train_block()
+            sequential_pass = fused.make_fused_passes(
+                t.train_step_fn(), n_steps, t.dataset.batch_size,
+                steps_list=t.steps_per_domain())
         sequence = list(range(self.n_domain))
         for epoch in range(self.tc.epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
-            t.state, losses = sequential_pass(t.state, block, np.asarray(sequence, np.int32),
-                                              t.gen)
-            t.metrics.log("train_epoch", epoch=epoch, domain_loss={
-                str(sequence[i]): float(v) for i, v in enumerate(losses.cpu().numpy())})
+            if use_fused:
+                t.state, losses = sequential_pass(t.state, block,
+                                                  np.asarray(sequence, np.int32), t.gen)
+                t.metrics.log("train_epoch", epoch=epoch, domain_loss={
+                    str(sequence[i]): float(v) for i, v in enumerate(losses.cpu().numpy())})
+            else:
+                for idx in sequence:
+                    if t.verbose:
+                        print(f"Train on: Domain {idx}")
+                    t.state, _ = t.fit_domain(t.state, idx)
             if t.verbose:
                 print("Val Result: ")
             _, avg_auc, _, _ = t.val_and_test("val")

@@ -16,9 +16,20 @@ lane when eligible (train/fused.py). After each epoch: the merged
 per-domain validation (domain d evaluates merge(shared, specific[d])), the
 early stop and the best snapshot (best_shared, best_specific); test uses the
 snapshot, and the finetune stage trains every domain from its merged best
-weights with SGD (strategies/separate.py). The per-call loop of the JAX
-package (``_train_loop``: batch updates, finetune_every_epoch, a target
-domain) is not ported and is refused.
+weights with SGD (strategies/separate.py).
+
+The batch update (``*_batch`` names), ``finetune_every_epoch``, a target
+domain, a fixed train order and a train block past the fused passes'
+memory budget take the per-call loop (``_train_loop``, JAX :523-614): the
+same epoch over ``Trainer.fit_domain`` calls — DN through the sequence; DR
+per query q with its support draws, each support run loading merge(shared,
+specific[q]), an epoch on the support domain and at most
+``domain_regulation_step`` steps on q, then specific[q] += (θ - merged) *
+meta_lr (``scaled_add_from``), or under the batch update one
+specific[q] += Σ dr_accumulate / sample_num * meta_lr; with
+``finetune_every_epoch`` one more epoch on q from its merged weights, which
+sets specific[q] = θ - merged. A validation with ``meta_finetune_step > 0``
+is the base class's meta-finetune validation from ``t.state``.
 """
 
 from __future__ import annotations
@@ -62,8 +73,8 @@ class MAMDRStrategy(MetaStrategy):
             ]
         self.best_shared = self.shared
         self.best_specific = list(self.specific)
-        # The fused epoch covers the shipped DN+DR recipe; the JAX package's
-        # per-call loop takes the other variants (train() refuses them).
+        # The fused epoch covers the shipped DN+DR recipe; the per-call loop
+        # takes the other variants.
         self.use_fused = (
             not self.spec.batch_update
             and not self.tc.finetune_every_epoch
@@ -71,16 +82,6 @@ class MAMDRStrategy(MetaStrategy):
             and trainer.fused_padding_ok(ragged=True)
         )
         self._eval_merged = None
-
-    def _frozen_mask(self):
-        """True at the leaves the optimizer never trains (the user/item
-        tables when emb_trainable is false, the wide term's linear ones
-        too: every path holding "user_emb" or "item_emb", as in the JAX
-        package)."""
-        return trees.named_tree_map(
-            lambda n, x: (not self.tc.emb_trainable)
-            and ("user_emb" in n or "item_emb" in n),
-            self.trainer.state.params)
 
     def _dr_parallel_eligible(self) -> bool:
         """Gate for the query-domain-lanes DR phase (fused.make_fused_dr_parallel).
@@ -122,7 +123,7 @@ class MAMDRStrategy(MetaStrategy):
                     "dr_phase")
             return False
         params = self.trainer.state.params
-        frozen = self._frozen_mask()
+        frozen = self.trainer.frozen_mask()
         uncovered = [n for (n, m), f in zip(trees.leaves_with_names(self.mask),
                                             trees.leaves(frozen)) if not (m or f)]
         if uncovered:
@@ -153,7 +154,7 @@ class MAMDRStrategy(MetaStrategy):
         self.dr_lanes = self._dr_parallel_eligible()
         if self.dr_lanes:
             sub_step, to_sub, combine = make_subset_train_step(
-                t.model, t.tx, t.step_cfg, self._frozen_mask(), t.state.params)
+                t.model, t.tx, t.step_cfg, self.trainer.frozen_mask(), t.state.params)
             self._dr_phase = fused.make_fused_dr_parallel(
                 sub_step, to_sub, combine, self.mask, method, n_steps, batch,
                 reg_step, steps_list=steps_list)
@@ -240,6 +241,8 @@ class MAMDRStrategy(MetaStrategy):
         return t.summarize(mode, *t.domain_dicts(losses, aucs))
 
     def validate(self):
+        if self.tc.meta_finetune_step > 0:
+            return super().validate()
         if self.trainer.verbose:
             print("Val Result: ")
         return self._merged_eval("val", self.shared, self.specific)
@@ -267,12 +270,10 @@ class MAMDRStrategy(MetaStrategy):
     # ---------------- training ----------------
 
     def train(self) -> None:
-        if not self.use_fused:
-            raise NotImplementedError(
-                "this MAMDR variant (batch update, finetune_every_epoch, a target domain, "
-                "or a train block past 4 GB) takes the JAX package's per-call loop, which "
-                "is not ported yet (ROADMAP.md, open items §1: _train_loop)")
-        self._train_fused()
+        if self.use_fused:
+            self._train_fused()
+        else:
+            self._train_loop()
 
     def _train_fused(self) -> None:
         """tc.epoch fused epochs, each followed by the validation, early stop
@@ -285,3 +286,64 @@ class MAMDRStrategy(MetaStrategy):
             self.run_fused_epoch()
             if self.epoch_tail(epoch):
                 break
+
+    def _train_loop(self) -> None:
+        t = self.trainer
+        m, method = self.mask, self.tc.merged_method
+        sequence = self.meta_sequence()
+        meta_lr = float(self.tc.meta_learning_rate)
+        batch_mode = self.spec.batch_update
+        for epoch in range(self.tc.epoch):
+            if t.verbose:
+                print(f"Epoch: {epoch}", "-" * 30)
+            if self.tc.shuffle_sequence:
+                t.np_rng.shuffle(sequence)
+
+            # phase 1: DN on shared
+            t.state = t.state.replace(params=ops.load_masked(t.state.params, self.shared, m))
+            for idx in sequence:
+                t.state, _ = t.fit_domain(t.state, idx)
+            self.shared = ops.reptile_update(self.shared, t.state.params, meta_lr, m)
+
+            # phase 2: DR on specific
+            for idx in sequence:
+                candidates = [d for d in sequence if d != idx]
+                aux_idxs = list(t.np_rng.choice(
+                    candidates, size=min(self.tc.sample_num, len(candidates)), replace=False))
+                if self.tc.add_query_domain:
+                    aux_idxs.append(idx)
+                merged = ops.merge_weights(self.shared, self.specific[idx], m, method)
+                acc = (trees.tree_map(lambda mm, x: torch.zeros_like(x) if mm else x,
+                                      m, self.shared) if batch_mode else None)
+                for aux_idx in aux_idxs:
+                    if t.verbose:
+                        print(f"Support Domain: {aux_idx}, Query Domain: {idx}")
+                    t.state = t.state.replace(params=ops.load_masked(t.state.params, merged, m))
+                    t.state, _ = t.fit_domain(t.state, int(aux_idx))  # the support epoch
+                    t.state, _ = t.fit_domain(t.state, idx,  # the query, capped
+                                              max_steps=self.tc.domain_regulation_step)
+                    if batch_mode:
+                        acc = ops.dr_accumulate(acc, t.state.params, merged, self.shared, m,
+                                                method)
+                    else:
+                        self.specific[idx] = self.scaled_add_from(
+                            self.specific[idx], t.state.params, merged, meta_lr)
+                        merged = ops.merge_weights(self.shared, self.specific[idx], m, method)
+                if batch_mode:
+                    self.specific[idx] = ops.scaled_add(self.specific[idx], acc,
+                                                        meta_lr / self.tc.sample_num, m)
+                if self.tc.finetune_every_epoch:
+                    merged = ops.merge_weights(self.shared, self.specific[idx], m, method)
+                    t.state = t.state.replace(params=ops.load_masked(t.state.params, merged, m))
+                    t.state, loss = t.fit_domain(t.state, idx)
+                    if t.verbose:
+                        print(f"Train on: Domain {idx}, Loss: {float(loss):.4f}")
+                    self.specific[idx] = ops.specific_from_adapted(
+                        t.state.params, merged, self.specific[idx], m)
+            if self.epoch_tail(epoch):
+                break
+
+    def scaled_add_from(self, specific, adapted, merged, lr):
+        """specific += (adapted - merged) * lr on masked leaves (reference
+        mamdr.py:173-180, merged as the base; JAX :601-614)."""
+        return ops.specific_update(specific, adapted, merged, lr, self.mask)

@@ -21,9 +21,15 @@ slot and pass through by reference.
 
 ``average_meta_grad``: "none" sums; "mean" divides by
 n_domain * meta_train_step at the apply, only when meta_train_step > 0
-(maml.py:206-211); "moving_mean" accumulates acc*0.999 + g*0.001. "drop",
-a target domain, and a train block past the fused pass's memory budget take
-the JAX package's per-call loop, which is not ported and is refused.
+(maml.py:206-211); "moving_mean" accumulates acc*0.999 + g*0.001; "drop"
+adds each gradient after inverted dropout (p 0.2) of its 1-D leaves
+(``fused.accumulate_grads``: hash masks seeded from ``Trainer.draw_seed``). "drop", a target domain, a fixed train order
+and a train block past the fused pass's memory budget take the per-call
+loop (``_train_loop``, JAX :147-186): the same epoch over
+``Trainer.fit_domain`` (the support epoch) and ``accumulate_split`` (the
+query gradients, a fresh order from ``np_rng`` each call), with a target
+domain's train split as every query and a whole epoch on it after each
+outer update (``fit_target_domain``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 
 from mamdr_tpu_torch.data.dataset import split_support_query
+from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.flat_optimizer import flat_adam
@@ -53,18 +60,17 @@ class MAMLStrategy(MetaStrategy):
 
     def accumulate_split(self, params, split, acc, cap: bool = True, stats=None):
         """Add the gradients over one split at fixed params to ``acc`` (JAX
-        ``accumulate_split``): the split's rows in an order drawn from
-        ``np_rng`` (as the JAX package's ``stack_batches`` draws it), at most
-        ``meta_train_step`` batches when ``cap``; the norms read ``stats``
-        (a model's batch statistics)."""
+        ``accumulate_split``): the split's batches in an order drawn from
+        ``np_rng`` (``Trainer.stack_split``, shuffled whatever
+        ``fixed_train`` says, as the JAX package's is), at most
+        ``meta_train_step`` of them when ``cap``, through ``fused.grad_epoch``
+        in the ``average_meta_grad`` mode; the norms read ``stats`` (a model's
+        batch statistics)."""
         t = self.trainer
-        order = t.np_rng.permutation(split.n)
-        block, n_steps = fused.stack_domains_on_device([split.take(order)],
-                                                       t.dataset.batch_size, t.device)
-        return fused._grad_epoch_on_flat(
-            t.accum_grad_fn, params, {k: v[0] for k, v in block.items()}, t.gen, n_steps,
-            t.dataset.batch_size, acc, self.mask, self._accumulate(),
-            self.tc.meta_train_step if cap else 0, shuffle=False, stats=stats)
+        stacked = t.stack_split(split, shuffle=True,
+                                max_steps=self.tc.meta_train_step if cap else 0)
+        return fused.grad_epoch(t.accum_grad_fn, params, stacked, acc, self.mask,
+                                self._accumulate(), stats, drop_seeds=t.draw_seed)
 
     def meta_apply(self, meta, grads):
         """meta + one meta-Adam step on grads * grad_scale() (masked leaves)."""
@@ -73,18 +79,15 @@ class MAMLStrategy(MetaStrategy):
         return new_meta
 
     def _accumulate(self) -> str:
-        return "ema" if self.tc.average_meta_grad == "moving_mean" else "sum"
+        """The accumulate mode of ``average_meta_grad`` (JAX trainer.py:129)."""
+        return {"moving_mean": "ema", "drop": "drop"}.get(self.tc.average_meta_grad, "sum")
 
     def train(self) -> None:
-        t = self.trainer
-        if (self.target_domain >= 0 or self.tc.average_meta_grad == "drop"
-                or not t.fused_padding_ok(ragged=True)):
-            raise NotImplementedError(
-                f"{self.spec.raw!r} with a target domain, average_meta_grad 'drop', or a "
-                "train block past the fused pass's memory budget takes the JAX package's "
-                "per-call loop, which is not ported yet (ROADMAP.md, open items §1: "
-                "_train_loop)")
-        self._train_fused()
+        if (self.target_domain < 0 and self.tc.average_meta_grad != "drop"
+                and self.trainer.fused_padding_ok(ragged=True)):
+            self._train_fused()
+        else:
+            self._train_loop()
 
     def _train_fused(self) -> None:
         t = self.trainer
@@ -115,5 +118,41 @@ class MAMLStrategy(MetaStrategy):
             t.state, self.meta, self.meta_opt_state = maml_epoch(
                 t.state, self.meta, self.meta_opt_state, sup_block, q_block,
                 np.asarray(sequence, np.int32), t.gen, self.grad_scale())
+            if self.epoch_tail(epoch):
+                break
+
+    def _train_loop(self) -> None:
+        t = self.trainer
+        sequence = self.domain_sequence()
+        batch_mode = self.spec.batch_update
+        # splits drawn once before training (reference build_meta_data_split,
+        # maml.py:294-341), in domain order
+        splits = {idx: self.support_query(idx) for idx in sequence}
+        acc = fused.zeros_acc(self.mask, self.meta)
+        for epoch in range(self.tc.epoch):
+            if t.verbose:
+                print(f"Epoch: {epoch}", "-" * 30)
+            t.np_rng.shuffle(sequence)
+            for idx in sequence:
+                support, query = splits[idx]
+                t.state = t.state.replace(params=ops.load_masked(t.state.params, self.meta,
+                                                                 self.mask))
+                # inner adaptation from meta with the model's own optimizer
+                t.state, loss = t.fit_domain(t.state, idx, split=support,
+                                             max_steps=self.tc.meta_train_step)
+                if t.verbose:
+                    print(f"Train on: Domain {idx}, Loss: {float(loss):.4f}")
+                # the query's gradients at the adapted weights
+                acc = self.accumulate_split(t.state.params, query, acc,
+                                            stats=t.state.batch_stats)
+                if not batch_mode:
+                    self.meta = self.meta_apply(self.meta, acc)
+                    acc = fused.zeros_acc(self.mask, self.meta)
+            if batch_mode:
+                self.meta = self.meta_apply(self.meta, acc)
+                acc = fused.zeros_acc(self.mask, self.meta)
+            t.state = t.state.replace(params=ops.load_masked(t.state.params, self.meta,
+                                                             self.mask))
+            t.state = self.fit_target_domain(t.state)
             if self.epoch_tail(epoch):
                 break

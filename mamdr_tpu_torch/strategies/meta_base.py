@@ -1,9 +1,16 @@
 """Shared machinery for the meta strategies: the meta-parameter mask, the
-domain sequence, the support/query split, and the validation / early-stop
-tail of every meta epoch (counterpart of
-``mamdr_tpu/strategies/meta_base.py:24-94, 96-230``). The
-meta-finetune validation (``meta_finetune_step > 0``) is not ported and is
-refused."""
+domain sequence, the support/query split, the target domain's epoch, the
+meta-finetune validation, and the validation / early-stop tail of every
+meta epoch (counterpart of ``mamdr_tpu/strategies/meta_base.py:24-94,
+96-230, 253-260``).
+
+The meta-finetune validation (``meta_finetune_step > 0``, reference
+maml.py:245-287) trains every domain ``meta_finetune_step`` epochs from the
+trainer's current state — params, batch statistics, the model's live Adam
+slots and step — and scores its val split; ``t.state`` is left as it was.
+All domains run as lanes through the lane step (K1-lanes for the plain MLP,
+the autograd lane step otherwise) when the ragged gate allows, else one
+after another through ``Trainer.fit_domain`` / ``evaluate_domain``."""
 
 from __future__ import annotations
 
@@ -11,6 +18,8 @@ from typing import Dict, List, Tuple
 
 from mamdr_tpu_torch.data.dataset import split_support_query
 from mamdr_tpu_torch.strategies.base import Strategy
+from mamdr_tpu_torch.train import fused
+from mamdr_tpu_torch.train.steps import make_subset_train_step
 from mamdr_tpu_torch.train.trainer import Trainer
 from mamdr_tpu_torch.utils import trees
 
@@ -18,10 +27,6 @@ from mamdr_tpu_torch.utils import trees
 class MetaStrategy(Strategy):
     def __init__(self, trainer: Trainer):
         super().__init__(trainer)
-        if self.tc.meta_finetune_step > 0:
-            raise NotImplementedError(
-                f"meta_finetune_step={self.tc.meta_finetune_step}: the meta-finetune "
-                "validation is not ported yet (ROADMAP.md, open items §1: meta_finetune_val)")
         self.mask = trees.meta_parm_mask(trainer.state.params, self.tc.meta_parms)
         # Meta params are drawn from TRAINABLE weights only (reference
         # maml.py:159 iterates model.trainable_weights): frozen user/item
@@ -73,9 +78,65 @@ class MetaStrategy(Strategy):
     def val_params_fn(self, idx: int):
         return self.trainer.state.params
 
+    def meta_finetune_val(self) -> Tuple[float, float, Dict, Dict]:
+        """Every domain finetuned ``meta_finetune_step`` epochs from
+        ``t.state``, then its val split (JAX ``meta_finetune_val``,
+        meta_base.py:100-124): as lanes when the ragged gate allows
+        (``_meta_finetune_val_fused``), else domain by domain."""
+        t = self.trainer
+        if t.fused_padding_ok(ragged=True):
+            return self._meta_finetune_val_fused()
+        domain_loss, domain_auc = {}, {}
+        for idx in range(self.n_domain):
+            state = t.state
+            for _ in range(self.tc.meta_finetune_step):
+                state, _ = t.fit_domain(state, idx)
+            loss, auc = t.evaluate_domain("val", idx, state.params, state.batch_stats)
+            domain_loss[str(idx)], domain_auc[str(idx)] = loss, auc
+        return self._finish_meta_finetune_val(domain_loss, domain_auc)
+
+    def _finish_meta_finetune_val(self, domain_loss, domain_auc):
+        """(macro loss, macro AUC, dicts), printed when verbose; like the
+        JAX package's, it logs no metrics event."""
+        avg_loss = sum(domain_loss.values()) / len(domain_loss)
+        avg_auc = sum(domain_auc.values()) / len(domain_auc)
+        if self.trainer.verbose:
+            print("Loss: ", domain_loss)
+            print("AUC: ", domain_auc)
+            print(f"Overall val Loss: {avg_loss}, AUC: {avg_auc}")
+        return avg_loss, avg_auc, domain_loss, domain_auc
+
+    def _meta_finetune_val_fused(self) -> Tuple[float, float, Dict, Dict]:
+        """Every domain a lane (JAX ``_meta_finetune_val_fused``,
+        meta_base.py:136-198): each lane starts from ``t.state``'s params
+        (frozen tables shared, ``make_subset_train_step``), batch statistics,
+        Adam slots and step, with its own dropout seed; ``meta_finetune_step``
+        shuffled epochs of the train block through the lane step with the
+        model's optimizer (a shorter domain's extra lane-steps are all-pad
+        no-ops), then one lane eval of the val block."""
+        t = self.trainer
+        d = self.n_domain
+        train_step, to_sub, combine = make_subset_train_step(
+            t.model, t.tx, t.step_cfg, t.frozen_mask(), t.state.params)
+        block, n_steps = t.train_block()
+        epoch_all, eval_all, _ = fused.make_fused_separate(
+            train_step, t.model, t.step_cfg, n_steps, t.dataset.batch_size, combine)
+        copies = trees.tree_map(lambda x: False, t.state.params)  # every leaf its own lanes
+        states = fused.make_lane_state(t.state, to_sub(t.state.params), copies, d)
+        states = states.replace(batch_stats=trees.tree_map(
+            lambda x: x.expand(d, *x.shape), t.state.batch_stats))
+        for _ in range(self.tc.meta_finetune_step):
+            states, _ = epoch_all(states, block, t.gen)
+        losses, aucs = eval_all(states.params, t.eval_block("val"), stats=states.batch_stats)
+        return self._finish_meta_finetune_val(*t.domain_dicts(losses, aucs))
+
     def validate(self) -> Tuple[float, float, Dict, Dict]:
+        """The meta-finetune validation when ``meta_finetune_step > 0``, else
+        every domain's val split with ``val_params_fn``'s weights."""
         if self.trainer.verbose:
             print("Val Result: ")
+        if self.tc.meta_finetune_step > 0:
+            return self.meta_finetune_val()
         return self.trainer.val_and_test("val", params_fn=self.val_params_fn)
 
     def epoch_tail(self, epoch: int) -> bool:
@@ -98,3 +159,13 @@ class MetaStrategy(Strategy):
 
     def save_best(self) -> None:
         self.trainer.save_checkpoint()
+
+    def fit_target_domain(self, state):
+        """A whole epoch on the target domain after the outer update, when
+        there is one (reference maml.py:125-128, domain_negotiation.py:90-94;
+        JAX meta_base.py:253-260)."""
+        if self.target_domain >= 0:
+            if self.trainer.verbose:
+                print(f"Train on target domain: {self.target_domain}")
+            state, _ = self.trainer.fit_domain(state, self.target_domain)
+        return state

@@ -1,8 +1,9 @@
 """Weight-space algebra for the strategy control plane.
 
 Counterpart of ``mamdr_tpu/strategies/ops.py`` (load_masked, reptile_update,
-delta_accumulate, scaled_add, merge_weights, tree_where_mask_zero,
-ema_accumulate, pcgrad_project, tree_add_trees): masked leaf-wise ops over
+delta_accumulate, scaled_add, merge_weights, specific_from_adapted,
+dr_accumulate, tree_where_mask_zero, ema_accumulate, pcgrad_project,
+tree_add_trees): masked leaf-wise ops over
 parameter trees. Masks select the strategy's meta parameters
 (utils.trees.meta_parm_mask) and are trees of python bools.
 
@@ -76,6 +77,28 @@ def specific_update(specific: Tree, adapted: Tree, merged: Tree, lr, mask: Tree)
     return trees.tree_map(
         lambda m, sp, a, mg: sp + (a - mg) * lr if m else sp,
         mask, specific, adapted, merged)
+
+
+def specific_from_adapted(adapted: Tree, merged: Tree, specific: Tree, mask: Tree) -> Tree:
+    """specific = adapted - merged on masked leaves (MAMDR's
+    finetune_every_epoch update, reference mamdr.py:168-171); unmasked
+    leaves keep the old specific's."""
+    return trees.tree_map(lambda m, sp, a, mg: (a - mg) if m else sp,
+                          mask, specific, adapted, merged)
+
+
+def dr_accumulate(acc: Tree, adapted: Tree, merged: Tree, shared: Tree, mask: Tree,
+                  method: str = "plus") -> Tree:
+    """MAMDR's batch-mode DR accumulation (reference mamdr.py:182-190) on
+    masked leaves: plus, acc += adapted - merged; times, acc += (adapted -
+    merged) * shared."""
+    if method == "plus":
+        return trees.tree_map(lambda m, c, a, mg: c + (a - mg) if m else c,
+                              mask, acc, adapted, merged)
+    if method == "times":
+        return trees.tree_map(lambda m, c, a, mg, sh: c + (a - mg) * sh if m else c,
+                              mask, acc, adapted, merged, shared)
+    raise ValueError(f"unknown merged_method {method!r}")
 
 
 def tree_where_mask_zero(tree: Tree, mask: Tree) -> Tree:

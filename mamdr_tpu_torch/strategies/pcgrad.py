@@ -15,28 +15,28 @@ the projection fires on dot > 0 and divides by ||g|| (pcgrad.py:152-160;
 the published rule: dot < 0 and ||g||²), and each aux gradient is
 projected against the RUNNING sum, not the query's (``final_grads =
 current_grads`` aliases the arrays, pcgrad.py:102-103). Mode "paper" is
-the published rule. A target domain, or a train block past the fused
-pass's memory budget, takes the JAX package's per-call loop, which is not
-ported and is refused.
+the published rule. A target domain, a fixed train order or a train block
+past the fused pass's memory budget take the per-call loop
+(``_train_loop``, JAX :93-132): each gradient pass is an
+``accumulate_split`` (its own order from ``np_rng``), the aux draws
+interleaved with them, the aux epochs uncapped.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.maml import MAMLStrategy
 from mamdr_tpu_torch.train import fused
 
 
 class PCGradStrategy(MAMLStrategy):
     def train(self) -> None:
-        t = self.trainer
-        if self.target_domain >= 0 or not t.fused_padding_ok(ragged=True):
-            raise NotImplementedError(
-                "PCGrad with a target domain, or with a train block past the fused pass's "
-                "memory budget, takes the JAX package's per-call loop, which is not ported "
-                "yet (ROADMAP.md, open items §1: _train_loop)")
-        self._train_fused()
+        if self.target_domain < 0 and self.trainer.fused_padding_ok(ragged=True):
+            self._train_fused()
+        else:
+            self._train_loop()
 
     def _train_fused(self) -> None:
         t = self.trainer
@@ -67,6 +67,39 @@ class PCGradStrategy(MAMLStrategy):
             t.state, self.meta_opt_state = pcgrad_epoch(
                 t.state, self.meta_opt_state, block, np.asarray(sequence, np.int32), aux,
                 t.gen, self.grad_scale())
+            self.meta = t.state.params
+            if self.epoch_tail(epoch):
+                break
+
+    def _train_loop(self) -> None:
+        t = self.trainer
+        sequence = self.domain_sequence()
+        mode = self.tc.pcgrad_mode
+        splits = {idx: self.support_query(idx)[0] for idx in sequence}  # drawn once
+        for epoch in range(self.tc.epoch):
+            if t.verbose:
+                print(f"Epoch: {epoch}", "-" * 30)
+            t.np_rng.shuffle(sequence)
+            for idx in sequence:
+                params, stats = t.state.params, t.state.batch_stats
+                query_grads = self.accumulate_split(
+                    params, splits[idx], fused.zeros_acc(self.mask, params), stats=stats)
+                running = query_grads
+                candidates = [d for d in sequence if d != idx]
+                aux_idxs = t.np_rng.choice(candidates,
+                                           size=min(self.tc.sample_num, len(candidates)),
+                                           replace=False)
+                for aux_idx in aux_idxs:
+                    if t.verbose:
+                        print(f"Support Domain: {aux_idx}, Query Domain: {idx}")
+                    # the aux domain's support split, a whole epoch (pcgrad.py:116-120)
+                    aux_grads = self.accumulate_split(
+                        params, splits[int(aux_idx)], fused.zeros_acc(self.mask, params),
+                        cap=False, stats=stats)
+                    base = running if mode == "reference" else query_grads
+                    running = ops.tree_add_trees(running,
+                                                 ops.pcgrad_project(base, aux_grads, mode))
+                t.state = t.state.replace(params=self.meta_apply(params, running))
             self.meta = t.state.params
             if self.epoch_tail(epoch):
                 break

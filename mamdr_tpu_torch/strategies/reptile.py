@@ -8,28 +8,30 @@ reference's SetVarOp assigns weights only), then meta += (adapted - meta) *
 meta_lr; the "batch" variant (``*_batch`` model names) accumulates the
 deltas over the domains and applies them once at the epoch's end, scaled by
 meta_lr (``fused.make_fused_reptile``: K1 and K2 on every step on the card).
-Each epoch ends with ``MetaStrategy.epoch_tail``. A target domain, and a
-train block past the fused pass's memory budget, take the JAX package's
-per-call loop, which is not ported and is refused.
+Each epoch ends with ``MetaStrategy.epoch_tail``. A target domain, a fixed
+train order or a train block past the fused pass's memory budget take the
+per-call loop (``_train_loop``, JAX :55-96): there a target domain gets a
+one-step nudge after each domain's inner epoch (reference reptile.py:83-87)
+and a whole epoch after the outer update (``fit_target_domain``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.train import fused
+from mamdr_tpu_torch.utils import trees
 
 
 class ReptileStrategy(MetaStrategy):
     def train(self) -> None:
-        t = self.trainer
-        if self.target_domain >= 0 or not t.fused_padding_ok(ragged=True):
-            raise NotImplementedError(
-                "Reptile with a target domain, or with a train block past the fused pass's "
-                "memory budget, takes the JAX package's per-call loop, which is not ported "
-                "yet (ROADMAP.md, open items §1: _train_loop)")
-        self._train_fused()
+        if self.target_domain < 0 and self.trainer.fused_padding_ok(ragged=True):
+            self._train_fused()
+        else:
+            self._train_loop()
 
     def _train_fused(self) -> None:
         t = self.trainer
@@ -47,5 +49,39 @@ class ReptileStrategy(MetaStrategy):
             t.state, self.meta, _ = reptile_epoch(
                 t.state, self.meta, block, np.asarray(sequence, np.int32), t.gen,
                 float(self.tc.meta_learning_rate))
+            if self.epoch_tail(epoch):
+                break
+
+    def _train_loop(self) -> None:
+        t = self.trainer
+        m = self.mask
+        meta_lr = float(self.tc.meta_learning_rate)
+        self.meta = t.state.params
+        sequence = self.domain_sequence()
+        batch_mode = self.spec.batch_update
+        for epoch in range(self.tc.epoch):
+            if t.verbose:
+                print(f"Epoch: {epoch}", "-" * 30)
+            t.np_rng.shuffle(sequence)
+            acc = (trees.tree_map(lambda mm, x: torch.zeros_like(x) if mm else x, m, self.meta)
+                   if batch_mode else None)
+            for idx in sequence:
+                t.state = t.state.replace(params=ops.load_masked(t.state.params, self.meta, m))
+                # the domain's whole train split (reference reptile.py:144-155),
+                # at most meta_train_step batches
+                t.state, loss = t.fit_domain(t.state, idx, max_steps=self.tc.meta_train_step)
+                if t.verbose:
+                    print(f"Train on: Domain {idx}, Loss: {float(loss):.4f}")
+                if self.target_domain >= 0:
+                    # one step on the target inside the domain loop
+                    t.state, _ = t.fit_domain(t.state, self.target_domain, max_steps=1)
+                if batch_mode:
+                    acc = ops.delta_accumulate(acc, t.state.params, self.meta, m)
+                else:
+                    self.meta = ops.reptile_update(self.meta, t.state.params, meta_lr, m)
+            if batch_mode:
+                self.meta = ops.scaled_add(self.meta, acc, meta_lr, m)
+            t.state = t.state.replace(params=ops.load_masked(t.state.params, self.meta, m))
+            t.state = self.fit_target_domain(t.state)
             if self.epoch_tail(epoch):
                 break

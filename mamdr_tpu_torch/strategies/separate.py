@@ -1,7 +1,7 @@
 """Per-domain separate training and the post-hoc finetune stage, as lanes.
 
-Counterpart of ``mamdr_tpu/strategies/separate.py`` (:26-215, the fused and
-bucketed routes). Reference: BaseModel.separate_train_val_test
+Counterpart of ``mamdr_tpu/strategies/separate.py`` (:26-307: the fused and
+bucketed routes and ``_separate_loop``). Reference: BaseModel.separate_train_val_test
 (base_model.py:41-109):
 
   - ``init_params=True`` (the "separate" strategy): every domain starts from
@@ -22,8 +22,16 @@ Long-tailed data is trained in buckets of similar step counts, so lanes
 pad little. A model with batch statistics (STAR) gives every lane the
 trainer's current ones, as the JAX package's ``params_fn`` pairs do
 (separate.py:143-195); each lane trains its own, and keeps its best
-statistics with its best weights. The sequential per-domain loop (``_separate_loop``) is not
-ported.
+statistics with its best weights.
+
+``separate_fused: false``, and lanes past the memory budget (or a fixed
+train order), take the sequential per-domain loop (``_separate_loop``):
+domain by domain through ``Trainer.fit_domain`` / ``evaluate_domain``,
+starting from the trainer's optimizer state (``init_params``; it is the
+fresh one when the separate strategy starts) or from a fresh finetune
+optimizer state, with the same early stop. Its ``domain_{d}.npz`` files
+hold what the lanes' do: the trainable leaves, a 0-d placeholder at each
+frozen table.
 """
 
 from __future__ import annotations
@@ -43,25 +51,23 @@ from mamdr_tpu_torch.utils import trees
 
 
 def separate_train_val_test(trainer: Trainer, init_params: bool = True,
-                            params_fn: Optional[Callable[[int], dict]] = None):
+                            params_fn: Optional[Callable[[int], dict]] = None,
+                            max_finetune_epochs: Optional[int] = None):
     """Returns (avg_loss, avg_auc, domain_loss, domain_auc) over the test
     splits. ``params_fn(d)`` gives domain d's starting weights (default: the
-    trainer's current ones). Every lane runs up to ``train.epoch`` epochs.
-    The lanes run all domains at once when padding them to the longest is
-    cheap (``Trainer.fused_padding_ok``), else in buckets of similar step
-    counts."""
+    trainer's current ones). Every domain runs up to ``max_finetune_epochs``
+    epochs (None: ``train.epoch``). The lanes run all domains at once when
+    padding them to the longest is cheap (``Trainer.fused_padding_ok``),
+    else in buckets of similar step counts; ``separate_fused: false`` or a
+    block past the memory budget takes ``_separate_loop``."""
     t = trainer
     if not t.config.train.separate_fused:
-        raise NotImplementedError(
-            "separate_fused=false: the sequential per-domain loop is not ported yet "
-            "(ROADMAP.md, open items §1: _separate_loop)")
+        return _separate_loop(t, init_params, params_fn, max_finetune_epochs)
     if t.fused_padding_ok():
-        return _separate_fused(t, init_params, params_fn)
+        return _separate_fused(t, init_params, params_fn, max_finetune_epochs)
     if t.fused_padding_ok(ragged=True):
-        return _separate_bucketed(t, init_params, params_fn)
-    raise NotImplementedError(
-        "the train block is past the lanes' memory budget; the sequential per-domain "
-        "loop is not ported yet (ROADMAP.md, open items §1: _separate_loop)")
+        return _separate_bucketed(t, init_params, params_fn, max_finetune_epochs)
+    return _separate_loop(t, init_params, params_fn, max_finetune_epochs)
 
 
 MAX_BUCKET_RATIO = 2.0  # the JAX package's step_buckets default
@@ -81,11 +87,12 @@ def step_buckets(steps: List[int]) -> List[List[int]]:
     return buckets
 
 
-def _separate_bucketed(trainer: Trainer, init_params: bool, params_fn):
+def _separate_bucketed(trainer: Trainer, init_params: bool, params_fn, max_epochs=None):
     domain_loss: Dict[str, float] = {}
     domain_auc: Dict[str, float] = {}
     for bucket in step_buckets(trainer.steps_per_domain()):
-        _, _, dl, da = _separate_fused(trainer, init_params, params_fn, domains=bucket)
+        _, _, dl, da = _separate_fused(trainer, init_params, params_fn, max_epochs,
+                                       domains=bucket)
         domain_loss.update(dl)
         domain_auc.update(da)
     return trainer.summarize("test", domain_loss, domain_auc)
@@ -113,11 +120,8 @@ def make_lanes(trainer: Trainer, init_params: bool, params_fn=None,
     t = trainer
     tc = t.config.train
     tx = t.tx if init_params else t.finetune_tx
-    frozen_mask = trees.named_tree_map(
-        lambda n, x: (not tc.emb_trainable) and ("user_emb" in n or "item_emb" in n),
-        t.state.params)
     train_step, to_sub, combine = make_subset_train_step(
-        t.model, tx, t.step_cfg, frozen_mask, t.state.params)
+        t.model, tx, t.step_cfg, t.frozen_mask(), t.state.params)
 
     ids = list(range(t.dataset.n_domain)) if domains is None else [int(d) for d in domains]
     block, n_steps = t.train_block()
@@ -150,7 +154,7 @@ def make_lanes(trainer: Trainer, init_params: bool, params_fn=None,
                  val_block, longest("val"), test_block, longest("test"))
 
 
-def _separate_fused(trainer: Trainer, init_params: bool, params_fn,
+def _separate_fused(trainer: Trainer, init_params: bool, params_fn, max_epochs=None,
                     domains: Optional[List[int]] = None):
     t = trainer
     tc = t.config.train
@@ -160,7 +164,7 @@ def _separate_fused(trainer: Trainer, init_params: bool, params_fn,
     best, best_stats = states.params, states.batch_stats
     best_auc = np.full(n, -np.inf)
     counter = np.zeros(n, np.int32)
-    for _ in range(tc.epoch):
+    for _ in range(max_epochs or tc.epoch):
         states, _ = lanes.epoch_all(states, lanes.block, t.gen)
         _, aucs = lanes.eval_all(states.params, lanes.val_block, lanes.val_steps,
                                  states.batch_stats)
@@ -192,3 +196,61 @@ def _separate_fused(trainer: Trainer, init_params: bool, params_fn,
     if domains is not None:
         return 0.0, 0.0, domain_loss, domain_auc
     return t.summarize("test", domain_loss, domain_auc)
+
+
+def _separate_loop(trainer: Trainer, init_params: bool = True, params_fn=None,
+                   max_epochs: Optional[int] = None):
+    """Every domain on its own, one after another (JAX ``_separate_loop``,
+    separate.py:234-307): from ``params_fn(d)`` (default: the trainer's
+    params) and the trainer's batch statistics, with the trainer's optimizer
+    state and step (``init_params``) or a fresh finetune optimizer state;
+    up to ``max_epochs`` (None: ``train.epoch``) epochs of ``fit_domain``,
+    each followed by the domain's val AUC; the best weights and statistics
+    are those of the last epoch that beat the best by more than
+    ``min_delta``, and ``patience`` epochs without one stop the domain; then
+    its test split with them. Like the JAX loop it prints the table but logs
+    no metrics event."""
+    t = trainer
+    tc = t.config.train
+    to_sub = None
+    if tc.domain_checkpoints:
+        frozen = t.frozen_mask()
+        to_sub = lambda p: trees.tree_map(  # noqa: E731
+            lambda f, x: x.new_zeros(()) if f else x, frozen, p)
+    domain_loss: Dict[str, float] = {}
+    domain_auc: Dict[str, float] = {}
+    for idx in range(t.dataset.n_domain):
+        params = t.state.params if params_fn is None else params_fn(idx)
+        state = t.state.replace(params=params)
+        if not init_params:  # a fresh optimizer state a domain (Keras recompile)
+            state = state.replace(opt_state=t.finetune_tx.init(params))
+        if t.verbose:
+            print(f"Train on domain: {idx}")
+        best_auc = None
+        best_params, best_stats = state.params, state.batch_stats
+        counter = 0
+        for _ in range(max_epochs or tc.epoch):
+            state, _ = t.fit_domain(state, idx, finetune=not init_params)
+            _, val_auc = t.evaluate_domain("val", idx, state.params, state.batch_stats)
+            if best_auc is None or val_auc > best_auc + tc.min_delta:
+                best_auc, counter = val_auc, 0
+                best_params, best_stats = state.params, state.batch_stats
+            else:
+                counter += 1
+                if counter >= tc.patience:
+                    break
+        loss, auc = t.evaluate_domain("test", idx, best_params, best_stats)
+        domain_loss[str(idx)], domain_auc[str(idx)] = loss, auc
+        if to_sub is not None:
+            checkpoints.save_pytree(osp.join(t.checkpoint_dir, f"domain_{idx}.npz"),
+                                    to_sub(best_params))
+    avg_loss = sum(domain_loss.values()) / len(domain_loss)
+    avg_auc = sum(domain_auc.values()) / len(domain_auc)
+    if t.verbose:
+        print("Loss: ", domain_loss)
+        print("AUC: ")
+        for k, v in domain_auc.items():
+            print(f"{k}: {v}")
+        w = t.weighted_auc("test", domain_auc)
+        print(f"Overall test Loss: {avg_loss}, AUC: {avg_auc}, Weighted AUC: {w}")
+    return avg_loss, avg_auc, domain_loss, domain_auc

@@ -52,7 +52,7 @@ stay on the device, and the caller reads them once at the end.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +60,7 @@ import torch
 from mamdr_tpu_torch.data.dataset import DomainSplit
 from mamdr_tpu_torch.metrics.auc import auc_init, auc_result, auc_update
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
-from mamdr_tpu_torch.ops.fast_random import lane_seeds
+from mamdr_tpu_torch.ops.fast_random import dropout_mask, lane_seeds
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.train.flat_optimizer import apply_updates
 from mamdr_tpu_torch.train.state import TrainState
@@ -264,40 +264,84 @@ def make_fused_reptile(train_step, mask, n_steps: int, batch: int, batch_mode: b
     return reptile_epoch
 
 
+ACCUMULATE_MODES = ("sum", "ema", "drop")
+DROP_RATE = 0.2  # average_meta_grad "drop": Dropout(0.2) on 1-D gradients
+
+
+def accumulate_grads(acc, grads, mask, accumulate: str, drop_seed: Optional[int] = None):
+    """acc with one batch's gradients added (JAX ``grad_epoch``'s step,
+    steps.py:307-324): "sum" adds them, "ema" takes acc*0.999 + g*0.001,
+    "drop" adds them after inverted dropout of every 1-D gradient leaf (each
+    element kept with p = 0.8 and scaled by 1/0.8, the others 0; leaves of
+    higher rank untouched). The drop masks are hash masks
+    (``fast_random.dropout_mask``) seeded from ``drop_seed``, one seed a leaf
+    made on the device (``lane_seeds``): the same on the card and the CPU,
+    and nothing read back. jax.random's stream is not reproduced. Only the
+    leaves ``mask`` marks accumulate; ``acc`` holds ``None`` at the others."""
+    if accumulate == "ema":
+        return ops.ema_accumulate(acc, grads, mask)
+    if accumulate == "drop":
+        if drop_seed is None:
+            raise ValueError('accumulate "drop" needs a drop_seed')
+        pairs = [(a, g) for a, g in zip(trees.leaves(acc), trees.leaves(grads))
+                 if a is not None and g.dim() == 1]
+        seeds = iter(lane_seeds(drop_seed, len(pairs), pairs[0][1].device)) if pairs else None
+
+        def drop(a, g):
+            if a is None or g.dim() != 1:
+                return g
+            keep = dropout_mask(next(seeds), DROP_RATE, g.shape)
+            return torch.where(keep, g / (1.0 - DROP_RATE), 0.0)
+
+        grads = trees.tree_map(drop, acc, grads)
+    return ops.tree_add_trees(acc, grads)
+
+
+def grad_epoch(grad_fn, params, stacked, acc, mask, accumulate: str = "sum", stats=None,
+               gate: bool = False, drop_seeds: Optional[Callable[[], int]] = None):
+    """Accumulate the gradients of every [B] batch of ``stacked`` ({col: [S,
+    B]}) at fixed params into ``acc`` (JAX ``grad_epoch``, steps.py:295-340):
+    ``grad_fn(params, batch, stats)`` (``steps.make_accum_grad_fn``), then
+    ``accumulate_grads``; under "drop", ``drop_seeds()`` gives each batch's
+    seed (a host int: ``Trainer.draw_seed``). With ``gate`` an all-pad batch
+    leaves the accumulator untouched (a ``torch.where`` on the device)."""
+    if accumulate not in ACCUMULATE_MODES:
+        raise ValueError(f"unknown accumulate mode {accumulate!r}")
+    for s in range(stacked["weight"].shape[0]):
+        b = {k: v[s] for k, v in stacked.items()}
+        seed = drop_seeds() if accumulate == "drop" else None
+        new = accumulate_grads(acc, grad_fn(params, b, stats), mask, accumulate, seed)
+        if gate:
+            has_data = torch.sum(b["weight"]) > 0.0
+            new = trees.tree_map(lambda n, a: None if a is None else torch.where(has_data, n, a),
+                                 new, acc)
+        acc = new
+    return acc
+
+
 def _grad_epoch_on_flat(grad_fn, params, flat, gen: torch.Generator, n_steps: int,
                         batch: int, acc, mask, accumulate: str = "sum", cap_steps: int = 0,
-                        shuffle: bool = True, real_steps: Optional[int] = None, stats=None):
+                        shuffle: bool = True, real_steps: Optional[int] = None, stats=None,
+                        drop_seeds: Optional[Callable[[], int]] = None):
     """Accumulate the gradients of one shuffled epoch over a flat column
     block at fixed params (JAX ``_grad_epoch_on_flat``, fused.py:566-622):
-    ``grad_fn(params, batch, stats)`` (``steps.make_accum_grad_fn``: dropout
-    off, the norms reading ``stats``, a model's batch statistics or None)
-    on at most ``cap_steps`` batches (0: all), only the first ``real_steps``
-    of them when given. ``accumulate`` "sum" adds each batch's gradient,
-    "ema" takes acc*0.999 + g*0.001. Only the leaves ``mask`` marks
-    accumulate; ``acc`` holds ``None`` at the others and they stay so.
+    ``grad_epoch`` on at most ``cap_steps`` batches (0: all), only the first
+    ``real_steps`` of them when given, with ``accumulate`` "sum", "ema" or
+    "drop" (``accumulate_grads``, its seeds from ``drop_seeds``).
 
     The shuffle keeps the weight-0 pad tail last, so the batches run are the
     domain's real ones and the sum is that of its ceil(n/B) weighted means.
     An all-pad batch leaves the accumulator untouched (a gate on the device);
     with ``real_steps`` no run batch is all-pad (real rows sort first), so
     the gate is left out there."""
-    if accumulate not in ("sum", "ema"):
+    if accumulate not in ACCUMULATE_MODES:
         raise ValueError(f"unknown accumulate mode {accumulate!r}")
     steps = n_steps if cap_steps <= 0 else min(cap_steps, n_steps)
     if real_steps is not None:
         steps = min(steps, int(real_steps))
     batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle)
-    for s in range(steps):
-        b = {k: v[s] for k, v in batches.items()}
-        grads = grad_fn(params, b, stats)
-        new = (ops.ema_accumulate(acc, grads, mask) if accumulate == "ema"
-               else ops.tree_add_trees(acc, grads))
-        if real_steps is None:
-            gate = torch.sum(b["weight"]) > 0.0
-            new = trees.tree_map(lambda n, a: None if a is None else torch.where(gate, n, a),
-                                 new, acc)
-        acc = new
-    return acc
+    return grad_epoch(grad_fn, params, batches, acc, mask, accumulate, stats,
+                      gate=real_steps is None, drop_seeds=drop_seeds)
 
 
 def zeros_acc(mask, params):

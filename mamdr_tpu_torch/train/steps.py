@@ -34,7 +34,13 @@ builds:
   - the meta-gradient accumulator's step (``make_accum_grad_fn``,
     steps.py:239-262): the gradient of the total loss at fixed params with
     dropout off and the norms in eval mode — through K1 at rate 0 where the
-    gate allows.
+    gate allows;
+  - the per-call epochs over one domain's [S, B] batches
+    (``TrainFns.train_epoch`` / ``eval_epoch``, steps.py:263-293):
+    ``make_train_epoch`` runs a train step on each batch in order and
+    returns the mean data loss; ``make_eval_epoch`` gives one domain's loss
+    and 500-threshold AUC, one tower a batch (ids [B]). Neither reads
+    anything back to the host.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from mamdr_tpu_torch.metrics.auc import auc_init, auc_result, auc_update
 from mamdr_tpu_torch.models.deepctr import MLP
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import step_seeds
@@ -375,3 +382,45 @@ def make_optimizer(name: str, learning_rate: float, params,
 
     mask = trees.named_tree_map(lambda n, x: _trainable(n, emb_trainable), params)
     return flat_adam(learning_rate, mask) if name == "adam" else masked_sgd(learning_rate, mask)
+
+
+def make_train_epoch(train_step: Callable):
+    """train_epoch(state, stacked) -> (state, mean data loss): ``train_step``
+    on each [B] batch of ``stacked`` ({col: [S, B]}) in order (JAX
+    ``train_epoch``, steps.py:268-272). The loss stays on the device."""
+
+    def train_epoch(state: TrainState, stacked):
+        n_steps = stacked["weight"].shape[0]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=stacked["weight"].device)
+        for s in range(n_steps):
+            state, loss = train_step(state, {k: v[s] for k, v in stacked.items()})
+            loss_sum = loss_sum + loss
+        return state, loss_sum / n_steps
+
+    return train_epoch
+
+
+def make_eval_epoch(model, cfg: StepConfig, gather=gather_fields):
+    """eval_epoch(params, stacked, stats=None) -> (loss, AUC), 0-d tensors on
+    the device: one domain's [S, B] batches through the model's one-tower
+    forward (K2 with ids [B]), dropout off, the norms in eval mode reading
+    ``stats`` (JAX ``eval_epoch``, steps.py:274-293). The loss is the total
+    loss (data loss plus the l2 term) averaged over the S batches, a partial
+    batch by its weighted mean; the AUC is the 500-threshold ROC AUC of the
+    confusion counts summed over every batch (pad rows carry weight 0)."""
+    loss_fn = make_loss_fn(model, cfg, gather)
+
+    def eval_epoch(params, stacked, stats=None):
+        w = stacked["weight"]
+        stats = stats if model.has_batch_stats else None
+        counts = auc_init(device=w.device)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=w.device)
+        with torch.no_grad():
+            for s in range(w.shape[0]):
+                b = {k: v[s] for k, v in stacked.items()}
+                loss, _, probs = loss_fn(params, b, probs=True, stats=stats)[:3]
+                loss_sum = loss_sum + loss
+                counts = auc_update(counts, b["label"], probs, b["weight"])
+        return loss_sum / w.shape[0], auc_result(counts)
+
+    return eval_epoch

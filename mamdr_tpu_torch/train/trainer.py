@@ -10,12 +10,26 @@ checkpoint, the JSONL metrics and the run's result folder (``save_result``).
 Resume snapshots and TensorBoard are not ported yet (ROADMAP.md §1); a
 config that asks for them is refused.
 
+The per-call route (trainer.py:330-405), which every strategy's loop takes
+where its fused pass does not (``fused_padding_ok`` false: a fixed train
+order, or a train block past the memory budget): ``stack_train_epoch``
+forms one domain-epoch's [S, B] batches, ``fit_domain`` trains them
+(``finetune``: with the finetune optimizer), ``eval_stack`` /
+``evaluate_domain`` score one domain. The batches are the JAX package's
+``stack_batches`` bit for bit, pad rows included: the order is one
+``np_rng.permutation`` (natural under ``fixed_train``), made on the host
+and uploaded alone — through pinned memory without waiting — and the rows
+are gathered on the device from each split's columns, which are uploaded
+once (or, past half the block budget, gathered on the host and staged
+through pinned memory).
+
 Randomness is explicit: ``np_rng`` (numpy, seeded by the dataset seed) makes
 the host-side draws the JAX package makes with numpy — domain order, aux
-domains, support/query splits — so both packages draw the same values; a CPU
-``torch.Generator`` seeds parameter init and the base dropout seeds
-(``draw_seed``); ``gen``, a generator on the run's device, makes the batch
-shuffles.
+domains, support/query splits, the per-call route's batch orders — so both
+packages draw the same values; a CPU ``torch.Generator`` seeds parameter
+init, the base dropout seeds and the "drop" meta gradients' mask seeds
+(``draw_seed``); ``gen``, a generator on the run's device, makes the fused
+passes' batch shuffles.
 """
 
 from __future__ import annotations
@@ -31,15 +45,17 @@ import torch
 
 from mamdr_tpu_torch import DeviceLike, resolve_device
 from mamdr_tpu_torch.config import ExperimentConfig
-from mamdr_tpu_torch.data.dataset import MultiDomainDataset
+from mamdr_tpu_torch.data.dataset import COLUMNS, DomainSplit, MultiDomainDataset, batch_rows
 from mamdr_tpu_torch.models.zoo import build_model
 from mamdr_tpu_torch.train import checkpoints, fused
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import (
     StepConfig,
     make_accum_grad_fn,
+    make_eval_epoch,
     make_loss_fn,
     make_optimizer,
+    make_train_epoch,
     make_train_step,
 )
 from mamdr_tpu_torch.utils import trees
@@ -77,7 +93,7 @@ class EarlyStopper:
         return self.early_stop
 
 
-def _refuse_unported(config: ExperimentConfig, dataset: MultiDomainDataset) -> None:
+def _refuse_unported(config: ExperimentConfig) -> None:
     """Raise for a trainer setting whose path the port does not have yet."""
     tc = config.train
     if tc.tensorboard or tc.histogram_freq > 0:
@@ -88,10 +104,6 @@ def _refuse_unported(config: ExperimentConfig, dataset: MultiDomainDataset) -> N
         raise NotImplementedError(
             "resume / resume_every: train-state snapshots are not ported yet "
             "(ROADMAP.md, open items §1: resume state)")
-    if config.dataset.fixed_train or getattr(dataset, "fixed_train", False):
-        raise NotImplementedError(
-            "fixed_train: a fixed train order takes the JAX package's _train_loop, "
-            "which is not ported yet (ROADMAP.md, open items §1: _train_loop)")
 
 
 class Trainer:
@@ -101,7 +113,7 @@ class Trainer:
         "cpu" runs the plain versions of the kernels on the CPU. verbose:
         print each evaluation's table, as the JAX package does."""
         self.device = resolve_device(device)
-        _refuse_unported(config, dataset)
+        _refuse_unported(config)
         self.config = config
         self.dataset = dataset
         self.verbose = verbose
@@ -139,6 +151,15 @@ class Trainer:
         self.accum_grad_fn = make_accum_grad_fn(self.model, self.step_cfg)
         self._eval_blocks: Dict[str, Dict[str, torch.Tensor]] = {}
         self._eval_fn: Optional[Callable] = None
+        # the per-call route: each split's packed columns on the device (kept
+        # with the split, so its id stays its own), the [S, B] eval batches,
+        # the epoch functions
+        self._rows: Dict[int, Tuple[DomainSplit, torch.Tensor]] = {}
+        self._rows_on_device = (16 * sum(s.n for s in dataset.train)
+                                <= MAX_BLOCK_BYTES // 2)
+        self._eval_stacks: Dict[Tuple[str, int], Dict[str, torch.Tensor]] = {}
+        self._epoch_fns: Dict[bool, Callable] = {}
+        self._eval_epoch: Optional[Callable] = None
         self.stopper = EarlyStopper(tc.patience)
         self.best_params = None  # on-device copy of the best checkpoint
 
@@ -194,6 +215,15 @@ class Trainer:
         under uncertainty weighting)."""
         return make_train_step(self.model, self.tx, self.step_cfg)
 
+    def frozen_mask(self):
+        """True at the leaves the optimizer never trains: the user / item
+        tables when ``emb_trainable`` is false (the wide term's linear ones
+        too: every path holding "user_emb" or "item_emb", as in the JAX
+        package)."""
+        frozen = not self.config.train.emb_trainable
+        return trees.named_tree_map(
+            lambda n, x: frozen and ("user_emb" in n or "item_emb" in n), self.state.params)
+
     def draw_seed(self) -> int:
         """A fresh uint32 base dropout seed from the trainer's CPU generator
         (the finetune lanes' base, fast_random.lane_seeds)."""
@@ -205,7 +235,12 @@ class Trainer:
         lanes pay when the waste ratio is small or the wasted steps stay
         under the break-even; ``ragged`` paths (only real steps run) pay in
         memory only, so the [D, N_pad] block must stay under
-        ``MAX_BLOCK_BYTES``. The port takes the same routes on the same data."""
+        ``MAX_BLOCK_BYTES``. A dataset with ``fixed_train`` set (its own
+        attribute, as the JAX package reads it) gets False, ragged too: the
+        fused passes shuffle, and the per-call loops keep the order. The
+        port takes the same routes on the same data."""
+        if getattr(self.dataset, "fixed_train", False):
+            return False
         steps = self.steps_per_domain()
         d = len(steps)
         total_padded = max(steps) * d
@@ -215,6 +250,97 @@ class Trainer:
         if total_padded <= MAX_WASTE_RATIO * sum(steps):
             return True
         return (total_padded - sum(steps)) <= STEPS_PER_DISPATCH * d
+
+    # ---------------- the per-call route ----------------
+
+    def _packed_rows(self, split: DomainSplit) -> np.ndarray:
+        """The split's columns as one [n, 4] int32 array (the float label
+        reinterpreted, a bit-exact round trip), in ``COLUMNS`` order."""
+        return np.stack([getattr(split, k).view(np.int32) for k in COLUMNS], axis=1)
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """A host array on the run's device: through pinned memory without
+        waiting for the card (the caching host allocator keeps the buffer
+        until the copy has run), or as it is on the CPU."""
+        t = torch.from_numpy(np.ascontiguousarray(host))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def stack_split(self, split: DomainSplit, shuffle: bool,
+                    max_steps: int = 0) -> Dict[str, torch.Tensor]:
+        """One epoch of ``split`` as {col: [S, B]} on the device (JAX
+        ``stack_batches`` then the ``max_steps`` cut, trainer.py:330-343), bit
+        for bit: the order from ``np_rng`` (one permutation draw) when
+        ``shuffle``, wrap-around pad rows with weight 0, at most ``max_steps``
+        batches when that is positive. Only the order crosses to the device
+        (``_upload``); the rows are gathered there from the split's columns,
+        uploaded once per split. Past half the block budget the rows are
+        gathered on the host and staged instead."""
+        b = self.dataset.batch_size
+        idx = batch_rows(split.n, b, shuffle, self.np_rng)
+        if max_steps and max_steps > 0:
+            idx = idx[: max_steps * b]
+        if self._rows_on_device:
+            entry = self._rows.get(id(split))
+            if entry is None or entry[0] is not split:
+                entry = self._rows[id(split)] = (
+                    split, torch.from_numpy(self._packed_rows(split)).to(self.device))
+            packed = entry[1].index_select(0, self._upload(idx.astype(np.int64)))
+        else:
+            packed = self._upload(self._packed_rows(split)[idx])
+        cols = packed.t().reshape(len(COLUMNS), -1, b).contiguous()  # [4, S, B]
+        out = {k: cols[j] for j, k in enumerate(COLUMNS)}
+        out["label"] = out["label"].view(torch.float32)
+        pos = torch.arange(idx.shape[0], device=self.device).reshape(-1, b)
+        out["weight"] = (pos < split.n).to(torch.float32)
+        return out
+
+    def stack_train_epoch(self, domain_idx: int, split: Optional[DomainSplit] = None,
+                          max_steps: int = 0) -> Dict[str, torch.Tensor]:
+        """One domain-epoch of train batches (default: the domain's train
+        split), shuffled unless the dataset has ``fixed_train``, at most
+        ``max_steps`` of them (meta_train_step / domain_regulation_step)."""
+        split = split if split is not None else self.dataset.train[domain_idx]
+        return self.stack_split(split, shuffle=not getattr(self.dataset, "fixed_train", False),
+                                max_steps=max_steps)
+
+    def fit_domain(self, state: TrainState, domain_idx: int,
+                   split: Optional[DomainSplit] = None, max_steps: int = 0,
+                   finetune: bool = False) -> Tuple[TrainState, torch.Tensor]:
+        """One epoch over one domain (``stack_train_epoch``), chained from
+        ``state`` (JAX ``fit_domain``, trainer.py:384-395): the model's
+        train step (K1 and K2 a step for the plain MLP, autograd and K2
+        otherwise) with its optimizer, or with the finetune optimizer when
+        ``finetune``. Returns (state, the mean data loss as a 0-d tensor on
+        the device: float() it only where it is printed)."""
+        stacked = self.stack_train_epoch(domain_idx, split, max_steps)
+        if finetune not in self._epoch_fns:
+            tx = self.finetune_tx if finetune else self.tx
+            self._epoch_fns[finetune] = make_train_epoch(
+                make_train_step(self.model, tx, self.step_cfg))
+        return self._epoch_fns[finetune](state, stacked)
+
+    def eval_stack(self, mode: str, domain_idx: int) -> Dict[str, torch.Tensor]:
+        """A domain's val or test split as {col: [S, B]} in natural order,
+        made once."""
+        key = (mode, domain_idx)
+        if key not in self._eval_stacks:
+            self._eval_stacks[key] = self.stack_split(self._splits(mode)[domain_idx],
+                                                      shuffle=False)
+        return self._eval_stacks[key]
+
+    def evaluate_domain(self, mode: str, domain_idx: int, params,
+                        batch_stats) -> Tuple[float, float]:
+        """(loss, AUC) of one domain's split with ``params`` and the batch
+        statistics ``batch_stats`` (JAX ``evaluate_domain``,
+        trainer.py:397-405; ``steps.make_eval_epoch``, K2 with ids [B]); one
+        host read."""
+        if self._eval_epoch is None:
+            self._eval_epoch = make_eval_epoch(self.model, self.step_cfg)
+        loss, auc = self._eval_epoch(params, self.eval_stack(mode, domain_idx), batch_stats)
+        both = torch.stack([loss, auc]).cpu().numpy()
+        return float(both[0]), float(both[1])
 
     # ---------------- evaluation ----------------
 

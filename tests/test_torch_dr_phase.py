@@ -121,7 +121,7 @@ def _port_phases(tt, ts, lanes, reg_step=0):
         steps_list=steps)
     if lanes:
         sub_step, to_sub, combine = make_subset_train_step(
-            tt.model, tt.tx, tt.step_cfg, ts._frozen_mask(), tt.state.params)
+            tt.model, tt.tx, tt.step_cfg, tt.frozen_mask(), tt.state.params)
         dr = fused.make_fused_dr_parallel(
             sub_step, to_sub, combine, ts.mask, "plus", n_steps, BATCH, reg_step,
             shuffle=False, steps_list=steps)

@@ -112,16 +112,19 @@ def test_step_buckets_match_jax(steps):
 
 def test_routes(tmp_path, monkeypatch):
     """Balanced padding: all domains as lanes at once; padding past the
-    break-even: buckets; past the memory budget: refused (the sequential
-    loop is not ported)."""
+    break-even: buckets; past the memory budget, or separate_fused false:
+    the sequential loop."""
     _, _, tt, _ = make_pair(tmp_path)
     taken = []
-    monkeypatch.setattr(separate, "_separate_fused", lambda *a, **k: taken.append("fused"))
-    monkeypatch.setattr(separate, "_separate_bucketed", lambda *a, **k: taken.append("bucketed"))
+    for route in ("fused", "bucketed", "loop"):
+        monkeypatch.setattr(separate, f"_separate_{route}",
+                            lambda *a, route=route, **k: taken.append(route))
     separate.separate_train_val_test(tt)
     monkeypatch.setattr(tt, "fused_padding_ok", lambda ragged=False: ragged)
     separate.separate_train_val_test(tt)
     monkeypatch.setattr(tt, "fused_padding_ok", lambda ragged=False: False)
-    with pytest.raises(NotImplementedError, match="_separate_loop"):
-        separate.separate_train_val_test(tt)
-    assert taken == ["fused", "bucketed"]
+    separate.separate_train_val_test(tt)
+    monkeypatch.setattr(tt, "fused_padding_ok", lambda ragged=False: True)
+    tt.config.train.separate_fused = False
+    separate.separate_train_val_test(tt)
+    assert taken == ["fused", "bucketed", "loop", "loop"]

@@ -617,7 +617,7 @@ def test_finetune_lane_step_held_to_the_plain_version(cuda_device, tmp_path, emb
         seen[:] = a
         return fused_tower_grad_lanes(*a)
 
-    step = make_subset_train_step(t.model, t.finetune_tx, t.step_cfg, strat._frozen_mask(),
+    step = make_subset_train_step(t.model, t.finetune_tx, t.step_cfg, t.frozen_mask(),
                                   t.state.params,
                                   loss_grad=make_fast_loss_grad(t.model, t.step_cfg,
                                                                 tower_grad=spy))[0]

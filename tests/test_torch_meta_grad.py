@@ -250,7 +250,7 @@ def test_grad_epoch_on_flat_matches_jax(tmp_path, accumulate, cap, ragged, emb_t
     with pytest.raises(ValueError, match="unknown accumulate"):
         fused._grad_epoch_on_flat(tt.accum_grad_fn, tt.state.params,
                                   {k: v[0] for k, v in tblock.items()}, tt.gen, n_steps,
-                                  tt.dataset.batch_size, tacc, ts.mask, "drop")
+                                  tt.dataset.batch_size, tacc, ts.mask, "other")
 
 
 def test_accumulate_split_matches_jax(tmp_path):

@@ -15,7 +15,8 @@ checkpoint files between the two, and the configurations the port refuses.
   back by the JAX package's ``load_pytree`` / ``load_decomposition``, and one
   the JAX package writes by the port's ``load_pytree``;
 - every configuration whose path is not ported raises NotImplementedError
-  naming its ROADMAP item (those the CLI refuses: tests/test_torch_cli.py).
+  naming its ROADMAP item (those the CLI refuses: tests/test_torch_cli.py);
+  one whose path has since been ported runs to its result.
 """
 
 import json
@@ -95,28 +96,26 @@ def test_jax_checkpoints_read_by_port(tmp_path):
 
 
 REFUSED = [
-    ({"model": "mlp_meta_mamdr_batch_finetune"}, "_train_loop", "train"),
-    ({"train": {"finetune_every_epoch": True}}, "_train_loop", "train"),
-    ({"train": {"target_domain": 1}}, "_train_loop", "train"),
-    ({"dataset": {"fixed_train": True}}, "_train_loop", "trainer"),
-    ({"train": {"meta_finetune_step": 1}}, "meta_finetune_val", "strategy"),
-    ({"train": {"separate_fused": False}}, "_separate_loop", "strategy"),
+    # lifted: the per-call loops run them (item None: the run must succeed)
+    ({"model": "mlp_meta_mamdr_batch_finetune"}, None, "train"),
+    ({"train": {"finetune_every_epoch": True}}, None, "train"),
+    ({"train": {"target_domain": 1}}, None, "train"),
+    ({"dataset": {"fixed_train": True}}, None, "trainer"),
+    ({"train": {"meta_finetune_step": 1}}, None, "strategy"),
+    ({"train": {"separate_fused": False}}, None, "strategy"),
     ({"train": {"tensorboard": True}}, "TensorBoard", "trainer"),
     ({"train": {"histogram_freq": 1}}, "TensorBoard", "trainer"),
     ({"train": {"resume": True}}, "resume state", "trainer"),
     ({"train": {"resume_every": 2}}, "resume state", "trainer"),
     ({"train": {"dr_lane_chunk": 2}}, "dr_lane_chunk", "prepare"),
-    ({"model": "mlp_meta_maml", "train": {"average_meta_grad": "drop"}}, "_train_loop",
-     "train"),
-    ({"model": "mlp_pcgrad", "train": {"target_domain": 1}}, "_train_loop", "train"),
+    ({"model": "mlp_meta_maml", "train": {"average_meta_grad": "drop"}}, None, "train"),
+    ({"model": "mlp_pcgrad", "train": {"target_domain": 1}}, None, "train"),
     # lifted: the autograd lane step runs them (item None: the run must succeed)
     ({"model": "mlp_uncertainty_weight_finetune"}, None, "strategy"),
-    ({"model": "mlp_meta_mldg_finetune", "train": {"target_domain": 0}}, "_train_loop",
-     "train"),
+    ({"model": "mlp_meta_mldg_finetune", "train": {"target_domain": 0}}, None, "train"),
     ({"model": "mlp_meta_domain_negotiation_finetune", "train": {"target_domain": 1}},
-     "_train_loop", "train"),
-    ({"model": "mlp_meta_reptile_finetune", "train": {"target_domain": 0}}, "_train_loop",
-     "train"),
+     None, "train"),
+    ({"model": "mlp_meta_reptile_finetune", "train": {"target_domain": 0}}, None, "train"),
     ({"model": "deepfm"}, None, "trainer"),
     ({"model": "star"}, None, "trainer"),
     ({"model": "mlp", "compute_dtype": "bfloat16"}, "compute_dtype", "trainer"),

@@ -21,7 +21,11 @@ and long-tailed data) and tests/test_torch_dr_phase.py (``shuffle=False``):
   the stacked statistics, and the best statistics are selected with the
   best weights;
 - the merged val and test reading the current statistics (perturbed, so a
-  stale tree would show), against the JAX package's.
+  stale tree would show), against the JAX package's;
+- two shuffled epochs of MAMDR's per-call ``_train_loop`` on STAR with SGD
+  as the inner optimizer (tests/test_torch_loops.py ``loop_pair``): params,
+  statistics, shared and specific within 1e-6, the early stop and
+  ``np_rng``'s state equal.
 
 Tolerances: test loss rtol 1e-4 and AUC abs 1e-5, as the other ``run()``
 tests; phase states rtol 2e-5 / atol 1e-5.
@@ -52,6 +56,7 @@ from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
 from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.trainer import Trainer
 from mamdr_tpu_torch.utils import trees
+from test_torch_loops import loop_pair, states_close, trees_close
 from test_torch_strategies import events, results_close
 
 META_PARMS = ["emb", "kernel_shared", "bias_shared"]
@@ -326,3 +331,26 @@ def test_other_strategies_run_star_like_jax(tmp_path, name, train):
     trained = not any(k in name for k in ("separate", "mldg", "pcgrad"))
     assert trained == any(not torch.equal(a, b) for a, b in zip(
         trees.leaves(tt.state.batch_stats), trees.leaves(stats0)))
+
+
+def test_star_mamdr_loop_matches_jax(tmp_path):
+    """MAMDR's loop on STAR (PartitionedNorm, StarFCN; the corpus's
+    meta_parms) with SGD as the inner optimizer: the statistics chain
+    through every fit_domain call; params, statistics, shared and specific
+    within 1e-6."""
+    star = {"hidden_dim": [16, 8], "auxiliary_dim": 8, "norm": "pn", "dense": "star",
+            "auxiliary_net": False}
+    jt, js, tt, ts = loop_pair(tmp_path, "star_meta_mamdr_finetune", model=star,
+                               optimizer="sgd", learning_rate=0.1,
+                               meta_parms=["emb", "kernel_shared", "bias_shared"])
+    js.use_fused = ts.use_fused = False
+    js.train()
+    ts.train()
+    states_close(jt, tt, rtol=1e-6, atol=1e-6)
+    trees_close(ts.shared, js.shared, "shared", rtol=1e-6, atol=1e-6)
+    for d in range(3):
+        for (n, m), a, b in zip(trees.leaves_with_names(ts.mask), trees.leaves(ts.specific[d]),
+                                jax.tree_util.tree_leaves(js.specific[d])):
+            if m:
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-6,
+                                           err_msg=f"specific[{d}]:{n}")
