@@ -114,7 +114,22 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      its train epoch and its host-paced steps, weights moved, frozen tables
      the same tensors; and a small run() of each, and of
      star_meta_mamdr_finetune under fixed_train, on the card against the
-     CPU;
+     CPU; the per-call finetune's domain_{d}.npz hold the whole best tree;
+  5i. resume at bench shapes (mlp_meta_mamdr_finetune), deterministic
+     algorithms on (the domain table's index_add_ adds in a varying order
+     otherwise): run() of 2 epochs unbroken; 1 epoch that writes the resume
+     snapshot (its seconds and bytes); a fresh Trainer with resume whose
+     run() starts at epoch 1, launches one epoch fewer than the unbroken run
+     (K1, K1-lanes, K2 and K2's split asserted) and ends where it ends:
+     shared, every specific, the best snapshot, the params and the test
+     losses and AUCs bit-equal; then two more unbroken runs with
+     deterministic algorithms off, their distance printed (run to run);
+  5j. the model learns on the card: the Taobao-10 recipe of the JAX
+     package's validation (mamdr_tpu_torch.validate: the generated click log
+     and the port's Taobao ETL, timed; from_disk), then run() of
+     mlp_meta_mamdr_finetune at most LEARN_EPOCHS epochs, which fails unless
+     the test macro AUC reaches LEARN_GATE; K1-lanes and K2 held to their
+     plain versions and timed at its 10-lane shapes;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -131,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -144,6 +160,8 @@ HBM_BYTES = 3.35e12  # bytes/s
 EARLIER_US = {"K1 one lane": 129.2, "K1 30 lanes": 1680.3, "K3 k 32": 12.12, "K3 k 128": 17.33}
 K1_REL_TOL = 1e-4    # of each output's largest magnitude (float32 sums over
                      # up to 1024 rows, taken in another order)
+LEARN_EPOCHS = 10    # phase 5j's epoch cap on the Taobao-10 recipe
+LEARN_GATE = 0.75    # its least test macro AUC
 
 
 def fail(msg: str):
@@ -1982,17 +2000,19 @@ def main() -> int:
                         fail(f"{name}: specific[{d}] did not move or is not finite")
                 note = "; every domain's specific moved and finite"
             if fixed:
+                frozen_shapes = [tuple(x.shape) for n, x in trees.leaves_with_names(params0)
+                                 if "user_emb" in n or "item_emb" in n]
                 for d in range(n_domain):
                     with np.load(os.path.join(trainer.checkpoint_dir, f"domain_{d}.npz")) as z:
                         k = z["model//dnn//Dense_0//Dense_0//kernel"]
                         tables = [z[n].shape for n in z.files if "user_emb" in n or "item_emb" in n]
-                    if (not np.all(np.isfinite(k)) or tables != [(), ()]
+                    if (not np.all(np.isfinite(k)) or tables != frozen_shapes
                             or np.array_equal(k, best["model"]["dnn"]["Dense_0"]["Dense_0"]
                                               ["kernel"].cpu().numpy())):
                         fail(f"{name}: _separate_loop's domain_{d}.npz: kernel not finite or "
                              f"not moved from the best weights, frozen tables {tables}")
                 note += ("; _separate_loop finetuned every domain (domain_{d}.npz moved, "
-                         "frozen tables as placeholders)")
+                         "the whole best tree, frozen tables included)")
             ep_s, ep_steps = marks["epoch"], marks["steps"]
             percall_s[name] = (run_s, ep_s, ep_steps)
             print(f"{name} ({what}) run() at bench shapes on the loaded data, the per-call "
@@ -2056,6 +2076,237 @@ def main() -> int:
 
     del disk
     shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 5i. resume at bench shapes ----
+    # mlp_meta_mamdr_finetune at bench shapes (the in-memory bench data): (a)
+    # run() of 2 epochs unbroken; (b) train() of 1 epoch with resume_every 1,
+    # which writes the resume snapshot; (c) a fresh Trainer with resume and
+    # epoch 2, whose run() goes on from the snapshot: it starts at epoch 1,
+    # launches one epoch less than (a), and ends where (a) ends, bit for bit.
+    # The three run under torch.use_deterministic_algorithms: the domain
+    # table's gradient is an index_add_ of 1024 rows into one row, whose
+    # atomics add in an order that varies from run to run, and on the bench's
+    # random labels Adam turns those last-bit differences into differences of
+    # the order of the weights themselves within an epoch. The deterministic
+    # index_add_ takes them away; anything else that would not repeat is
+    # printed (warn_only) and shows as a difference.
+    from mamdr_tpu_torch import validate
+
+    work_i = tempfile.mkdtemp(prefix="mamdr_chip_smoke_5i_")
+    mem = bench_dataset()
+
+    def resume_run(ckpt, epochs, **train):
+        cfg = bench_config(checkpoint_path=os.path.join(work_i, ckpt))
+        cfg.train.epoch = epochs
+        for k, v in train.items():
+            setattr(cfg.train, k, v)
+        return MAMDRStrategy(Trainer(cfg, mem, verbose=False))
+
+    def tree_rel(a_tree, b_tree):
+        """Largest |a - b| over the leaves, each over its tensor's largest
+        magnitude; and whether every leaf is bit-equal."""
+        worst, same = 0.0, True
+        for a, b in zip(trees.leaves(a_tree), trees.leaves(b_tree)):
+            if a is b:
+                continue
+            same = same and torch.equal(a, b)
+            worst = max(worst, float((a - b).abs().max() / a.abs().max().clamp_min(1e-30)))
+        return worst, same
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("default")
+        strat_a = resume_run("a", 2)
+        tc_i = strat_a.tc
+        spd_i = strat_a.trainer.steps_per_domain()  # balanced: every domain the same
+        cap_i = tc_i.domain_regulation_step
+        k_i = min(tc_i.sample_num, mem.n_domain - 1) + int(tc_i.add_query_domain)
+        ft_i = max(spd_i)
+        ep_k1 = sum(spd_i)  # DN, then DR's support runs as lanes
+        ep_k1l = k_i * (ft_i + (min(ft_i, cap_i) if cap_i > 0 else ft_i))
+        val_i = max(strat_a.trainer.eval_steps_per_domain("val"))
+        test_i = max(strat_a.trainer.eval_steps_per_domain("test"))
+        one_epoch = (ep_k1, ep_k1l, ep_k1 + ep_k1l + val_i)
+        zero_counts()
+        t0 = time.perf_counter()
+        res_a = strat_a.run()
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - t0
+        a_counts = counts()
+        strat_b = resume_run("bc", 1, resume_every=1)
+        snap = {}
+        save_b = strat_b.trainer.save_resume_state
+
+        def timed_save(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save_b(*a, **k)
+            snap["s"] = time.perf_counter() - t
+
+        strat_b.trainer.save_resume_state = timed_save
+        strat_b.train()
+        resume_dir = strat_b.trainer.resume_dir
+        snap_files = {f: os.path.getsize(os.path.join(resume_dir, f))
+                      for f in sorted(os.listdir(resume_dir))}
+        del strat_b
+        torch.cuda.empty_cache()
+        strat_c = resume_run("bc", 2, resume=True)
+        started = {}
+        try_c = strat_c.trainer.try_resume
+
+        def spy_resume(*a, **k):
+            t = time.perf_counter()
+            r = try_c(*a, **k)
+            started["epoch"], started["s"] = (None if r is None else r[0]), time.perf_counter() - t
+            return r
+
+        strat_c.trainer.try_resume = spy_resume
+        zero_counts()
+        t0 = time.perf_counter()
+        res_c = strat_c.run()
+        torch.cuda.synchronize()
+        c_s = time.perf_counter() - t0
+        c_counts, c_split = counts(), k2_split()
+    torch.use_deterministic_algorithms(False)
+    not_repeatable = sorted({str(w.message).split(".")[0] for w in caught
+                             if "determinis" in str(w.message)})
+    ft_e = strat_c.tc.epoch  # the finetune's epochs (its lanes: an epoch and val each, then test)
+    c_want = (ep_k1, ep_k1l + ft_i * ft_e,
+              ep_k1 + ep_k1l + val_i + test_i + (ft_i + val_i) * ft_e + test_i)
+    if started.get("epoch") != 1:
+        fail(f"5i: the resumed run started at epoch {started.get('epoch')}, expected 1")
+    if (c_counts != c_want or c_split != (ep_k1, c_want[2] - ep_k1)
+            or tuple(a - c for a, c in zip(a_counts, c_counts)) != one_epoch):
+        fail(f"5i: the resumed run() launched (K1, K1-lanes, K2) {c_counts}, K2 split "
+             f"{c_split}, expected {c_want}, ({ep_k1}, {c_want[2] - ep_k1}); the unbroken "
+             f"run {a_counts}, one epoch {one_epoch} more")
+    diffs = {
+        "shared": tree_rel(strat_a.shared, strat_c.shared),
+        "specific": max((tree_rel(a, c) for a, c in zip(strat_a.specific, strat_c.specific)),
+                        key=lambda r: r[0]),
+        "best_shared": tree_rel(strat_a.best_shared, strat_c.best_shared),
+        "best_specific": max((tree_rel(a, c) for a, c in zip(strat_a.best_specific,
+                                                              strat_c.best_specific)),
+                             key=lambda r: r[0]),
+        "params": tree_rel(strat_a.trainer.state.params, strat_c.trainer.state.params),
+    }
+    auc_i = max(abs(res_a[3][k] - v) for k, v in res_c[3].items())
+    loss_i = max(abs(res_a[2][k] - v) / abs(v) for k, v in res_c[2].items())
+    bit_i = all(same for _, same in diffs.values()) and res_a[3] == res_c[3]
+    worst_i = max(r for r, _ in diffs.values())
+    if not bit_i or res_a[2] != res_c[2]:
+        fail(f"5i: the resumed run is not the unbroken one bit for bit: {diffs}, test AUC by "
+             f"{auc_i}, test loss by {loss_i} relative; ops without a deterministic "
+             f"version: {not_repeatable}")
+    resume_counts = c_counts + c_split
+    snap_bytes = sum(snap_files.values())
+    print(f"resume at bench shapes (mlp_meta_mamdr_finetune): (a) unbroken run() of 2 epochs "
+          f"{a_s:.3f} s, launches (K1, K1-lanes, K2) {a_counts}; (b) 1 epoch wrote the snapshot "
+          f"in {snap['s']:.3f} s, {snap_bytes} bytes ({json.dumps(snap_files)}); (c) resumed "
+          f"from it at epoch {started['epoch']} (load {started['s']:.3f} s), run() {c_s:.3f} s, "
+          f"launches {c_counts} (one epoch {one_epoch} fewer than (a)), K2 split {c_split}; "
+          f"(c) against (a), deterministic algorithms on: shared, every specific, the best "
+          f"snapshot, the params, the test losses and AUCs bit-equal {bit_i} (tol 0; largest "
+          f"difference {worst_i:.2e}); ops reported without a deterministic version: "
+          f"{not_repeatable or 'none'}; test macro AUC {res_c[1]:.6f}; {card}")
+    del strat_a, strat_c
+
+    # (d) run to run: two more unbroken run()s as (a), deterministic
+    # algorithms off, held to each other; printed, not gated: how far the
+    # index_add_ atomics alone move two runs of the same seed apart.
+    runs_d = []
+    for tag in ("d1", "d2"):
+        strat_d = resume_run(tag, 2)
+        runs_d.append((strat_d, strat_d.run()))
+    (d1, res_d1), (d2, res_d2) = runs_d
+    for res in (res_d1, res_d2):
+        if not all(np.isfinite(v) for v in (*res[2].values(), *res[3].values())):
+            fail(f"5i: an unbroken run (d) without deterministic algorithms ended non-finite: {res}")
+    drift = {
+        "shared": tree_rel(d1.shared, d2.shared)[0],
+        "specific": max(tree_rel(a, b)[0] for a, b in zip(d1.specific, d2.specific)),
+        "best_shared": tree_rel(d1.best_shared, d2.best_shared)[0],
+        "params": tree_rel(d1.trainer.state.params, d2.trainer.state.params)[0],
+    }
+    auc_d = max(abs(res_d1[3][k] - v) for k, v in res_d2[3].items())
+    print(f"resume at bench shapes, run to run (d): two unbroken run()s of 2 epochs with "
+          f"deterministic algorithms off part by (largest |a - b| over a tensor's max) "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in drift.items()})}; test macro AUC "
+          f"{res_d1[1]:.6f} / {res_d2[1]:.6f}, a domain's test AUC by up to {auc_d:.2e}; {card}")
+    del runs_d, d1, d2, strat_d, mem
+    shutil.rmtree(work_i, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- 5j. the model learns on the card ----
+    # The Taobao-10 recipe of the JAX package's validation (a generated click
+    # log whose clicks live in the space of its pretrained vectors) through the
+    # port's generator and Taobao ETL, loaded by from_disk, then run() of
+    # mlp_meta_mamdr_finetune with the corpus's Taobao-10 config, at most
+    # LEARN_EPOCHS epochs, patience 10. Fails unless the test macro AUC reaches
+    # LEARN_GATE (the JAX package's at 40 epochs: 0.7903, VALIDATION.md).
+    work_j = tempfile.mkdtemp(prefix="mamdr_chip_smoke_5j_")
+    t0 = time.perf_counter()
+    raw_j = validate.build_raw(work_j, "taobao10")
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    validate.build_split(raw_j, work_j, "taobao10")
+    etl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds_j = validate.load(work_j, "taobao10")
+    load_j_s = time.perf_counter() - t0
+    rows_j = {m: sum(s.n for s in getattr(ds_j, m)) for m in ("train", "val", "test")}
+    zero_counts()
+    learn = validate.train_one(ds_j, "taobao10", "mlp_meta_mamdr_finetune", work_j,
+                               LEARN_EPOCHS, 10)
+    torch.cuda.synchronize()
+    learn_counts, learn_split = counts(), k2_split()
+    if not all(learn_counts) or not all(learn_split):
+        fail(f"5j: a kernel of the path did not launch: (K1, K1-lanes, K2) {learn_counts}, "
+             f"K2 split {learn_split}")
+    if not learn["test_macro_auc"] >= LEARN_GATE:
+        fail(f"5j: test macro AUC {learn['test_macro_auc']} after {learn['epochs']} epochs is "
+             f"below {LEARN_GATE}: {learn}")
+    learn_counts = learn_counts + learn_split
+    print(f"the model learns (Taobao-10 recipe, mlp_meta_mamdr_finetune): raw log {raw_s:.3f} s, "
+          f"ETL {etl_s:.3f} s, from_disk {load_j_s:.3f} s, {ds_j.n_domain} domains, rows "
+          f"{rows_j}; run() {learn['seconds']:.3f} s over {learn['epochs']} epochs (cap "
+          f"{LEARN_EPOCHS}); test macro AUC {learn['test_macro_auc']:.6f} (gate {LEARN_GATE}), "
+          f"weighted {learn['test_weighted_auc']:.6f}; val macro AUC by epoch "
+          f"{[round(v, 4) for v in learn['val_macro_auc_by_epoch']]}; launches (K1, K1-lanes, "
+          f"K2) {learn_counts[:3]}, K2 split {learn_counts[3:]}; {card}")
+    # K1-lanes and K2 at this path's lane shapes (10 domains: 10 lanes x 1024
+    # ids, a lane-stacked [10, 10, 128] domain table), on random operands
+    lanes_j = ds_j.n_domain
+    per_j = [tower_inputs({1: "partial"}.get(l, "mixed")) for l in range(lanes_j)]
+    args_j = (*(torch.stack([p[i] for p in per_j]) for i in range(3)),
+              torch.from_numpy(rng.integers(0, 2**32, (lanes_j, len(dims) - 1),
+                                            dtype=np.int64)).to(dev),
+              tuple(torch.stack([p[4][i] for p in per_j]) for i in range(len(per_j[0][4]))))
+    k1j = k1_vs_plain(fused_tower_grad_lanes, tower_grad_reference_lanes, *args_j, dims, 0.5,
+                      K1_REL_TOL)
+    k1j_ms = device_ms(lambda: fused_tower_grad_lanes(*args_j, dims, 0.5), inner=5)
+    k1j_plain_ms = device_ms(lambda: tower_grad_reference_lanes(*args_j, dims, 0.5), inner=2)
+    k1j_bound = lanes_j * k1_bound
+    j_tables = (rand_table((ds_j.n_uid, dim)), rand_table((ds_j.n_pid, dim)),
+                rand_table((lanes_j, ds_j.n_domain, dim), 1e-2))
+    j_sets = [(rand_ids(ds_j.n_uid, (lanes_j, batch), False),
+               rand_ids(ds_j.n_pid, (lanes_j, batch), False),
+               rand_ids(ds_j.n_domain, (lanes_j, 1), False).expand(lanes_j, batch).contiguous())
+              for _ in range(4)]
+    x_k, _ = gather_fields(j_tables, j_sets[0], train_mask=mask)
+    x_p, _ = gather_fields_reference(j_tables, j_sets[0], train_mask=mask)
+    k2j_err = float((x_k - x_p).abs().max())
+    if k2j_err != 0.0:
+        fail(f"K2 at 5j's lane shape differs from the plain field gather: {k2j_err}")
+    j_t = field_timings(j_tables, j_sets)
+    j_least, j_every = field_bound(j_tables, j_sets)
+    k2j_bound = j_least / HBM_BYTES * 1e3
+    print(f"K1 lanes at 5j's shape ({lanes_j} lanes): {report(k1j)}; {k1j_ms * 1e3:.1f} us/call, "
+          f"plain {k1j_plain_ms * 1e3:.1f} us, bound {k1j_bound * 1e3:.1f} us; {card}")
+    print(timing_line(f"5j's lane-step shape ({lanes_j * batch} ids)", j_t, j_least, j_every))
+    del ds_j, j_tables, j_sets, args_j, per_j, x_k, x_p
+    shutil.rmtree(work_j, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     # ---- 6. kernels ----
     print(json.dumps({"kernels": [
@@ -2246,6 +2497,47 @@ def main() -> int:
          "launches": sum(c[4] for c in percall_counts.values()), "max_abs_err": k2l_err,
          "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
          "bound_by": "bytes", "library_ms": dr_t["library"]},
+        # 5i's resumed run (one MAMDR epoch at bench shapes, test, finetune) and
+        # 5j's learning run (Taobao-10 recipe: 10 domains, so 10 lanes): K1 one
+        # lane on every DN step, K2 with ids [B] on each; K1-lanes and K2 with
+        # ids [L, B] on the DR and finetune lane-steps and the evals. 5i's lane
+        # shapes are 3b / 4a's; 5j's are timed in 5j at 10 lanes.
+        {"name": "fused_tower_grad (5i's resumed run and 5j's Taobao-10 run)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": resume_counts[0] + learn_counts[0], "max_abs_err": k1_err,
+         "relu_edge_units": k1_flips, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound, "bound_by": "operations", "library_ms": None},
+        {"name": f"fused_tower_grad_lanes ({lanes} lanes, 5i's resumed run)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": resume_counts[1], "max_abs_err": k1l_err,
+         "relu_edge_units": k1l_flips, "ms": k1l_ms, "plain_ms": k1l_plain_ms,
+         "bound_ms": k1l_bound, "bound_by": "operations", "library_ms": None},
+        {"name": f"fused_tower_grad_lanes ({lanes_j} lanes, 5j's Taobao-10 run)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": learn_counts[1], "max_abs_err": k1j["err"],
+         "relu_edge_units": k1j["flips"], "ms": k1j_ms, "plain_ms": k1j_plain_ms,
+         "bound_ms": k1j_bound, "bound_by": "operations", "library_ms": None},
+        {"name": f"gather_fields (3 fields x {batch} ids, 5i's and 5j's steps)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": resume_counts[3] + learn_counts[3], "max_abs_err": k2_err,
+         "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": dn_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5i's lanes and evals)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": resume_counts[4], "max_abs_err": k2l_err,
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes_j * batch} ids, 5j's lanes and evals)",
+         "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": learn_counts[4], "max_abs_err": k2j_err,
+         "ms": j_t["k2"], "plain_ms": j_t["plain"], "bound_ms": k2j_bound,
+         "bound_by": "bytes", "library_ms": j_t["library"]},
         # K3's path is the gather probe, which runs it at both sizes: each
         # entry has the launches the probe counted at its depth and size, and
         # the error of its own comparison in 4b. At 1024 ids both depths plan

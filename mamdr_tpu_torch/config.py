@@ -188,7 +188,9 @@ class TrainConfig:
     # draws (reference mamdr.py:30-33); "zeros" = zero deltas.
     specific_init: str = "random"
     min_delta: float = 1e-4
-    # Refused when set: train-state snapshots are not ported yet.
+    # resume_every > 0 writes the resume snapshot (state, optimizer slots,
+    # batch statistics, dropout seed, torch generators, np_rng, early stop)
+    # every N epochs; resume=True goes on from it (Trainer.try_resume).
     resume: bool = False
     resume_every: int = 0
     # checkpoint_dir/metrics.jsonl: one event per evaluation and train epoch.

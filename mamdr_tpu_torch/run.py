@@ -11,9 +11,13 @@ the name asks for it) and write the result folder
     python -m mamdr_tpu_torch.run --benchmark Taobao_30/mlp_meta_mamdr_finetune
     python -m mamdr_tpu_torch.run --list-benchmarks
     python -m mamdr_tpu_torch.run --config experiment.json --device cpu
+    python -m mamdr_tpu_torch.run --config experiment.json --resume
 
 It runs on the CUDA card, and raises without one, unless ``--device cpu``
-asks for the CPU (the kernels' plain versions).
+asks for the CPU (the kernels' plain versions). ``--resume`` continues a
+run from its snapshot under ``<checkpoint_path>/<model>/<dataset>/<split>/resume``
+where there is one, and writes it every epoch (``train.resume_every``, 1
+when the config leaves it 0).
 """
 
 from __future__ import annotations
@@ -56,7 +60,9 @@ def cli(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--list-benchmarks", action="store_true",
                         help="List benchmark configs")
     parser.add_argument("--resume", action="store_true",
-                        help="Resume from the config's restart-safe snapshot (not ported yet)")
+                        help="Resume from the config's restart-safe snapshot (train.resume); "
+                        "a snapshot is written every epoch unless train.resume_every says "
+                        "otherwise")
     parser.add_argument("--device", type=str, default=None,
                         help="Run on this device; the default is the CUDA card, and 'cpu' "
                         "runs the kernels' plain versions on the CPU")
@@ -76,9 +82,8 @@ def cli(argv: Optional[Sequence[str]] = None):
     else:
         parser.error("one of --config / --benchmark / --list-benchmarks required")
     if args.resume:
-        raise NotImplementedError(
-            "--resume: train-state snapshots are not ported yet "
-            "(ROADMAP.md, open items §1: resume state)")
+        cfg.train.resume = True
+        cfg.train.resume_every = cfg.train.resume_every or 1
     return main(cfg, device=args.device)
 
 

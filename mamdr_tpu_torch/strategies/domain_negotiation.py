@@ -9,9 +9,11 @@ domain without reset (optimizer slots carried throughout; each domain's
 epoch at most ``meta_train_step`` steps), then meta += (θ_final - meta) *
 meta_lr (``fused.make_fused_dn``: K1 and K2 on every step on the card),
 followed by the validation, early stop and best snapshot of every meta epoch
-(``MetaStrategy.epoch_tail``). A target domain, a fixed train order or a
-train block past the fused pass's memory budget take the per-call loop
-(``_train_loop``, JAX :61-93): the target domain is appended to the
+(``MetaStrategy.epoch_tail``) and the resume snapshot with the meta weights
+(``maybe_snapshot``; ``train.resume`` continues from it, JAX :45, :59). A
+target domain, a fixed train order or a train block past the fused pass's
+memory budget take the per-call loop (``_train_loop``, JAX :61-93), which
+neither writes nor reads the snapshot: the target domain is appended to the
 sequence, its epoch uncapped, and after the outer update one more epoch on
 it (``fit_target_domain``).
 """
@@ -38,9 +40,10 @@ class DomainNegotiationStrategy(MetaStrategy):
         dn_epoch = fused.make_fused_dn(
             t.train_step_fn(), self.mask, n_steps, t.dataset.batch_size,
             cap_steps=self.tc.meta_train_step, steps_list=t.steps_per_domain())
-        self.meta = t.state.params
         sequence = self.meta_sequence()
-        for epoch in range(self.tc.epoch):
+        start_epoch, ex = self.try_resume_meta({"meta": t.state.params})
+        self.meta = ex["meta"]
+        for epoch in range(start_epoch, self.tc.epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             if self.tc.shuffle_sequence:
@@ -50,6 +53,7 @@ class DomainNegotiationStrategy(MetaStrategy):
                 float(self.tc.meta_learning_rate))
             if self.epoch_tail(epoch):
                 break
+            self.maybe_snapshot(epoch, {"meta": self.meta})
 
     def _train_loop(self) -> None:
         t = self.trainer

@@ -9,7 +9,9 @@ early stop on the macro val AUC with the best weights kept, and, when
 verbose, the best weights' test report. Where the fused pass does not
 apply (``Trainer.fused_padding_ok``: a fixed train order, or a block past
 its memory budget) the epoch is the per-domain loop of ``Trainer.fit_domain``
-calls (JAX joint.py:59-63), which logs no train event, as there.
+calls (JAX joint.py:59-63), which logs no train event, as there. Both
+routes resume from the snapshot with the best weights (``train.resume``)
+and write it every ``resume_every`` epochs (JAX joint.py:38-41, :71-79).
 """
 
 from __future__ import annotations
@@ -30,7 +32,12 @@ class JointStrategy(Strategy):
                 t.train_step_fn(), n_steps, t.dataset.batch_size,
                 steps_list=t.steps_per_domain())
         sequence = list(range(self.n_domain))
-        for epoch in range(self.tc.epoch):
+        start_epoch = 0
+        resumed = t.try_resume({"best_params": t.state.params})
+        if resumed is not None:
+            start_epoch = resumed[0]
+            t.best_params = resumed[1].get("best_params", t.state.params)
+        for epoch in range(start_epoch, self.tc.epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
@@ -51,6 +58,10 @@ class JointStrategy(Strategy):
                 break
             if t.stopper.improved:
                 t.save_checkpoint()
+            if t.resume_due(epoch):
+                t.save_resume_state(epoch, extra_trees={
+                    "best_params": t.best_params if t.best_params is not None
+                    else t.state.params})
             if t.verbose:
                 # the best weights' test report (reference base_model.py:121)
                 print("Test Result: ")

@@ -3,7 +3,8 @@
 Counterpart of ``mamdr_tpu/strategies/mamdr.py`` on one device
 (``__init__`` :55-105, ``_dr_parallel_eligible`` :123-225, the eval plumbing
 and the finetune :229-297, ``prepare_fused`` :307-418 without the mesh,
-``run_fused_epoch`` :442-470, ``_train_fused`` :472-521 without resume).
+``run_fused_epoch`` :442-470, ``_train_fused`` :472-521 with its resume
+snapshot).
 State: shared weights plus per-domain specific deltas on the meta-param
 subset.
 
@@ -277,15 +278,37 @@ class MAMDRStrategy(MetaStrategy):
 
     def _train_fused(self) -> None:
         """tc.epoch fused epochs, each followed by the validation, early stop
-        and best snapshot (epoch_tail)."""
+        and best snapshot (epoch_tail), then every ``resume_every`` epochs
+        the resume snapshot: the trainer's, with shared, the specific stack
+        and the best snapshot (JAX mamdr.py:478-515). With ``train.resume``
+        the loop goes on from it: the epoch's draws restart from the
+        restored ``np_rng``, so a resumed run equals an unbroken one."""
         t = self.trainer
         self.prepare_fused()
-        for epoch in range(self.tc.epoch):
+        start_epoch = 0
+        resumed = t.try_resume({"shared": self.shared, "spec_stack": self._spec_stack,
+                                "best_shared": self.best_shared,
+                                "best_spec_stack": self._spec_stack})
+        if resumed is not None:
+            start_epoch, ex = resumed
+            self.shared = ex.get("shared", self.shared)
+            self._spec_stack = ex.get("spec_stack", self._spec_stack)
+            self.best_shared = ex.get("best_shared", self.best_shared)
+            if "best_spec_stack" in ex:
+                self.best_specific = fused.unstack_specific(ex["best_spec_stack"], self.mask,
+                                                            self.n_domain)
+            self.specific = fused.unstack_specific(self._spec_stack, self.mask, self.n_domain)
+        for epoch in range(start_epoch, self.tc.epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             self.run_fused_epoch()
             if self.epoch_tail(epoch):
                 break
+            if t.resume_due(epoch):
+                t.save_resume_state(epoch, extra_trees={
+                    "shared": self.shared, "spec_stack": self._spec_stack,
+                    "best_shared": self.best_shared,
+                    "best_spec_stack": fused.stack_specific(self.best_specific, self.mask)})
 
     def _train_loop(self) -> None:
         t = self.trainer

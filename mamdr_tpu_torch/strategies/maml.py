@@ -12,7 +12,9 @@ off (K1 at rate 0 on the card), then apply the accumulator with a separate
 meta-Adam (``meta_learning_rate``) at the meta weights — or, for a
 ``*_batch`` model name, once at the epoch's end (``fused.make_fused_maml``).
 No second-order term anywhere. Each epoch ends with
-``MetaStrategy.epoch_tail``.
+``MetaStrategy.epoch_tail`` and, on the fused route, the resume snapshot
+with the meta weights and the meta-Adam's slots (``maybe_snapshot``, JAX
+:128-145).
 
 The meta-Adam is the flat Adam over the meta mask (the trainable subset):
 on the masked leaves it is the JAX package's ``optax.chain(masked(
@@ -111,7 +113,10 @@ class MAMLStrategy(MetaStrategy):
             cap_steps=self.tc.meta_train_step, accumulate=self._accumulate(),
             mldg=self._mldg, steps_list_support=sup_steps, steps_list_query=q_steps)
         sequence = self.domain_sequence()
-        for epoch in range(self.tc.epoch):
+        start_epoch, ex = self.try_resume_meta(
+            {"meta": self.meta, "meta_opt": self.meta_opt_state})
+        self.meta, self.meta_opt_state = ex["meta"], ex["meta_opt"]
+        for epoch in range(start_epoch, self.tc.epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
@@ -120,6 +125,7 @@ class MAMLStrategy(MetaStrategy):
                 np.asarray(sequence, np.int32), t.gen, self.grad_scale())
             if self.epoch_tail(epoch):
                 break
+            self.maybe_snapshot(epoch, {"meta": self.meta, "meta_opt": self.meta_opt_state})
 
     def _train_loop(self) -> None:
         t = self.trainer

@@ -1,8 +1,12 @@
 """Shared machinery for the meta strategies: the meta-parameter mask, the
 domain sequence, the support/query split, the target domain's epoch, the
-meta-finetune validation, and the validation / early-stop tail of every
-meta epoch (counterpart of ``mamdr_tpu/strategies/meta_base.py:24-94,
-96-230, 253-260``).
+meta-finetune validation, the validation / early-stop tail of every meta
+epoch, and the resume snapshot of the fused loops (counterpart of
+``mamdr_tpu/strategies/meta_base.py:24-260``).
+
+``try_resume_meta`` / ``maybe_snapshot`` (JAX meta_base.py:232-251) resume
+and snapshot the fused loops of DN, Reptile and MAML / MLDG; no per-call
+loop resumes, as in the JAX package.
 
 The meta-finetune validation (``meta_finetune_step > 0``, reference
 maml.py:245-287) trains every domain ``meta_finetune_step`` epochs from the
@@ -159,6 +163,24 @@ class MetaStrategy(Strategy):
 
     def save_best(self) -> None:
         self.trainer.save_checkpoint()
+
+    # ---------------- the resume snapshot (fused loops) ----------------
+
+    def try_resume_meta(self, extra: Dict) -> Tuple[int, Dict]:
+        """(start epoch, extra trees): with ``train.resume`` and a snapshot,
+        the trainer's state, early stop and random streams restored and the
+        saved trees of ``extra``'s names (meta weights, meta-optimizer
+        slots) in place of its values; else (0, ``extra``)."""
+        resumed = self.trainer.try_resume(extra)
+        if resumed is None:
+            return 0, extra
+        start, ex = resumed
+        return start, {k: ex.get(k, v) for k, v in extra.items()}
+
+    def maybe_snapshot(self, epoch: int, extra: Dict) -> None:
+        """The resume snapshot after every ``resume_every``-th epoch."""
+        if self.trainer.resume_due(epoch):
+            self.trainer.save_resume_state(epoch, extra_trees=extra)
 
     def fit_target_domain(self, state):
         """A whole epoch on the target domain after the outer update, when

@@ -8,7 +8,8 @@ reference's SetVarOp assigns weights only), then meta += (adapted - meta) *
 meta_lr; the "batch" variant (``*_batch`` model names) accumulates the
 deltas over the domains and applies them once at the epoch's end, scaled by
 meta_lr (``fused.make_fused_reptile``: K1 and K2 on every step on the card).
-Each epoch ends with ``MetaStrategy.epoch_tail``. A target domain, a fixed
+Each epoch ends with ``MetaStrategy.epoch_tail`` and, on the fused route,
+the resume snapshot (``maybe_snapshot``, JAX :40, :53). A target domain, a fixed
 train order or a train block past the fused pass's memory budget take the
 per-call loop (``_train_loop``, JAX :55-96): there a target domain gets a
 one-step nudge after each domain's inner epoch (reference reptile.py:83-87)
@@ -40,9 +41,10 @@ class ReptileStrategy(MetaStrategy):
             t.train_step_fn(), self.mask, n_steps, t.dataset.batch_size,
             batch_mode=self.spec.batch_update, cap_steps=self.tc.meta_train_step,
             steps_list=t.steps_per_domain())
-        self.meta = t.state.params
         sequence = self.domain_sequence()
-        for epoch in range(self.tc.epoch):
+        start_epoch, ex = self.try_resume_meta({"meta": t.state.params})
+        self.meta = ex["meta"]
+        for epoch in range(start_epoch, self.tc.epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
@@ -51,6 +53,7 @@ class ReptileStrategy(MetaStrategy):
                 float(self.tc.meta_learning_rate))
             if self.epoch_tail(epoch):
                 break
+            self.maybe_snapshot(epoch, {"meta": self.meta})
 
     def _train_loop(self) -> None:
         t = self.trainer

@@ -30,8 +30,9 @@ domain by domain through ``Trainer.fit_domain`` / ``evaluate_domain``,
 starting from the trainer's optimizer state (``init_params``; it is the
 fresh one when the separate strategy starts) or from a fresh finetune
 optimizer state, with the same early stop. Its ``domain_{d}.npz`` files
-hold what the lanes' do: the trainable leaves, a 0-d placeholder at each
-frozen table.
+hold the domain's whole best tree, frozen tables included, as the JAX
+loop's do; the lanes' hold the trainable leaves and a 0-d placeholder at
+each frozen table, as the JAX package's fused route's do.
 """
 
 from __future__ import annotations
@@ -212,11 +213,6 @@ def _separate_loop(trainer: Trainer, init_params: bool = True, params_fn=None,
     no metrics event."""
     t = trainer
     tc = t.config.train
-    to_sub = None
-    if tc.domain_checkpoints:
-        frozen = t.frozen_mask()
-        to_sub = lambda p: trees.tree_map(  # noqa: E731
-            lambda f, x: x.new_zeros(()) if f else x, frozen, p)
     domain_loss: Dict[str, float] = {}
     domain_auc: Dict[str, float] = {}
     for idx in range(t.dataset.n_domain):
@@ -241,9 +237,9 @@ def _separate_loop(trainer: Trainer, init_params: bool = True, params_fn=None,
                     break
         loss, auc = t.evaluate_domain("test", idx, best_params, best_stats)
         domain_loss[str(idx)], domain_auc[str(idx)] = loss, auc
-        if to_sub is not None:
+        if tc.domain_checkpoints:  # the whole best tree, frozen tables included
             checkpoints.save_pytree(osp.join(t.checkpoint_dir, f"domain_{idx}.npz"),
-                                    to_sub(best_params))
+                                    best_params)
     avg_loss = sum(domain_loss.values()) / len(domain_loss)
     avg_auc = sum(domain_auc.values()) / len(domain_auc)
     if t.verbose:

@@ -6,9 +6,10 @@ accumulators' ``accum_grad_fn``), ``train_block`` / ``steps_per_domain``,
 the per-domain evaluation with macro and example-weighted AUC (reference
 base_model.py:111-175) as one lane-batched eval over all domains, the
 strict-improvement early stop (base_model.py:202-224), the best-params
-checkpoint, the JSONL metrics and the run's result folder (``save_result``).
-Resume snapshots and TensorBoard are not ported yet (ROADMAP.md §1); a
-config that asks for them is refused.
+checkpoint, the resume snapshot (``save_resume_state`` / ``try_resume``,
+trainer.py:480-502), the JSONL metrics and the run's result folder
+(``save_result``). TensorBoard is not ported yet (ROADMAP.md §1); a config
+that asks for it is refused.
 
 The per-call route (trainer.py:330-405), which every strategy's loop takes
 where its fused pass does not (``fused_padding_ok`` false: a fixed train
@@ -100,10 +101,6 @@ def _refuse_unported(config: ExperimentConfig) -> None:
         raise NotImplementedError(
             "tensorboard / histogram_freq: TensorBoard export is not ported yet "
             "(ROADMAP.md, open items §1: TensorBoard)")
-    if tc.resume or tc.resume_every > 0:
-        raise NotImplementedError(
-            "resume / resume_every: train-state snapshots are not ported yet "
-            "(ROADMAP.md, open items §1: resume state)")
 
 
 class Trainer:
@@ -168,6 +165,9 @@ class Trainer:
         self.checkpoint_dir = osp.join(tc.checkpoint_path, mc.name, ds_cfg.name,
                                        ds_cfg.domain_split_path, ts)
         self.checkpoint_path = osp.join(self.checkpoint_dir, "model_parameters.npz")
+        # timestamp-free, so a restarted process finds it
+        self.resume_dir = osp.join(tc.checkpoint_path, mc.name, ds_cfg.name,
+                                   ds_cfg.domain_split_path, "resume")
         self.result_dir = osp.join(tc.result_save_path, mc.name, ds_cfg.name,
                                    ds_cfg.domain_split_path)
         self.metrics = MetricsLogger(
@@ -437,6 +437,42 @@ class Trainer:
 
     def load_checkpoint(self):
         return checkpoints.load_pytree(self.checkpoint_path, self.state.params)
+
+    def resume_due(self, epoch: int) -> bool:
+        """Whether the resume snapshot is written after ``epoch``: every
+        ``train.resume_every`` epochs, never when that is 0."""
+        every = self.config.train.resume_every
+        return every > 0 and (epoch + 1) % every == 0
+
+    def save_resume_state(self, epoch: int, extra_trees=None) -> None:
+        """The resume snapshot after ``epoch`` in ``resume_dir``: the state,
+        the early stop, ``np_rng`` and both torch generators (``_seed_gen``,
+        ``gen``), with the strategy's ``extra_trees``."""
+        checkpoints.save_train_state(
+            self.resume_dir, self.state, epoch, self.stopper, self.np_rng, extra_trees,
+            generators={"seed_gen": self._seed_gen, "gen": self.gen})
+
+    def try_resume(self, extra_templates=None):
+        """With ``train.resume`` and a snapshot in ``resume_dir``: restore the
+        state, the early stop's four fields, ``np_rng``'s bit-generator state
+        and both torch generators, and return (the next epoch, {name: extra
+        tree} of ``extra_templates``' names found); else None."""
+        if not (self.config.train.resume and checkpoints.has_train_state(self.resume_dir)):
+            return None
+        state, epoch, st, np_state, extras = checkpoints.load_train_state(
+            self.resume_dir, self.state, extra_templates)
+        self.state = state
+        gens = extras.pop("generators")
+        self._seed_gen.set_state(gens["seed_gen"])
+        self.gen.set_state(gens["gen"])
+        self.stopper.patience = st["patience"]
+        self.stopper.counter = st["counter"]
+        self.stopper.best_metric = st["best_metric"]
+        self.stopper.early_stop = st["early_stop"]
+        self.np_rng.bit_generator.state = np_state
+        if self.verbose:
+            print(f"Resumed from {self.resume_dir} at epoch {epoch + 1}")
+        return epoch + 1, extras
 
     def save_result(self, avg_loss, avg_auc, domain_loss, domain_auc) -> str:
         """The run's result folder (reference run.py:86-89, JAX

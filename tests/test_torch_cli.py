@@ -14,9 +14,9 @@ package's.
   ``config.json.example`` equal, ``model_parameters.npz`` with the same flax
   names and shapes and read by the JAX package's ``load_pytree``;
 - one subprocess of ``python -m mamdr_tpu_torch.run --config ... --device cpu``;
-- what the CLI refuses, naming its ROADMAP item: ``--resume``, a base model
-  not ported (``--benchmark Taobao-10/deepfm``), a strategy not ported; and
-  without a card, the CLI raises unless told ``--device cpu``.
+- corpus entries refused before their base model was ported now run on a
+  small tree (``--resume``: tests/test_torch_resume.py); and without a card,
+  the CLI raises unless told ``--device cpu``.
 """
 
 import dataclasses
@@ -230,7 +230,6 @@ def test_list_benchmarks_prints_the_corpus(capsys):
 
 
 CLI_REFUSED = [
-    (["--benchmark", "Taobao-10/mlp_meta_mamdr_finetune", "--resume"], "resume state"),
     (["--benchmark", "Taobao-10/deepfm"], None),  # lifted: ported, it runs
     (["--benchmark", "Taobao-10/star_meta_mamdr_finetune"], None),  # lifted: ported, it runs
     (["--benchmark", "Taobao-10/mmoe"], None),  # lifted: ported, it runs

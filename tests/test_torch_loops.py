@@ -36,6 +36,7 @@ from mamdr_tpu.config import ExperimentConfig as JConfig
 from mamdr_tpu.data.dataset import stack_batches as jstack_batches
 from mamdr_tpu.data.synthetic import make_synthetic_dataset as jax_make_synthetic
 from mamdr_tpu.strategies import build_strategy as jbuild_strategy
+from mamdr_tpu.train.checkpoints import load_pytree as jload_pytree
 from mamdr_tpu.train.trainer import Trainer as JTrainer
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.convert import batch_stats_from_jax, params_from_jax, specific_from_jax
@@ -260,8 +261,10 @@ def test_separate_loop_matches_jax(tmp_path, name):
     """_separate_loop (separate_fused false): the separate strategy (every
     domain from the trainer's weights and optimizer state, Adam) and MAMDR's
     finetune stage (every domain from its merged best weights, fresh SGD):
-    per-domain test loss and AUC, np_rng's state, and each domain_{d}.npz
-    (the trainable leaves, a 0-d placeholder at each frozen table)."""
+    per-domain test loss and AUC, np_rng's state, and each domain_{d}.npz:
+    every key the JAX package's file holds, frozen tables included, at
+    RTOL / ATOL, and the JAX package's load_pytree reads it with a full
+    template."""
     jt, js, tt, ts = loop_pair(tmp_path, name, separate_fused=False, epoch=3)
     if name == "mlp_separate":
         jres, tres = js.run(), ts.run()
@@ -275,10 +278,13 @@ def test_separate_loop_matches_jax(tmp_path, name):
                 np.load(f"{jt.checkpoint_dir}/domain_{d}.npz") as jz:
             assert sorted(z.files) == sorted(jz.files)
             for k in z.files:
-                if "user_emb" in k or "item_emb" in k:
-                    assert z[k].shape == ()
-                else:
-                    np.testing.assert_allclose(z[k], jz[k], rtol=RTOL, atol=ATOL, err_msg=k)
+                assert z[k].shape == jz[k].shape, k
+                np.testing.assert_allclose(z[k], jz[k], rtol=RTOL, atol=ATOL, err_msg=k)
+            # the JAX loader raises on a missing key or a shape that differs
+            loaded = jload_pytree(f"{tt.checkpoint_dir}/domain_{d}.npz", jt.state.params)
+            for name, leaf in zip(trees.param_names(jax.device_get(loaded)),
+                                  jax.tree_util.tree_leaves(loaded)):
+                assert np.array_equal(np.asarray(leaf), z[name.replace("/", "//")]), name
 
 
 ROUTES = [

@@ -105,8 +105,6 @@ REFUSED = [
     ({"train": {"separate_fused": False}}, None, "strategy"),
     ({"train": {"tensorboard": True}}, "TensorBoard", "trainer"),
     ({"train": {"histogram_freq": 1}}, "TensorBoard", "trainer"),
-    ({"train": {"resume": True}}, "resume state", "trainer"),
-    ({"train": {"resume_every": 2}}, "resume state", "trainer"),
     ({"train": {"dr_lane_chunk": 2}}, "dr_lane_chunk", "prepare"),
     ({"model": "mlp_meta_maml", "train": {"average_meta_grad": "drop"}}, None, "train"),
     ({"model": "mlp_pcgrad", "train": {"target_domain": 1}}, None, "train"),
