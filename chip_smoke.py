@@ -130,6 +130,29 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      mlp_meta_mamdr_finetune at most LEARN_EPOCHS epochs, which fails unless
      the test macro AUC reaches LEARN_GATE; K1-lanes and K2 held to their
      plain versions and timed at its 10-lane shapes;
+  5k. TensorBoard at bench shapes: run() of mlp_meta_mamdr_finetune with
+     tensorboard, histogram_freq 1 and write_grads, its launch counts
+     asserted (5c's run and _sample_grads' one K2); the event files read
+     back by TensorBoard's EventAccumulator (every val and test scalar equal to
+     metrics.jsonl's, a weight and a grad/ histogram a parameter leaf, each
+     counting the leaf's elements) and the seconds the TensorBoard work
+     adds; the trained parameters through the Keras h5 mapping and back
+     (a file where h5py is installed), bit-equal, an eval on them equal;
+  5l. the DR lanes in groups with trainable tables (load_pretrain_emb false,
+     emb_trainable true, deterministic algorithms on): the DN phase, the DR
+     phase in the JAX package's automatic groups of 7, and the same DR phase
+     in one group of 30 from the same entry, each with its launch counts,
+     seconds, peak memory and lane-state bytes, held to each other (the
+     specific stack, the state, the val losses and AUCs); K1-lanes at 7
+     lanes and K2 on lane-stacked trainable [7 | 30, 100000, 128] tables
+     against their plain versions and timed;
+  5m. bf16 towers and flat_optimizer false: with compute_dtype bfloat16 one
+     autograd step and one autograd lane-step through K2 against K2's plain
+     version, then run() (K1 none, K2 as 5c's run), weights moved and
+     finite; run() with flat_optimizer false and with it true under
+     deterministic algorithms, equal bit for bit (the Adam state's count,
+     mu and nu included), and the state through the per-leaf optax layout
+     of the resume snapshot and back, bit-equal;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -419,23 +442,25 @@ def main() -> int:
         turn[0] += 1
         return fn(sets[turn[0] % len(sets)])
 
-    def field_timings(tables, sets):
+    def field_timings(tables, sets, marked=mask):
         """Device ms a call over id sets taken in turn (so that a replay does
         not find the rows it read last time in the 50 MB L2; on the main path
         K1 runs between two gathers): K2, the route it replaces, the plain
         version, and the library composite (torch.cat of F.embedding calls
-        on the clamped flat ids, made beforehand)."""
+        on the clamped flat ids, made beforehand); ``marked``: the fields
+        whose row ids are written (the trainable tables')."""
         views = [t.reshape(-1, t.shape[-1]) for t in tables]
         long_sets = [[table_rows(t, i)[1].long() for t, i in zip(tables, s)] for s in sets]
         library = lambda ls: torch.cat(  # noqa: E731
             [torch.nn.functional.embedding(i, v) for i, v in zip(ls, views)], dim=-1)
         return {
             "k2": device_ms(lambda: in_turn(
-                lambda s: gather_fields(tables, s, train_mask=mask), sets), inner=48),
+                lambda s: gather_fields(tables, s, train_mask=marked), sets), inner=48),
             "route": device_ms(lambda: in_turn(lambda s: replaced_route(tables, s), sets),
                                inner=48),
             "plain": device_ms(lambda: in_turn(
-                lambda s: gather_fields_reference(tables, s, train_mask=mask), sets), inner=48),
+                lambda s: gather_fields_reference(tables, s, train_mask=marked), sets),
+                inner=48),
             "library": device_ms(lambda: in_turn(library, long_sets), inner=48),
         }
 
@@ -2308,6 +2333,479 @@ def main() -> int:
     shutil.rmtree(work_j, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # ---- 5k. TensorBoard at bench shapes ----
+    # mlp_meta_mamdr_finetune at bench shapes (the in-memory bench data) with
+    # tensorboard on, histogram_freq 1 and write_grads: run() of one epoch with
+    # the launch counts at 0 just before it and read just after (5c's run, and
+    # the one K2 with ids [B] of _sample_grads on the val epoch, no K1 for
+    # it); the event files read back with TensorBoard's EventAccumulator
+    # (every val and test scalar equal to its metrics.jsonl value, one
+    # histogram a parameter leaf and one grad/ histogram a leaf, each
+    # counting the leaf's elements);
+    # the seconds the TensorBoard work adds to run(). Then the trained
+    # parameters through the Keras h5 mapping and back: bit-equal, and an
+    # eval on them equal to the eval on the original tree.
+    import importlib.util
+
+    from mamdr_tpu_torch.train.steps import make_loss_grad
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    from mamdr_tpu_torch.utils import h5_import
+
+    work_k = tempfile.mkdtemp(prefix="mamdr_chip_smoke_5k_")
+    mem = bench_dataset()
+
+    def bench_mamdr(root, tag, model=None, **train):
+        """A MAMDR strategy at bench shapes on the in-memory bench data, with
+        these model and train values."""
+        cfg = bench_config(checkpoint_path=os.path.join(root, tag))
+        for k, v in (model or {}).items():
+            setattr(cfg.model, k, v)
+        for k, v in train.items():
+            setattr(cfg.train, k, v)
+        return MAMDRStrategy(Trainer(cfg, mem, verbose=False))
+
+    def run_counts(t, epochs, sample_grads=0):
+        """(K1, K1-lanes, K2, K2 with ids [B], K2 with ids [L, B]) of a
+        MAMDR run() of `epochs` epochs and its finetune, from the code's
+        step counts: DN a step a domain's batch (K1 and K2), DR K support
+        runs of lane-steps (K1-lanes and K2), an eval lane-step a val / test
+        batch, the finetune's epochs of lane-steps and their evals, and one
+        one-tower K2 a _sample_grads call."""
+        spd_, tc_ = t.steps_per_domain(), t.config.train
+        k_ = min(tc_.sample_num, t.dataset.n_domain - 1) + int(tc_.add_query_domain)
+        ft_, cap_ = max(spd_), tc_.domain_regulation_step
+        dr_ = k_ * (ft_ + (min(ft_, cap_) if cap_ > 0 else ft_))
+        val_ = max(t.eval_steps_per_domain("val"))
+        test_ = max(t.eval_steps_per_domain("test"))
+        one_tower = epochs * sum(spd_) + sample_grads
+        lane_k2 = epochs * (dr_ + val_) + test_ + (ft_ + val_) * tc_.epoch + test_
+        k1 = 0 if t.model.compute_dtype != "float32" else epochs * sum(spd_)
+        k1l = 0 if k1 == 0 else epochs * dr_ + ft_ * tc_.epoch
+        return (k1, k1l, one_tower + lane_k2, one_tower, lane_k2)
+
+    strat_k = bench_mamdr(work_k, "tb", tensorboard=True, histogram_freq=1, write_grads=True)
+    t_k = trainer = strat_k.trainer  # checked() reads `trainer`
+    tb_s = {"s": 0.0, "calls": 0}
+
+    def timed_tb(fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            tb_s["s"] += time.perf_counter() - t
+            tb_s["calls"] += 1
+            return r
+        return wrapped
+
+    for fn_name in ("log_eval", "log_histograms", "log_grad_histograms"):
+        setattr(t_k.tb, fn_name, timed_tb(getattr(t_k.tb, fn_name)))
+    t_k._sample_grads = timed_tb(t_k._sample_grads)
+    want_k = run_counts(t_k, t_k.config.train.epoch, sample_grads=t_k.config.train.epoch)
+    zero_counts()
+    t0 = time.perf_counter()
+    res_k = strat_k.run()
+    torch.cuda.synchronize()
+    run_k_s = time.perf_counter() - t0
+    tb_counts = counts() + k2_split()
+    if tb_counts != want_k:
+        fail(f"5k: run() with TensorBoard launched (K1, K1-lanes, K2, K2 ids [B], K2 ids "
+             f"[L, B]) {tb_counts}, expected {want_k}")
+    checked(res_k, "test", "5k run()")
+    tb_dir = os.path.join(t_k.checkpoint_dir, "tensorboard")
+    t_k.tb.close()
+    acc_k = EventAccumulator(tb_dir, size_guidance={"scalars": 0, "histograms": 0})
+    acc_k.Reload()
+    events_k = {
+        "scalars": {tag: [(e.step, e.value) for e in acc_k.Scalars(tag)]
+                    for tag in acc_k.Tags()["scalars"]},
+        "histograms": {tag: [(h.step, {"num": h.histogram_value.num,
+                                       "bucket": list(h.histogram_value.bucket)})
+                             for h in acc_k.Histograms(tag)]
+                       for tag in acc_k.Tags()["histograms"]}}
+    with open(os.path.join(t_k.checkpoint_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    seen, n_scalars = {}, 0
+    for rec in records:
+        if not rec["event"].endswith("_eval"):
+            continue
+        mode = rec["event"][: -len("_eval")]
+        values = {"avg_loss": rec["avg_loss"], "avg_auc": rec["avg_auc"],
+                  **{f"domain_{d}_AUC": v for d, v in rec["domain_auc"].items()}}
+        for key, v in values.items():
+            tag = f"{mode}/{key}"
+            i = seen[tag] = seen.get(tag, -1) + 1
+            got = events_k["scalars"].get(tag, [])
+            if len(got) <= i or got[i] != (rec["epoch"], float(np.float32(v))):
+                fail(f"5k: the event files' {tag} #{i} is {got[i:i + 1]}, metrics.jsonl has "
+                     f"({rec['epoch']}, {v})")
+            n_scalars += 1
+    n_val_k = sum(r["event"] == "val_eval" for r in records)
+    leaves_k = dict(trees.leaves_with_names(t_k.state.params))
+    for leaf_name, x in leaves_k.items():
+        for tag in (leaf_name, f"grad/{leaf_name}"):
+            hs = events_k["histograms"].get(tag, [])
+            if ([st for st, _ in hs] != list(range(n_val_k))
+                    or any(h["num"] != x.numel() or sum(h["bucket"]) != x.numel()
+                           for _, h in hs)):
+                fail(f"5k: histogram {tag}: steps {[st for st, _ in hs]}, counts "
+                     f"{[(h['num'], sum(h['bucket'])) for _, h in hs]}; the leaf has "
+                     f"{x.numel()} elements, {n_val_k} val epochs")
+    if len(events_k["histograms"]) != 2 * len(leaves_k):
+        fail(f"5k: {len(events_k['histograms'])} histogram tags for {len(leaves_k)} leaves")
+    tb_bytes = sum(os.path.getsize(os.path.join(tb_dir, f)) for f in os.listdir(tb_dir))
+    print(f"TensorBoard at bench shapes (mlp_meta_mamdr_finetune, histogram_freq 1, "
+          f"write_grads): run() {run_k_s:.3f} s, of which the TensorBoard work (scalars, "
+          f"weight and gradient histograms, _sample_grads) {tb_s['s']:.3f} s in "
+          f"{tb_s['calls']} calls; launches (K1, K1-lanes, K2) {tb_counts[:3]}, K2 split "
+          f"{tb_counts[3:]} (5c's run and _sample_grads' one K2 with ids [B]); event files "
+          f"read back: {n_scalars} scalars equal to metrics.jsonl's, "
+          f"{len(events_k['histograms'])} histograms ({len(leaves_k)} leaves and their "
+          f"grad/), each counting its leaf's elements; {tb_bytes} bytes; {card}")
+
+    # the trained parameters through the Keras h5 mapping and back
+    model_k = t_k.state.params["model"]
+    t0 = time.perf_counter()
+    if importlib.util.find_spec("h5py") is not None:
+        h5_path = os.path.join(work_k, "trained.h5")
+        h5_import.export_reference_weights(h5_path, model_k)
+        back_k, rep_k = h5_import.import_reference_weights(h5_path, model_k)
+        how_k = f"through a {os.path.getsize(h5_path)}-byte Keras h5 file"
+    else:
+        listed = [(f"{lname}//{wname}", a)
+                  for lname, wname, a in h5_import.reference_layers(model_k)]
+        back_k, rep_k = h5_import.import_weights(listed, model_k)
+        how_k = ("through the layer list a Keras h5 file holds (no h5py on this machine, so "
+                 "no file)")
+    torch.cuda.synchronize()
+    h5_s = time.perf_counter() - t0
+    if (rep_k["skipped"] or rep_k["unmatched_flax"]
+            or trees.param_names(back_k) != trees.param_names(model_k)
+            or not all(torch.equal(a, b) for a, b in zip(trees.leaves(back_k),
+                                                         trees.leaves(model_k)))):
+        fail(f"5k: the h5 round trip of the trained parameters is not bit-equal: {rep_k}")
+    eval_k = t_k.fused_eval_fn()
+    l_a, a_a = eval_k(t_k.state.params, t_k.eval_block("val"), stats=t_k.state.batch_stats)
+    l_b, a_b = eval_k({**t_k.state.params, "model": back_k}, t_k.eval_block("val"),
+                      stats=t_k.state.batch_stats)
+    if not (torch.equal(l_a, l_b) and torch.equal(a_a, a_b)):
+        fail("5k: the eval on the imported parameters differs from the eval on the originals")
+    print(f"Keras h5 round trip of the trained parameters ({len(rep_k['matched'])} leaves) "
+          f"{how_k}: {h5_s:.3f} s, every leaf bit-equal; the val eval on them equal to the "
+          f"original's (macro AUC {float(a_b.mean()):.6f}); {card}")
+    del strat_k, t_k, trainer, model_k, back_k, eval_k
+    shutil.rmtree(work_k, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- 5l. the DR lanes in groups, with trainable tables ----
+    # mlp_meta_mamdr_finetune at bench shapes with the Amazon corpus's table
+    # setting (load_pretrain_emb false, emb_trainable true: every lane stacks
+    # its own [100000, 128] user and item tables and their Adam slots), under
+    # deterministic algorithms (5i): the DN phase, then the DR phase with no
+    # dr_lane_chunk, which the JAX package's rule makes groups of 7 (5 groups
+    # over 30 domains), then the same DR phase from the same entry (state,
+    # shared, specific, device generator) with dr_lane_chunk 30, one group,
+    # as the reference. Each DR phase with its launch counts (derived from the
+    # groups' real steps), seconds, peak memory and lane-state bytes; the two
+    # held to each other (specific stack, state, val losses and AUCs).
+    work_l = tempfile.mkdtemp(prefix="mamdr_chip_smoke_5l_")
+    strat_l = bench_mamdr(work_l, "chunks", load_pretrain_emb=False, emb_trainable=True)
+    t_l = strat_l.trainer
+    d_l = mem.n_domain
+    spd_l = t_l.steps_per_domain()
+    cap_l = strat_l.tc.domain_regulation_step
+
+    def group_lane_steps(order_, aux_, group):
+        """The lane-steps of a DR phase in groups of `group` lanes: per group
+        and support run, its longest support epoch and its longest (capped)
+        query epoch."""
+        total = 0
+        for start in range(0, len(order_), group):
+            o, a = order_[start:start + group], aux_[start:start + group]
+            for j in range(a.shape[1]):
+                total += (max(spd_l[s] for s in a[:, j])
+                          + max(min(spd_l[q], cap_l) if cap_l > 0 else spd_l[q] for q in o))
+        return total
+
+    def lane_state_bytes(group):
+        """Bytes of the lane state of one group: every trainable leaf and its
+        two Adam slots, a copy a lane."""
+        frozen_ = trees.leaves(t_l.frozen_mask())
+        per_lane = sum(x.numel() * 4 for x, f in zip(trees.leaves(t_l.state.params), frozen_)
+                       if not f)
+        return 3 * group * per_lane
+
+    def dr_run():
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0_ = time.perf_counter()
+        strat_l.run_dr_phase()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0_, counts() + k2_split(),
+                torch.cuda.max_memory_allocated())
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught_l:
+        warnings.simplefilter("default")
+        strat_l.prepare_fused()
+        if not strat_l.dr_lanes or strat_l._dr_lane_chunk_effective != 7:
+            fail(f"5l: DR lanes {strat_l.dr_lanes}, in groups of "
+                 f"{strat_l._dr_lane_chunk_effective}; expected groups of 7")
+        zero_counts()
+        strat_l.run_dn_phase()
+        dn_l_counts = counts() + k2_split()
+        entry_l = (t_l.state, strat_l.shared, list(strat_l.specific), t_l.gen.get_state())
+        dr7_s, dr7_counts, dr7_peak = dr_run()
+        state7, stack7, gen7 = t_l.state, strat_l._spec_stack, t_l.gen.get_state()
+        t_l.state, strat_l.shared, strat_l.specific = entry_l[0], entry_l[1], list(entry_l[2])
+        t_l.gen.set_state(entry_l[3])
+        strat_l.tc.dr_lane_chunk = d_l
+        strat_l.prepare_fused()
+        if strat_l._dr_lane_chunk_effective != d_l:
+            fail(f"5l: dr_lane_chunk {d_l} gave groups of {strat_l._dr_lane_chunk_effective}")
+        dr30_s, dr30_counts, dr30_peak = dr_run()
+        state30, stack30 = t_l.state, strat_l._spec_stack
+        eval_l = fused.make_fused_eval_merged(t_l.model, t_l.step_cfg, strat_l.mask,
+                                              strat_l.tc.merged_method)
+        ev7 = eval_l(state7.params, strat_l.shared, stack7, t_l.eval_block("val"))
+        ev30 = eval_l(state30.params, strat_l.shared, stack30, t_l.eval_block("val"))
+        torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(False)
+    not_repeatable_l = sorted({str(w.message).split(".")[0] for w in caught_l
+                               if "determinis" in str(w.message)})
+    if dn_l_counts != (sum(spd_l), 0, sum(spd_l), sum(spd_l), 0):
+        fail(f"5l: the DN phase with trainable tables launched {dn_l_counts}, expected "
+             f"({sum(spd_l)}, 0, {sum(spd_l)}, {sum(spd_l)}, 0)")
+    for c_, got_ in ((7, dr7_counts), (d_l, dr30_counts)):
+        steps_ = group_lane_steps(strat_l.order, strat_l.aux, c_)
+        if got_ != (0, steps_, steps_, 0, steps_):
+            fail(f"5l: the DR phase in groups of {c_} launched (K1, K1-lanes, K2, K2 ids [B], "
+                 f"K2 ids [L, B]) {got_}, expected (0, {steps_}, {steps_}, 0, {steps_})")
+    if not torch.equal(gen7, t_l.gen.get_state()):
+        fail("5l: the grouped and the one-group DR phase drew differently from the generator")
+    diffs_l = {
+        "specific stack": tree_rel(stack7, stack30),
+        "params": tree_rel(state7.params, state30.params),
+        "Adam slots": tree_rel({"mu": state7.opt_state.mu, "nu": state7.opt_state.nu},
+                               {"mu": state30.opt_state.mu, "nu": state30.opt_state.nu}),
+        "val losses and AUCs": tree_rel(dict(zip("la", ev7)), dict(zip("la", ev30))),
+    }
+    bit_l = (all(same for _, same in diffs_l.values()) and torch.equal(state7.step, state30.step)
+             and torch.equal(state7.opt_state.count, state30.opt_state.count))
+    worst_l = max(r for r, _ in diffs_l.values())
+    if not bit_l and not worst_l <= K1_REL_TOL:
+        fail(f"5l: the DR phase in groups of 7 and in one group differ: {diffs_l}")
+    trainable_tables = [n for n, x in trees.leaves_with_names(state7.params)
+                        if ("user_emb" in n or "item_emb" in n) and x.dim() == 2]
+    moved_l = all(not torch.equal(stack7["model"]["embedding"][n][d], entry_specific)
+                  for n in ("user_emb", "item_emb") for d, entry_specific in enumerate(
+                      [sp["model"]["embedding"][n] for sp in entry_l[2]]))
+    if not moved_l:
+        fail("5l: a domain's specific user or item table did not move in the grouped DR phase")
+    print(f"DR lanes with trainable tables at bench shapes (load_pretrain_emb false, "
+          f"emb_trainable true; trainable tables {trainable_tables}): DN phase launches (K1, "
+          f"K1-lanes, K2) {dn_l_counts[:3]}; no dr_lane_chunk gives "
+          f"groups of 7 ({-(-d_l // 7)} groups over {d_l} domains): {dr7_s:.3f} s, launches "
+          f"(K1, K1-lanes, K2) {dr7_counts[:3]}, lane state {lane_state_bytes(7)} bytes a "
+          f"group, peak memory {dr7_peak} bytes; one group of {d_l} (dr_lane_chunk {d_l}): "
+          f"{dr30_s:.3f} s, launches {dr30_counts[:3]}, lane state {lane_state_bytes(d_l)} "
+          f"bytes, peak memory {dr30_peak} bytes; deterministic algorithms on: the specific "
+          f"stack, the state, the val losses and AUCs bit-equal {bit_l} (largest difference "
+          f"{worst_l:.2e} of a tensor's max, tol {'0' if bit_l else K1_REL_TOL}); every "
+          f"domain's specific tables moved; ops reported without a deterministic version: "
+          f"{not_repeatable_l or 'none'}; {card}")
+    del strat_l, t_l, entry_l, state7, stack7, state30, stack30, eval_l, ev7, ev30
+    shutil.rmtree(work_l, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # K1-lanes at 7 lanes and K2 on lane-stacked trainable tables, 7 lanes (a
+    # group's shape) and 30 (one group's), against their plain versions and
+    # timed; the tables drawn on the device
+    lanes7 = 7
+    per7 = [tower_inputs({1: "partial"}.get(l, "mixed")) for l in range(lanes7)]
+    args7 = (*(torch.stack([p[i] for p in per7]) for i in range(3)),
+             torch.from_numpy(rng.integers(0, 2**32, (lanes7, len(dims) - 1),
+                                           dtype=np.int64)).to(dev),
+             tuple(torch.stack([p[4][i] for p in per7]) for i in range(len(per7[0][4]))))
+    k1l7 = k1_vs_plain(fused_tower_grad_lanes, tower_grad_reference_lanes, *args7, dims, 0.5,
+                       K1_REL_TOL)
+    k1l7_ms = device_ms(lambda: fused_tower_grad_lanes(*args7, dims, 0.5), inner=5)
+    k1l7_plain_ms = device_ms(lambda: tower_grad_reference_lanes(*args7, dims, 0.5), inner=2)
+    k1l7_bound = lanes7 * k1_bound
+    print(f"K1 lanes at a group's shape ({lanes7} lanes): {report(k1l7)}; "
+          f"{k1l7_ms * 1e3:.1f} us/call, plain {k1l7_plain_ms * 1e3:.1f} us, bound "
+          f"{k1l7_bound * 1e3:.1f} us; {card}")
+    gen_t = torch.Generator(device=dev).manual_seed(5)
+    trained_k2 = {}
+    for nl in (lanes7, d_l):
+        tabs = (torch.randn((nl, n_rows, dim), generator=gen_t, device=dev) * 0.1,
+                torch.randn((nl, n_rows, dim), generator=gen_t, device=dev) * 0.1,
+                torch.randn((nl, n_dom, dim), generator=gen_t, device=dev) * 0.01)
+        sets_ = [(rand_ids(n_rows, (nl, batch), False), rand_ids(n_rows, (nl, batch), False),
+                  rand_ids(n_dom, (nl, 1), False).expand(nl, batch).contiguous())
+                 for _ in range(4)]
+        edge = (rand_ids(n_rows, (nl, batch)), rand_ids(n_rows, (nl, batch)),
+                rand_ids(n_dom, (nl, batch)))
+        every_field = (True, True, True)
+        x_k, f_k = gather_fields(tabs, edge, train_mask=every_field)
+        x_p, f_p = gather_fields_reference(tabs, edge, train_mask=every_field)
+        err_ = float((x_k - x_p).abs().max())
+        if err_ != 0.0 or not all(torch.equal(a, b) for a, b in zip(f_k, f_p)):
+            fail(f"K2 on lane-stacked trainable tables ({nl} lanes) differs from the plain "
+                 f"field gather: {err_}")
+        t_ = field_timings(tabs, sets_, every_field)
+        least_, every_ = field_bound(tabs, sets_, every_field)
+        trained_k2[nl] = (err_, t_, least_ / HBM_BYTES * 1e3)
+        print(f"K2 gather_fields vs plain on lane-stacked trainable tables [3 fields x "
+              f"{nl * batch} ids; {nl}x{n_rows}x{dim} user and item tables, a {nl}x{n_dom}x"
+              f"{dim} domain table, ids out of range in every lane; every field's row ids "
+              f"written]: max abs err {err_} (tol 0); the row ids equal")
+        print(timing_line(f"lane-stacked trainable tables, {nl} lanes ({nl * batch} ids)", t_,
+                          least_, every_))
+        del tabs, sets_, edge, x_k, x_p, f_k, f_p
+        torch.cuda.empty_cache()
+
+    # ---- 5m. bf16 towers and flat_optimizer false ----
+    # (a) mlp_meta_mamdr_finetune at bench shapes with compute_dtype bfloat16:
+    # the K1 gate sends its tower to autograd (K1 computes float32), so one
+    # autograd train step and one autograd lane-step (30 lanes, every lane its
+    # own weights) through K2 are held to the same through K2's plain version;
+    # then run() with its launch counts (K1 none, K2 as 5c's run), the weights
+    # moved and finite. (b) run() with flat_optimizer false (the JAX
+    # package's per-leaf optax.adam: the port runs the same Adam and keeps
+    # only optax's layout for the resume snapshot) and with it true, both
+    # under deterministic algorithms: equal bit for bit, count, mu and nu
+    # included; the state to the optax layout and back, bit-equal.
+    from mamdr_tpu_torch.train.steps import make_autograd_loss_grad
+
+    work_m = tempfile.mkdtemp(prefix="mamdr_chip_smoke_5m_")
+    strat_b = bench_mamdr(work_m, "bf16", model={"compute_dtype": "bfloat16"})
+    t_b = trainer = strat_b.trainer  # checked() reads `trainer`
+    model_b, cfg_b = t_b.model, t_b.step_cfg
+    if "make_autograd_loss_grad" not in make_loss_grad(model_b, cfg_b).__qualname__:
+        fail("5m: the bf16 MLP's train step does not take autograd")
+    block_b = t_b.train_block()[0]
+    batch_b = {k: v[0, :batch].contiguous() for k, v in block_b.items()}
+    steps_b = [make_train_step(model_b, t_b.tx, cfg_b,
+                               loss_grad=make_autograd_loss_grad(model_b, cfg_b, gather=g))
+               for g in (gather_fields, gather_fields_reference)]
+    k2_before = gather_fields.launches
+    s_bk, l_bk = steps_b[0](t_b.state, batch_b)
+    if gather_fields.launches != k2_before + 1:
+        fail("5m: the bf16 autograd step did not launch K2 once")
+    s_bp, l_bp = steps_b[1](t_b.state, batch_b)
+    _, bf_step_rel = worst_errors([l_bk, s_bk.opt_state.mu, s_bk.opt_state.nu],
+                                  [l_bp, s_bp.opt_state.mu, s_bp.opt_state.nu])
+    frozen_b = t_b.frozen_mask()
+    params_bl = trees.tree_map(
+        lambda f, x: x if f else torch.stack([x * (1.0 + 0.01 * l) for l in range(lanes)]),
+        frozen_b, t_b.state.params)
+    cols_bl = {k: v[:, :batch].contiguous() for k, v in block_b.items()}
+    seeds_bl = torch.randint(0, 2**32, (lanes, model_b.n_dropout_sites), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(9))
+    k2_before = gather_fields.launches
+    d_bk, g_bk = make_autograd_loss_grad(model_b, cfg_b)(params_bl, cols_bl, seeds_bl)
+    if gather_fields.launches != k2_before + 1:
+        fail("5m: the bf16 autograd lane-step did not launch K2 once")
+    d_bp, g_bp = make_autograd_loss_grad(model_b, cfg_b, gather=gather_fields_reference)(
+        params_bl, cols_bl, seeds_bl)
+    got_b = [d_bk] + [g for g in trees.leaves(g_bk) if g is not None]
+    want_b = [d_bp] + [g for g in trees.leaves(g_bp) if g is not None]
+    _, bf_lane_rel = worst_errors(got_b, want_b)
+    if not (bf_step_rel <= K1_REL_TOL and bf_lane_rel <= K1_REL_TOL
+            and all(bool(torch.isfinite(g).all()) for g in got_b)):
+        fail(f"5m: the bf16 autograd step / lane-step through K2 and through its plain version "
+             f"differ by {bf_step_rel} / {bf_lane_rel} of a tensor's max")
+    print(f"bf16 tower (compute_dtype bfloat16): the train step takes autograd; one step "
+          f"({batch} ids) and one lane-step ({lanes} lanes x {batch} ids, every lane its own "
+          f"weights, dropout {model_b.dropout}) through K2 vs its plain version: loss, mu, nu "
+          f"within {bf_step_rel:.2e}, losses and {len(got_b) - 1} gradients within "
+          f"{bf_lane_rel:.2e} of the tensor's max (tol {K1_REL_TOL})")
+    del s_bk, s_bp, params_bl, g_bk, g_bp, got_b, want_b
+    params0_b = t_b.state.params
+    want_b = run_counts(t_b, t_b.config.train.epoch)
+    zero_counts()
+    t0 = time.perf_counter()
+    res_b = strat_b.run()
+    torch.cuda.synchronize()
+    bf_s = time.perf_counter() - t0
+    bf_counts = counts() + k2_split()
+    if bf_counts != want_b:
+        fail(f"5m: the bf16 run() launched (K1, K1-lanes, K2, K2 ids [B], K2 ids [L, B]) "
+             f"{bf_counts}, expected {want_b}")
+    bf_auc, bf_wauc, bf_loss = checked(res_b, "test", "5m bf16 run()")
+    moved_b = [not torch.equal(a, b) for (n, a), b in zip(
+        trees.leaves_with_names(t_b.state.params), trees.leaves(params0_b))
+        if not ("user_emb" in n or "item_emb" in n)]
+    if not all(moved_b) or not all(bool(torch.isfinite(x).all())
+                                   for x in trees.leaves(t_b.state.params)):
+        fail("5m: the bf16 run() left a trainable leaf unmoved or not finite")
+    print(f"bf16 run() at bench shapes (mlp_meta_mamdr_finetune): {bf_s:.3f} s; launches "
+          f"(K1, K1-lanes, K2) {bf_counts[:3]}, K2 split {bf_counts[3:]}; every trainable "
+          f"leaf moved and finite; test macro AUC {bf_auc:.6f}, weighted {bf_wauc:.6f}, loss "
+          f"{bf_loss:.6f}; {card}")
+    del strat_b, t_b, trainer, params0_b
+    torch.cuda.empty_cache()
+
+    runs_m = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught_m:
+        warnings.simplefilter("default")
+        for flat in (True, False):
+            strat_f = bench_mamdr(work_m, f"flat_{flat}", flat_optimizer=flat)
+            want_f = run_counts(strat_f.trainer, strat_f.tc.epoch)
+            zero_counts()
+            t0 = time.perf_counter()
+            res_f = strat_f.run()
+            torch.cuda.synchronize()
+            secs_f = time.perf_counter() - t0
+            counts_f = counts() + k2_split()
+            if counts_f != want_f:
+                fail(f"5m: run() with flat_optimizer {flat} launched {counts_f}, expected "
+                     f"{want_f}")
+            runs_m[flat] = (strat_f, res_f, secs_f, counts_f)
+    torch.use_deterministic_algorithms(False)
+    (sf_, rf_, flat_s, flat_counts), (sl_, rl_, leaf_s, leaf_counts) = runs_m[True], runs_m[False]
+    tx_l = sl_.trainer.tx
+    if tx_l.optax_path != ("1", "inner_state", "0"):
+        fail(f"5m: flat_optimizer false with frozen tables keeps the optax path "
+             f"{tx_l.optax_path}, not the masked chain's")
+    diffs_m = {
+        "params": tree_rel(sf_.trainer.state.params, sl_.trainer.state.params),
+        "shared": tree_rel(sf_.shared, sl_.shared),
+        "specific": max((tree_rel(a, b) for a, b in zip(sf_.specific, sl_.specific)),
+                        key=lambda r: r[0]),
+        "best_specific": max((tree_rel(a, b) for a, b in zip(sf_.best_specific,
+                                                             sl_.best_specific)),
+                             key=lambda r: r[0]),
+    }
+    opt_f, opt_l = sf_.trainer.state.opt_state, sl_.trainer.state.opt_state
+    diffs_m["Adam count, mu, nu"] = tree_rel(
+        {"count": opt_f.count.float(), "mu": opt_f.mu, "nu": opt_f.nu},
+        {"count": opt_l.count.float(), "mu": opt_l.mu, "nu": opt_l.nu})
+    back_l = tx_l.from_optax(tx_l.to_optax(opt_l, sl_.trainer.state.params))
+    diffs_m["optax layout and back"] = tree_rel(
+        {"count": opt_l.count.float(), "mu": opt_l.mu, "nu": opt_l.nu},
+        {"count": back_l.count.float(), "mu": back_l.mu, "nu": back_l.nu})
+    bit_m = all(same for _, same in diffs_m.values()) and rf_ == rl_
+    worst_m = max(r for r, _ in diffs_m.values())
+    not_repeatable_m = sorted({str(w.message).split(".")[0] for w in caught_m
+                               if "determinis" in str(w.message)})
+    if not bit_m:
+        fail(f"5m: run() with flat_optimizer false differs from run() with it true: "
+             f"{diffs_m}; test results equal {rf_ == rl_}")
+    print(f"flat_optimizer false at bench shapes (mlp_meta_mamdr_finetune, deterministic "
+          f"algorithms on): run() {leaf_s:.3f} s, launches {leaf_counts[:3]}; with it true "
+          f"run() {flat_s:.3f} s, launches {flat_counts[:3]}; the params, shared, every "
+          f"specific, the best snapshot, the Adam state's count, mu and nu, the state through "
+          f"the snapshot's optax layout and back, and the test losses and AUCs bit-equal "
+          f"{bit_m} (largest difference {worst_m:.2e}); ops reported without a "
+          f"deterministic version: {not_repeatable_m or 'none'}; {card}")
+    del runs_m, sf_, sl_, mem
+    shutil.rmtree(work_m, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # ---- 6. kernels ----
     print(json.dumps({"kernels": [
         {"name": "fused_tower_grad", "route": "cuda",
@@ -2538,6 +3036,64 @@ def main() -> int:
          "launches": learn_counts[4], "max_abs_err": k2j_err,
          "ms": j_t["k2"], "plain_ms": j_t["plain"], "bound_ms": k2j_bound,
          "bound_by": "bytes", "library_ms": j_t["library"]},
+        # 5k-5m (TensorBoard, the DR lanes in groups with trainable tables,
+        # bf16 towers and the per-leaf Adam, at bench shapes): K1 on the DN
+        # steps of 5k's run, 5l's DN phase and 5m's two Adam runs (none in the
+        # bf16 run: autograd); K1-lanes at 30 lanes on 5k's and 5m's DR and
+        # finetune lane-steps and on 5l's one-group DR, at 7 lanes on 5l's
+        # groups (timed and held at 7 lanes in 5l); K2 with ids [B] on those
+        # DN steps, the bf16 run's autograd steps and _sample_grads, with ids
+        # [L, B] on the lane-steps and evals of 5k and 5m over the shared
+        # frozen tables, and on 5l's lane-steps over lane-stacked trainable
+        # tables (timed and held at 7 and 30 lanes in 5l)
+        {"name": "fused_tower_grad (5k's, 5l's and 5m's DN steps)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": tb_counts[0] + dn_l_counts[0] + flat_counts[0] + leaf_counts[0],
+         "max_abs_err": k1_err, "relu_edge_units": k1_flips, "ms": k1_ms,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": "operations",
+         "library_ms": None},
+        {"name": f"fused_tower_grad_lanes ({lanes} lanes, 5k's and 5m's lane-steps, 5l's "
+                 "one-group DR)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": tb_counts[1] + dr30_counts[1] + flat_counts[1] + leaf_counts[1],
+         "max_abs_err": k1l_err, "relu_edge_units": k1l_flips, "ms": k1l_ms,
+         "plain_ms": k1l_plain_ms, "bound_ms": k1l_bound, "bound_by": "operations",
+         "library_ms": None},
+        {"name": f"fused_tower_grad_lanes ({lanes7} lanes, 5l's DR groups)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
+         "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",
+         "launches": dr7_counts[1], "max_abs_err": k1l7["err"],
+         "relu_edge_units": k1l7["flips"], "ms": k1l7_ms, "plain_ms": k1l7_plain_ms,
+         "bound_ms": k1l7_bound, "bound_by": "operations", "library_ms": None},
+        {"name": f"gather_fields (3 fields x {batch} ids, 5k-5m's one-tower steps and "
+                 "_sample_grads)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": (tb_counts[3] + dn_l_counts[3] + bf_counts[3] + flat_counts[3]
+                      + leaf_counts[3]),
+         "max_abs_err": k2_err, "bf16_step_rel_err": bf_step_rel,
+         "ms": dn_t["k2"], "plain_ms": dn_t["plain"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": dn_t["library"]},
+        {"name": f"gather_fields (3 fields x {lanes * batch} ids, 5k's and 5m's lanes and "
+                 "evals)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": tb_counts[4] + bf_counts[4] + flat_counts[4] + leaf_counts[4],
+         "max_abs_err": k2l_err, "bf16_lane_step_rel_err": bf_lane_rel,
+         "ms": dr_t["k2"], "plain_ms": dr_t["plain"], "bound_ms": k2l_bound,
+         "bound_by": "bytes", "library_ms": dr_t["library"]},
+        *[{"name": f"gather_fields (3 fields x {nl * batch} ids over lane-stacked trainable "
+                   f"{nl}x{n_rows}x{dim} tables, 5l's "
+                   f"{'DR groups' if nl == lanes7 else 'one-group DR'})",
+           "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+           "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+           "launches": (dr7_counts if nl == lanes7 else dr30_counts)[4],
+           "max_abs_err": trained_k2[nl][0], "ms": trained_k2[nl][1]["k2"],
+           "plain_ms": trained_k2[nl][1]["plain"], "bound_ms": trained_k2[nl][2],
+           "bound_by": "bytes", "library_ms": trained_k2[nl][1]["library"]}
+          for nl in (lanes7, d_l)],
         # K3's path is the gather probe, which runs it at both sizes: each
         # entry has the launches the probe counted at its depth and size, and
         # the error of its own comparison in 4b. At 1024 ids both depths plan

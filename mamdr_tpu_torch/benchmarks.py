@@ -8,9 +8,7 @@ Adam 1e-3 (MTL & MLDG 1e-4), meta-lr 0.1 for Reptile/DN/MAMDR and 1e-3 for
 MAML/PCGrad, DR sample_num 5 (+query), dropout 0.5, hidden [256,128,64]
 (MTL [512,256,128] + towers [64]), patience 3, seed 123, epoch bound 99999
 (early-stop terminated). Amazon trains its own embeddings; Taobao loads
-frozen pretrained 128-d vectors. Every entry parses; a base model or
-strategy the port cannot build yet is refused when the run builds it,
-naming its ROADMAP item.
+frozen pretrained 128-d vectors. Every entry parses and runs.
 
 Usage:
     from mamdr_tpu_torch.benchmarks import benchmark_config, list_configs

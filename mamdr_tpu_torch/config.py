@@ -107,8 +107,9 @@ class ModelConfig:
     auxiliary_dim: int = 128
     hidden_dim: List[int] = field(default_factory=lambda: [256, 128, 64])
     dropout: float = 0.0
-    # Tower compute dtype. The port computes float32 only; the field is read
-    # so that a bfloat16 config is refused rather than silently run in f32.
+    # Tower compute dtype: "bfloat16" runs the DNN's and logit head's
+    # products of the single-tower models in bf16 (params stay float32); the
+    # MTL models and STAR compute in float32 whatever it says.
     compute_dtype: str = "float32"
     # MTL extras (config/Taobao-10/{mmoe,ple}.json)
     tower_hidden_dim: List[int] = field(default_factory=lambda: [64])
@@ -135,9 +136,7 @@ class ModelConfig:
 @dataclass
 class TrainConfig:
     """``train`` block (README.md:118-146), with the JAX package's fields and
-    defaults, so ``config.json.example`` is the same file. Where a value
-    asks for a path the port does not have yet, ``Trainer`` or the strategy
-    raises ``NotImplementedError`` naming its ROADMAP item. Left out:
+    defaults, so ``config.json.example`` is the same file. Left out:
     ``profile_dir`` (a ``jax.profiler`` trace around each epoch; the port's
     device traces are ``kernel_profile.py``'s)."""
 
@@ -195,7 +194,10 @@ class TrainConfig:
     resume_every: int = 0
     # checkpoint_dir/metrics.jsonl: one event per evaluation and train epoch.
     metrics_jsonl: bool = True
-    # Refused when set (with histogram_freq): TensorBoard is not ported yet.
+    # tensorboard=True writes every evaluation's scalars to
+    # checkpoint_dir/tensorboard; histogram_freq > 0 also writes weight
+    # histograms every N val epochs and implies tensorboard; write_grads adds
+    # the loss gradient's histograms on a sample batch (utils/logging.py).
     tensorboard: bool = False
     write_grads: bool = True
     # Mesh-sharding knobs of the JAX package; without a mesh (the port runs
@@ -204,7 +206,8 @@ class TrainConfig:
     shard_experts: bool = False
     # Each domain's best finetuned weights as checkpoint_dir/domain_{i}.npz.
     domain_checkpoints: bool = True
-    # Flat-vector Adam over the trainable leaves (train/flat_optimizer.py).
+    # Adam over one flat vector of the trainable leaves; False: leaf by leaf
+    # (the same numbers; train/flat_optimizer.py).
     flat_optimizer: bool = True
     # MAMDR's DR phase as query-domain lanes (train/fused.py
     # make_fused_dr_parallel): "auto" takes the lanes when the model is
@@ -212,9 +215,10 @@ class TrainConfig:
     # raises with the reason when not eligible), "off" runs the sequential
     # dr_phase.
     dr_parallel: str = "auto"
-    # Lanes in groups of C to bound the concurrent lane state. Read so that a
-    # config using it is refused rather than silently run unchunked: chunked
-    # lanes are not ported yet (ROADMAP.md, open items §1).
+    # The DR lanes in groups of C, one group after the other, to bound the
+    # lane state that exists at once (the same results). 0: all at once, or
+    # groups of 7 when a user or item table is trainable and there are more
+    # than 7 domains (MAMDRStrategy._lane_chunk).
     dr_lane_chunk: int = 0
     # The finetune / separate lanes (strategies/separate.py); False asks for
     # the sequential per-domain loop (_separate_loop).

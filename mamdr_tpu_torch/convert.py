@@ -70,6 +70,23 @@ def flat_adam_state_from_jax(count, mu, nu, device="cpu") -> FlatAdamState:
     )
 
 
+def adam_state_from_jax(opt_state, emb_trainable: bool = True, device="cpu") -> FlatAdamState:
+    """The JAX package's per-leaf Adam state (``make_optimizer(flat=False)``,
+    as numpy: ``optax.adam``'s ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())``, or with frozen tables the chain ``(MaskedState(...),
+    MaskedState(inner_state=(ScaleByAdamState, EmptyState())))`` whose mu /
+    nu hold ``MaskedNode`` at frozen leaves) -> the port's flat Adam slots:
+    the trainable leaves of mu and nu ravelled in leaf order."""
+    adam_state = opt_state[0] if emb_trainable else opt_state[1].inner_state[0]
+
+    def flat(tree):  # optax's MaskedNode (no shape) marks a frozen leaf
+        return np.concatenate([np.asarray(x, np.float32).reshape(-1)
+                               for x in trees.leaves(tree) if hasattr(x, "shape")])
+
+    return flat_adam_state_from_jax(adam_state.count, flat(adam_state.mu),
+                                    flat(adam_state.nu), device)
+
+
 def meta_adam_state_from_jax(count, mu_tree, nu_tree, mask, device="cpu") -> FlatAdamState:
     """The JAX package's meta-optimizer state (``optax.adam``'s count and its
     mu / nu trees, as numpy, under ``optax.chain(masked(set_to_zero), adam)``)

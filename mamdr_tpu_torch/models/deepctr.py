@@ -27,6 +27,12 @@ have the flax names (``embedding/{user,item,domain}_emb``,
     kernel is rank 3 without lanes. It is differentiable (the autograd lane
     step, train/steps.py) and runs without a graph under ``no_grad`` (the
     lane eval);
+  - ``compute_dtype`` ("float32" or "bfloat16"; JAX deepctr.py:64-71): the
+    dtype of the DNN's and the logit head's products (flax ``nn.Dense``'s
+    ``dtype``, models/layers.py); the tables, the wide and FM terms, the
+    attention and conv layers, the loss and the metrics stay float32, and
+    the parameters are float32 either way. The MTL models and STAR accept
+    the key and compute in float32, as the JAX package's do;
   - ``n_dropout_sites``: how many hash-dropout layers a forward passes
     through, in call order; a train step draws that many seeds
     (``fast_random.step_seeds``) and ``forward`` hands them out in the order
@@ -59,6 +65,7 @@ from mamdr_tpu_torch.models.layers import (
     LogitDense,
     OuterProduct,
     bi_interaction,
+    dense_dtype,
     fm_interaction,
     inner_product,
     k_max_pooling,
@@ -81,14 +88,18 @@ class ZooModel(nn.Module):
 
     has_linear = False  # a wide term of dim-1 tables
     has_batch_stats = False  # STAR's norms carry moving statistics (models/star.py)
+    compute_dtype = "float32"  # the DNN's and logit head's (the deepctr bases)
 
     def __init__(self, n_uid: int, n_pid: int, n_domain: int,
                  user_dim: int = 128, item_dim: int = 128, domain_dim: int = 128,
                  hidden_dim: Sequence[int] = (256, 128, 64), dropout: float = 0.0,
                  pretrained_user: Optional[np.ndarray] = None,
                  pretrained_item: Optional[np.ndarray] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: str = "float32"):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        self.cdtype = dense_dtype(compute_dtype)
         self.n_domain = n_domain
         self.user_dim, self.item_dim, self.domain_dim = user_dim, item_dim, domain_dim
         self.dims = (user_dim, item_dim, domain_dim)
@@ -203,11 +214,12 @@ class MLP(ZooModel):
                  hidden_dim: Sequence[int] = (256, 128, 64), dropout: float = 0.0,
                  pretrained_user: Optional[np.ndarray] = None,
                  pretrained_item: Optional[np.ndarray] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: str = "float32"):
         super().__init__(n_uid, n_pid, n_domain, user_dim, item_dim, domain_dim, hidden_dim,
-                         dropout, pretrained_user, pretrained_item, generator)
-        self.dnn = DNN(self.in_features, self.hidden_dim, self.dropout, generator)
-        self.logit = LogitDense(self.hidden_dim[-1], generator)
+                         dropout, pretrained_user, pretrained_item, generator, compute_dtype)
+        self.dnn = DNN(self.in_features, self.hidden_dim, self.dropout, generator, self.cdtype)
+        self.logit = LogitDense(self.hidden_dim[-1], generator, self.cdtype)
 
     @property
     def n_dropout_sites(self) -> int:
@@ -221,8 +233,8 @@ class _DNNLogit(ZooModel):
     """A model whose tower ends in ``dnn`` -> ``logit``."""
 
     def _dnn_logit(self, dnn_in: int, logit_extra: int, generator):
-        self.dnn = DNN(dnn_in, self.hidden_dim, self.dropout, generator)
-        self.logit = LogitDense(self.hidden_dim[-1] + logit_extra, generator)
+        self.dnn = DNN(dnn_in, self.hidden_dim, self.dropout, generator, self.cdtype)
+        self.logit = LogitDense(self.hidden_dim[-1] + logit_extra, generator, self.cdtype)
 
     @property
     def n_dropout_sites(self) -> int:

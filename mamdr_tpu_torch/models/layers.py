@@ -8,6 +8,12 @@ layers of the zoo: ``fm_interaction``, ``bi_interaction``,
 ``inner_product``, ``OuterProduct``, ``InteractingLayer``, ``k_max_pooling``
 and ``Conv`` (flax ``nn.Conv`` over the field axis, for CCPM).
 
+A Dense, DNN or logit head built with a compute ``dtype`` (the models'
+``compute_dtype`` "bfloat16") computes as flax ``nn.Dense(dtype=...)`` does:
+input, kernel and bias promoted to that dtype, the product and the bias
+added in it, the ReLU and the dropout (``x / (1 - rate)`` too) after it in
+it; the logit head returns float32. The parameters stay float32.
+
 Modules are nested so that parameter paths equal the flax names: the zoo's
 ``Dense`` wraps flax's ``nn.Dense`` as ``Dense_0``, so a DNN layer's kernel is
 ``dnn/Dense_i/Dense_0/kernel``. Kernels are stored ``[in, out]`` as flax
@@ -71,12 +77,26 @@ def emb_init(t: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Ten
     return t.normal_(0.0, 1e-4, generator=generator)
 
 
+def dense_dtype(name: str) -> Optional[torch.dtype]:
+    """A config's ``compute_dtype`` as the dtype a Dense computes in: None
+    for "float32" (no cast), else the torch dtype of that name."""
+    if name == "float32":
+        return None
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype {name!r} is not a floating-point dtype")
+    return dtype
+
+
 class _FlaxDense(nn.Module):
-    """flax.linen.Dense: y = x @ kernel (+ bias), kernel [in, out]."""
+    """flax.linen.Dense: y = x @ kernel (+ bias), kernel [in, out]; with a
+    ``dtype``, x, kernel and bias cast to it first (flax's promote_dtype)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool,
-                 kernel_init: Callable, generator: Optional[torch.Generator]):
+                 kernel_init: Callable, generator: Optional[torch.Generator],
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(kernel_init(torch.empty(in_features, features), generator))
         if use_bias:
             self.bias = nn.Parameter(torch.zeros(features))
@@ -84,9 +104,13 @@ class _FlaxDense(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        if self.bias is not None:
-            y = y + self.bias
+        kernel, bias = self.kernel, self.bias
+        if self.dtype is not None:
+            x, kernel = x.to(self.dtype), kernel.to(self.dtype)
+            bias = None if bias is None else bias.to(self.dtype)
+        y = x @ kernel
+        if bias is not None:
+            y = y + bias
         return y
 
 
@@ -95,9 +119,11 @@ class Dense(nn.Module):
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  kernel_init: Callable = glorot_uniform,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.Dense_0 = _FlaxDense(in_features, features, use_bias, kernel_init, generator)
+        self.Dense_0 = _FlaxDense(in_features, features, use_bias, kernel_init, generator,
+                                  dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Dense_0(x)
@@ -126,12 +152,13 @@ class DNN(nn.Module):
 
     def __init__(self, in_features: int, hidden_units: Sequence[int],
                  dropout_rate: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_layers = len(hidden_units)
         prev = in_features
         for i, units in enumerate(hidden_units):
-            setattr(self, f"Dense_{i}", Dense(prev, units, generator=generator))
+            setattr(self, f"Dense_{i}", Dense(prev, units, generator=generator, dtype=dtype))
             prev = units
         self.dropout = FastDropout(dropout_rate)
 
@@ -144,15 +171,17 @@ class DNN(nn.Module):
 
 
 class LogitDense(nn.Module):
-    """Final 1-unit logit head: Dense(1, use_bias=False, glorot_normal)."""
+    """Final 1-unit logit head: Dense(1, use_bias=False, glorot_normal); the
+    logits are float32 whatever the compute dtype."""
 
-    def __init__(self, in_features: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, in_features: int, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.Dense_0 = Dense(in_features, 1, use_bias=False,
-                             kernel_init=glorot_normal, generator=generator)
+                             kernel_init=glorot_normal, generator=generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_0(x)[..., 0]
+        return self.Dense_0(x)[..., 0].to(torch.float32)
 
 
 def fm_interaction(fields: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Counterpart of ``mamdr_tpu/models/zoo.py``: the single-tower models of
 ``models/deepctr.py``, the MTL models of ``models/mtl.py`` and STAR
-(``models/star.py``). A ``compute_dtype`` other than float32 is not ported
-and raises, naming its ROADMAP item.
+(``models/star.py``). ``compute_dtype`` goes to the single-tower models,
+whose DNN and logit head compute in it; the MTL models and STAR accept it
+and compute in float32, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -44,11 +45,6 @@ def build_model(
     ``train.load_pretrain_emb`` is set (reference deepctr.py:104-116)."""
     mc = config.model
     spec = mc.spec
-    # STAR computes float32 whatever compute_dtype says, as the JAX package's does
-    if mc.compute_dtype != "float32" and spec.base_family != "star":
-        raise NotImplementedError(
-            f"compute_dtype {mc.compute_dtype!r}: the port computes the tower in float32 only "
-            "(ROADMAP.md, open items §1: compute_dtype)")
     if not config.train.load_pretrain_emb:
         pretrained_user = pretrained_item = None
     common = dict(
@@ -71,7 +67,7 @@ def build_model(
                          conv_filters=tuple(mc.conv_filters))
         elif spec.base == "pnn":
             extra = dict(use_inner=mc.use_inner, use_outter=mc.use_outter)
-        return _DEEPCTR[spec.base](**common, **extra)
+        return _DEEPCTR[spec.base](**common, **extra, compute_dtype=mc.compute_dtype)
     if spec.base_family == "mtl":
         return _MTL[spec.base](
             tower_hidden_dim=tuple(mc.tower_hidden_dim),

@@ -96,7 +96,9 @@ class MAMDRStrategy(MetaStrategy):
         per trainable leaf, every leaf of the model's tree counted — PLE's
         expert kernels, the linear tables — times n_domain) to stay under
         40% of the card's free memory — with trainable tables the lanes
-        stack whole tables. The budget counts no activations: an autograd
+        stack whole tables; ``dr_lane_chunk`` C > 0 bounds the lanes that
+        exist at once to C, so the budget counts min(n_domain, C) of them
+        (JAX mamdr.py:204-208). The budget counts no activations: an autograd
         lane step also holds the forward's intermediates for its backward,
         and for the MTL bases they outweigh the parameters (PLE's at bench
         shapes are [30 lanes, 30 tasks, 3 experts, 1024, 512] float32, about
@@ -109,11 +111,6 @@ class MAMDRStrategy(MetaStrategy):
         mode = self.tc.dr_parallel
         if mode not in ("auto", "on", "off"):
             raise ValueError(f"dr_parallel must be auto, on or off, got {mode!r}")
-        if self.tc.dr_lane_chunk > 0:
-            raise NotImplementedError(
-                f"dr_lane_chunk={self.tc.dr_lane_chunk}: chunked DR lanes are not "
-                "ported yet (ROADMAP.md, open items §1: dr_lane_chunk and the "
-                "sharded lanes)")
         if mode == "off":
             return False
         if self.trainer.state.batch_stats:
@@ -139,12 +136,31 @@ class MAMDRStrategy(MetaStrategy):
         trainable_bytes = sum(
             x.numel() * x.element_size()
             for x, f in zip(trees.leaves(params), trees.leaves(frozen)) if not f)
+        concurrent = self.n_domain
+        if self.tc.dr_lane_chunk > 0:
+            concurrent = min(concurrent, self.tc.dr_lane_chunk)
         free_bytes, _ = torch.cuda.mem_get_info(self.trainer.device)
-        return 3 * self.n_domain * trainable_bytes < 0.4 * free_bytes
+        return 3 * concurrent * trainable_bytes < 0.4 * free_bytes
+
+    def _lane_chunk(self) -> int:
+        """The DR lanes' group size (JAX mamdr.py:370-401): ``dr_lane_chunk``
+        when set; else 7 when a user or item table is trainable (the lanes
+        then stack whole tables) and there are more than 7 domains; else 0,
+        every lane at once. Chunked and whole lanes give the same results,
+        so the rule moves memory and launches, never a number."""
+        if self.tc.dr_lane_chunk > 0:
+            return self.tc.dr_lane_chunk
+        frozen = self.trainer.frozen_mask()
+        trainable_table = any(
+            ("user_emb" in n or "item_emb" in n) and x.dim() == 2 and not f
+            for (n, x), f in zip(trees.leaves_with_names(self.trainer.state.params),
+                                 trees.leaves(frozen)))
+        return 7 if trainable_table and self.n_domain > 7 else 0
 
     def prepare_fused(self) -> None:
         """Build the device-resident data block and the two phase functions;
-        ``self.dr_lanes`` says whether DR runs as lanes."""
+        ``self.dr_lanes`` says whether DR runs as lanes, and
+        ``_dr_lane_chunk_effective`` in groups of how many (0: all at once)."""
         t = self.trainer
         self._block, n_steps = t.train_block()
         batch, steps_list = t.dataset.batch_size, t.steps_per_domain()
@@ -153,12 +169,14 @@ class MAMDRStrategy(MetaStrategy):
             t.train_step_fn(), self.mask, method, n_steps, batch, reg_step,
             steps_list=steps_list)
         self.dr_lanes = self._dr_parallel_eligible()
+        self._dr_lane_chunk_effective = 0
         if self.dr_lanes:
             sub_step, to_sub, combine = make_subset_train_step(
                 t.model, t.tx, t.step_cfg, self.trainer.frozen_mask(), t.state.params)
+            self._dr_lane_chunk_effective = self._lane_chunk()
             self._dr_phase = fused.make_fused_dr_parallel(
                 sub_step, to_sub, combine, self.mask, method, n_steps, batch,
-                reg_step, steps_list=steps_list)
+                reg_step, steps_list=steps_list, lane_chunk=self._dr_lane_chunk_effective)
         self._spec_stack = fused.stack_specific(self.specific, self.mask)
 
     def draw_epoch(self):

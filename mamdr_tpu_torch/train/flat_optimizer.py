@@ -16,6 +16,18 @@ carry no slot state. ``torch.optim.Adam`` is not used: the train step must be
 able to discard a whole update, slot counter included, on an all-pad batch
 (train/steps.py).
 
+``train.flat_optimizer: false`` (the JAX package's
+``make_optimizer(flat=False)``, train/steps.py:369-389: ``optax.adam``, or
+with frozen tables ``optax.chain(masked(set_to_zero), masked(adam))``) runs
+this same Adam, which gives optax.adam's numbers (the JAX package holds its
+flat form to optax.adam at rtol 1e-6, tests/test_strategy_ops.py); what
+differs is only how a resume snapshot lays out the state. ``optax_path``
+says where the optax state keeps Adam's (count, mu, nu) — ``("0",)`` for
+``optax.adam``, ``("1", "inner_state", "0")`` inside the masked chain —
+and ``to_optax`` / ``from_optax`` convert between the flat slots and that
+layout's per-leaf trees (trainable leaves only, as the masked chain holds no
+slot at a frozen leaf).
+
 ``masked_sgd`` is the finetune stage's optimizer (optax.sgd under the JAX
 package's frozen-table mask): updates ``-lr * g`` on trainable leaves, none
 at frozen ones, and no state. It serves a lane-stacked state unchanged.
@@ -23,7 +35,7 @@ at frozen ones, and no state. It serves a lane-stacked state unchanged.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,13 +49,17 @@ class FlatAdamState(NamedTuple):
 
 
 class FlatAdam:
-    """Adam over the flattened trainable subset (mask leaves: python bools)."""
+    """Adam over the flattened trainable subset (mask leaves: python bools).
+    ``optax_path``: None, or where the JAX package's per-leaf optax state
+    keeps Adam's slots (a resume snapshot's layout, ``to_optax``)."""
 
     def __init__(self, learning_rate: float, trainable_mask: Any,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 optax_path: Optional[Tuple[str, ...]] = None):
         self.learning_rate = learning_rate
         self.mask = trainable_mask
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.optax_path = optax_path
         self._trainable = trees.leaves(trainable_mask)
 
     def _selected(self, tree):
@@ -83,10 +99,36 @@ class FlatAdam:
         )
         return updates, FlatAdamState(count=count, mu=mu, nu=nu)
 
+    def to_optax(self, state: FlatAdamState, params) -> Dict[str, Any]:
+        """One tower's state in the per-leaf optax layout: ``{"count", "mu",
+        "nu"}`` (mu / nu trees of the trainable leaves, shaped as in
+        ``params``) nested under ``optax_path``."""
+        shapes = [(n, x.shape) for (n, x), m in zip(trees.leaves_with_names(params),
+                                                     self._trainable) if m]
+
+        def tree(v):
+            pieces = torch.split(v, [s.numel() for _, s in shapes])
+            return trees.unflatten({n: p.reshape(s) for (n, s), p in zip(shapes, pieces)})
+
+        out: Dict[str, Any] = {"count": state.count, "mu": tree(state.mu), "nu": tree(state.nu)}
+        for part in reversed(self.optax_path):
+            out = {part: out}
+        return out
+
+    def from_optax(self, tree: Dict[str, Any]) -> FlatAdamState:
+        """``to_optax``'s inverse: the slots' leaves joined in leaf order."""
+        for part in self.optax_path:
+            tree = tree[part]
+        return FlatAdamState(
+            count=tree["count"],
+            mu=torch.cat([x.reshape(-1) for x in trees.leaves(tree["mu"])]),
+            nu=torch.cat([x.reshape(-1) for x in trees.leaves(tree["nu"])]))
+
 
 def flat_adam(learning_rate: float, trainable_mask: Any, b1: float = 0.9,
-              b2: float = 0.999, eps: float = 1e-8) -> FlatAdam:
-    return FlatAdam(learning_rate, trainable_mask, b1, b2, eps)
+              b2: float = 0.999, eps: float = 1e-8,
+              optax_path: Optional[Tuple[str, ...]] = None) -> FlatAdam:
+    return FlatAdam(learning_rate, trainable_mask, b1, b2, eps, optax_path)
 
 
 class SgdState(NamedTuple):

@@ -5,9 +5,9 @@ formation, the ragged sequential pass with its step cap,
 ``make_fused_passes``, ``make_fused_dn``, ``make_fused_reptile``,
 ``_grad_epoch_on_flat``, ``make_fused_maml``, ``make_fused_pcgrad``,
 ``make_fused_mamdr``,
-``make_fused_dr_parallel`` without its mesh-sharding and lane-chunk
-branches, ``stack_specific`` / ``unstack_specific``, the fused evals and
-``make_fused_separate``):
+``make_fused_dr_parallel`` with its lane chunks and without its
+mesh-sharding branch, ``stack_specific`` / ``unstack_specific``, the fused
+evals and ``make_fused_separate``):
 
   - all domain data lives on the device once, padded to a uniform
     [n_domain, n_steps*batch] block (weight-0 tail rows);
@@ -25,7 +25,8 @@ branches, ``stack_specific`` / ``unstack_specific``, the fused evals and
     lanes start from the DR-entry state and take each step together, one
     launch chain per lane-step through the lane-batched train step. Lanes
     with fewer real steps than the longest see all-pad batches, which the
-    per-lane gate turns into exact no-ops;
+    per-lane gate turns into exact no-ops. With a lane chunk C the lanes
+    run in groups of C, one group after the other, with the same results;
   - evaluation runs every domain as a lane too, each lane with its own
     weights (``make_lane_eval``, the model's ``apply_lanes``): a lane-step
     evaluates a [D, B] batch, so a
@@ -102,11 +103,13 @@ def domain_step_counts(splits: List[DomainSplit], batch_size: int) -> List[int]:
 
 def _form_batches(flat: Dict[str, torch.Tensor], gen: torch.Generator,
                   n_steps: int, batch: int, cap_steps: int = 0,
-                  shuffle: bool = True) -> Dict[str, torch.Tensor]:
+                  shuffle: bool = True,
+                  keys: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Shuffled batches from a column block, formed by ONE gather: columns
     [N_pad] give [steps, B] batches; columns [L, N_pad] (one row block per
     lane) give [steps, L, B], each lane shuffled on its own by one draw of
-    shape [L, N_pad].
+    shape [L, N_pad] — or by ``keys``, that draw made beforehand (the
+    chunked DR lanes draw every epoch's keys for all lanes first).
 
     The shuffle permutes only the real rows and keeps the weight-0 pad tail
     last (stable sort by random key + pad penalty), so a domain trains
@@ -118,8 +121,9 @@ def _form_batches(flat: Dict[str, torch.Tensor], gen: torch.Generator,
     n_pad = n_steps * batch
     w = flat["weight"]
     if shuffle:
-        sort_key = torch.rand(w.shape, generator=gen, device=w.device) + torch.where(
-            w > 0.0, 0.0, 2.0)
+        if keys is None:
+            keys = torch.rand(w.shape, generator=gen, device=w.device)
+        sort_key = keys + torch.where(w > 0.0, 0.0, 2.0)
         perm = torch.argsort(sort_key, dim=-1, stable=True)
     else:
         # equivalence testing: natural order, pad tail last
@@ -146,7 +150,8 @@ def _form_batches(flat: Dict[str, torch.Tensor], gen: torch.Generator,
 
 def _epoch_on_flat(train_step, state: TrainState, flat, gen: torch.Generator,
                    n_steps: int, batch: int, cap_steps: int = 0,
-                   shuffle: bool = True, real_steps: Optional[int] = None):
+                   shuffle: bool = True, real_steps: Optional[int] = None,
+                   keys: Optional[torch.Tensor] = None):
     """One shuffled epoch over a flat column block (JAX ``_epoch_on_flat``,
     fused.py:121-153): at most ``cap_steps`` steps when that is positive, and
     only the first ``real_steps`` of them when given — the rest would be
@@ -154,12 +159,15 @@ def _epoch_on_flat(train_step, state: TrainState, flat, gen: torch.Generator,
     exact no-ops, so not running them is bit-identical.
 
     ``flat`` columns are [N_pad], or [L, N_pad] with a lane-batched
-    ``train_step`` (then ``real_steps`` is the largest over the lanes).
-    Returns (state, the mean data loss over the steps run)."""
+    ``train_step`` (then ``real_steps`` is the largest over the lanes);
+    ``keys``: the shuffle's random sort keys, drawn beforehand
+    (``_form_batches``). Returns (state, the mean data loss over the steps
+    run)."""
     steps = n_steps if cap_steps <= 0 else min(cap_steps, n_steps)
     if real_steps is not None:
         steps = min(steps, int(real_steps))
-    batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle)
+    batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle,
+                            keys=keys)
     loss_sum = torch.zeros((), dtype=torch.float32, device=flat["weight"].device)
     for s in range(steps):
         state, loss = train_step(state, {k: v[s] for k, v in batches.items()})
@@ -548,12 +556,14 @@ def _write_specific(specific_stack: Tree, mask: Tree, updated: Dict[int, Tree]) 
 
 
 def make_lane_state(state: TrainState, sub_params: Tree, mask: Tree,
-                    n_lanes: int) -> TrainState:
+                    n_lanes: int, seeds: Optional[torch.Tensor] = None) -> TrainState:
     """`state` broadcast to n_lanes lanes: every lane starts from the same
     params (`sub_params`: state.params with scalar placeholders at frozen
-    leaves, which get no lane axis), optimizer slots and step counter, each
-    with its own dropout base seed. Broadcasts are views where the first
-    update replaces them anyway: the slots, the step, and the masked leaves
+    leaves, which get no lane axis), optimizer slots and
+    step counter, each with its own dropout base seed: lane l's of
+    ``lane_seeds``, or ``seeds[l]`` when given (a chunk of lanes passes its
+    lanes' global seeds). Broadcasts are views where the first update
+    replaces them anyway: the slots, the step, and the masked leaves
     (load_masked puts merged weights there before the first step); any other
     trainable leaf gets its own copy per lane."""
     def lanes_of(x):
@@ -567,7 +577,7 @@ def make_lane_state(state: TrainState, sub_params: Tree, mask: Tree,
     return state.replace(
         params=trees.tree_map(param_lanes, mask, sub_params),
         opt_state=type(state.opt_state)(*(lanes_of(x) for x in state.opt_state)),
-        seed=lane_seeds(state.seed, n_lanes, state.step.device),
+        seed=lane_seeds(state.seed, n_lanes, state.step.device) if seeds is None else seeds,
         step=lanes_of(state.step),
     )
 
@@ -575,9 +585,10 @@ def make_lane_state(state: TrainState, sub_params: Tree, mask: Tree,
 def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
                            n_steps: int, batch: int, domain_regulation_step: int = 0,
                            shuffle: bool = True,
-                           steps_list: Optional[Sequence[int]] = None):
+                           steps_list: Optional[Sequence[int]] = None,
+                           lane_chunk: int = 0):
     """The DR phase with every query domain as a lane (JAX
-    fused.make_fused_dr_parallel, :989-1265, single device, unchunked).
+    fused.make_fused_dr_parallel, :989-1265, single device).
 
     Query q's DR work only reads `shared` and the data block and writes
     specific[q], so the queries are independent once DN has fixed `shared`.
@@ -592,15 +603,25 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
     all-pad batches, exact no-ops under the per-lane gate — bit-identical to
     skipping them. Nothing in the phase waits for the host.
 
+    With ``lane_chunk`` C > 0 (and fewer than the d lanes) the lanes run in
+    ⌈d/C⌉ groups of C, one after the other (the last group holds what is
+    left), which bounds the lane state that exists at once to C lanes: the
+    memory control for trainable tables, which every lane stacks. Every
+    lane's inputs are the whole dispatch's: its entry state, its seed
+    (``lane_seeds`` of its global index) and its shuffles — every epoch's
+    random keys for all d lanes are drawn before the first group, in the
+    order the whole dispatch draws them, and each group takes its rows — so
+    a lane's results do not depend on C. The state returned is the last
+    lane's (lane d-1, in the last group).
+
     Against dr_phase the results agree exactly when the inner optimizer has
     no slots and dropout is off; otherwise the slot and dropout lineages
     differ as described. The caller gates eligibility (MAMDRStrategy): the
     meta mask must cover every trainable leaf.
 
-    Returns dr_parallel with dr_phase's signature; the returned state is the
-    last lane's. A state with batch statistics is refused: they chain
-    through the query domains in the sequential phase, and lanes would keep
-    one lane's.
+    Returns dr_parallel with dr_phase's signature. A state with batch
+    statistics is refused: they chain through the query domains in the
+    sequential phase, and lanes would keep one lane's.
     """
     steps_of = None if steps_list is None else [int(s) for s in steps_list]
 
@@ -613,33 +634,48 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
             raise ValueError("the DR lanes cannot carry batch statistics, whose lineage "
                              "chains through the query domains: run the sequential dr_phase")
         device = block["weight"].device
-        n_lanes = len(order)
-        order_t = torch.as_tensor(np.asarray(order), dtype=torch.long, device=device)
-        aux_t = torch.as_tensor(np.asarray(aux), dtype=torch.long, device=device)
+        order, aux = np.asarray(order), np.asarray(aux)
+        d, k = aux.shape
+        chunk = d if lane_chunk <= 0 else min(int(lane_chunk), d)
         shared_sub = to_sub(shared)
+        sub0 = to_sub(state.params)
+        seeds = lane_seeds(state.seed, d, device)
+        keys = None
+        if chunk < d and shuffle:  # the whole dispatch's draws: support j, query j, ...
+            shape = (d, block["weight"].shape[-1])
+            keys = [torch.rand(shape, generator=gen, device=device) for _ in range(2 * k)]
 
-        lane_state = make_lane_state(state, to_sub(state.params), mask, n_lanes)
-        spec_lanes = trees.tree_map(lambda m, s: s[order_t] if m else s,
-                                    mask, specific_stack)
-        query_flats = {k: v[order_t] for k, v in block.items()}  # [L, N_pad]
+        def run_lanes(lanes: slice, spec_stack):
+            """The K support runs of the lanes in ``lanes``; returns their
+            lane state and the specific stack with their rows written."""
+            order_c, aux_c = order[lanes], aux[lanes]
+            order_t = torch.as_tensor(order_c, dtype=torch.long, device=device)
+            aux_t = torch.as_tensor(aux_c, dtype=torch.long, device=device)
+            lane_state = make_lane_state(state, sub0, mask, len(order_c), seeds[lanes])
+            spec_lanes = trees.tree_map(lambda m, s: s[order_t] if m else s, mask, spec_stack)
+            query_flats = {c: v[order_t] for c, v in block.items()}  # [C, N_pad]
+            for j in range(k):
+                merged = ops.merge_weights(shared_sub, spec_lanes, mask, merged_method)
+                lane_state = lane_state.replace(
+                    params=ops.load_masked(lane_state.params, merged, mask))
+                lane_state, _ = _epoch_on_flat(
+                    sub_step, lane_state, {c: v[aux_t[:, j]] for c, v in block.items()},
+                    gen, n_steps, batch, shuffle=shuffle, real_steps=longest(aux_c[:, j]),
+                    keys=None if keys is None else keys[2 * j][lanes])
+                lane_state, _ = _epoch_on_flat(
+                    sub_step, lane_state, query_flats, gen, n_steps, batch,
+                    cap_steps=domain_regulation_step, shuffle=shuffle,
+                    real_steps=longest(order_c),
+                    keys=None if keys is None else keys[2 * j + 1][lanes])
+                spec_lanes = ops.specific_update(spec_lanes, lane_state.params, merged,
+                                                 meta_lr, mask)
+            return lane_state, trees.tree_map(
+                lambda m, st, new: st.index_copy(0, order_t, new) if m else st,
+                mask, spec_stack, spec_lanes)
 
-        for j in range(aux_t.shape[1]):
-            merged = ops.merge_weights(shared_sub, spec_lanes, mask, merged_method)
-            lane_state = lane_state.replace(
-                params=ops.load_masked(lane_state.params, merged, mask))
-            lane_state, _ = _epoch_on_flat(
-                sub_step, lane_state, {k: v[aux_t[:, j]] for k, v in block.items()},
-                gen, n_steps, batch, shuffle=shuffle, real_steps=longest(aux[:, j]))
-            lane_state, _ = _epoch_on_flat(
-                sub_step, lane_state, query_flats, gen, n_steps, batch,
-                cap_steps=domain_regulation_step, shuffle=shuffle,
-                real_steps=longest(order))
-            spec_lanes = ops.specific_update(spec_lanes, lane_state.params, merged,
-                                             meta_lr, mask)
-
-        specific_stack = trees.tree_map(
-            lambda m, st, lanes: st.index_copy(0, order_t, lanes) if m else st,
-            mask, specific_stack, spec_lanes)
+        for start in range(0, d, chunk):
+            lane_state = None  # a group's lane state goes before the next one is made
+            lane_state, specific_stack = run_lanes(slice(start, start + chunk), specific_stack)
 
         def last(x):
             return x[-1] if x.dim() > 0 else x  # placeholders carry no lane axis

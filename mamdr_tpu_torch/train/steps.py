@@ -242,12 +242,14 @@ def make_autograd_loss_grad(model, cfg: StepConfig, gather=gather_fields):
 def make_loss_grad(model, cfg: StepConfig):
     """The loss gradient a train or accumulate step takes (the gate of the
     JAX package's ``maybe_make_fast_loss_grad``, ops/fused_mlp_step.py:220-229):
-    the plain MLP without uncertainty weighting takes the fused kernel path
-    (``make_fast_loss_grad``: K2, then K1 or K1-lanes), anything else —
-    the other base models, a model with batch statistics (STAR), the
-    uncertainty-weighted loss — autograd (``make_autograd_loss_grad``), for
-    one tower or for lanes."""
-    if isinstance(model, MLP) and not model.has_batch_stats and not cfg.uncertainty_weight:
+    the plain MLP computing in float32 without uncertainty weighting takes
+    the fused kernel path (``make_fast_loss_grad``: K2, then K1 or
+    K1-lanes), anything else — the other base models, a model with batch
+    statistics (STAR), the uncertainty-weighted loss, an MLP whose tower
+    computes in bfloat16 (K1 computes float32; JAX fused_mlp_step.py:227) —
+    autograd (``make_autograd_loss_grad``), for one tower or for lanes."""
+    if (isinstance(model, MLP) and model.compute_dtype == "float32"
+            and not model.has_batch_stats and not cfg.uncertainty_weight):
         return make_fast_loss_grad(model, cfg)
     return make_autograd_loss_grad(model, cfg)
 
@@ -371,17 +373,18 @@ def make_optimizer(name: str, learning_rate: float, params,
     eps=1e-8) or plain SGD (the finetune stage's).
 
     When ``emb_trainable`` is false the user/item tables are frozen: no
-    gradient, no update, no slots. Adam is ported in its flat form only,
-    which the JAX package holds bit-exact to optax.adam.
+    gradient, no update, no slots. ``flat`` false is the JAX package's
+    per-leaf ``optax.adam`` (with frozen tables inside the masked chain): the
+    same numbers, so the port runs the flat Adam and keeps only the optax
+    state's layout for the resume snapshot (``FlatAdam.optax_path``).
     """
     if name not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {name!r}")
-    if name == "adam" and not flat:
-        raise NotImplementedError(
-            "optimizer 'adam' with flat=False is not ported; flat Adam is the same function")
-
     mask = trees.named_tree_map(lambda n, x: _trainable(n, emb_trainable), params)
-    return flat_adam(learning_rate, mask) if name == "adam" else masked_sgd(learning_rate, mask)
+    if name == "sgd":
+        return masked_sgd(learning_rate, mask)
+    per_leaf = ("0",) if emb_trainable else ("1", "inner_state", "0")
+    return flat_adam(learning_rate, mask, optax_path=None if flat else per_leaf)
 
 
 def make_train_epoch(train_step: Callable):

@@ -7,9 +7,11 @@ the per-domain evaluation with macro and example-weighted AUC (reference
 base_model.py:111-175) as one lane-batched eval over all domains, the
 strict-improvement early stop (base_model.py:202-224), the best-params
 checkpoint, the resume snapshot (``save_resume_state`` / ``try_resume``,
-trainer.py:480-502), the JSONL metrics and the run's result folder
-(``save_result``). TensorBoard is not ported yet (ROADMAP.md §1); a config
-that asks for it is refused.
+trainer.py:480-502), the JSONL metrics, TensorBoard (``self.tb`` at
+``<checkpoint_dir>/tensorboard``: every evaluation's scalars, and on a val
+evaluation the weight histograms and the gradient histograms of
+``_sample_grads``, trainer.py:198-206, 440-455) and the run's result folder
+(``save_result``).
 
 The per-call route (trainer.py:330-405), which every strategy's loop takes
 where its fused pass does not (``fused_padding_ok`` false: a fixed train
@@ -60,7 +62,7 @@ from mamdr_tpu_torch.train.steps import (
     make_train_step,
 )
 from mamdr_tpu_torch.utils import trees
-from mamdr_tpu_torch.utils.logging import MetricsLogger
+from mamdr_tpu_torch.utils.logging import MetricsLogger, TensorBoardLogger
 
 # The JAX package's gate for its fused paths (trainer.py:227-264): a padded
 # lane pays when padding at most quadruples the steps or wastes under 250
@@ -94,15 +96,6 @@ class EarlyStopper:
         return self.early_stop
 
 
-def _refuse_unported(config: ExperimentConfig) -> None:
-    """Raise for a trainer setting whose path the port does not have yet."""
-    tc = config.train
-    if tc.tensorboard or tc.histogram_freq > 0:
-        raise NotImplementedError(
-            "tensorboard / histogram_freq: TensorBoard export is not ported yet "
-            "(ROADMAP.md, open items §1: TensorBoard)")
-
-
 class Trainer:
     def __init__(self, config: ExperimentConfig, dataset: MultiDomainDataset,
                  device: DeviceLike = None, verbose: bool = True):
@@ -110,7 +103,6 @@ class Trainer:
         "cpu" runs the plain versions of the kernels on the CPU. verbose:
         print each evaluation's table, as the JAX package does."""
         self.device = resolve_device(device)
-        _refuse_unported(config)
         self.config = config
         self.dataset = dataset
         self.verbose = verbose
@@ -172,6 +164,11 @@ class Trainer:
                                    ds_cfg.domain_split_path)
         self.metrics = MetricsLogger(
             osp.join(self.checkpoint_dir, "metrics.jsonl") if tc.metrics_jsonl else None)
+        # the reference's Keras TensorBoard callback at dirname(checkpoint_path)
+        # (maml.py:21-23); histogram_freq > 0 turns the writer on
+        self.tb = TensorBoardLogger(osp.join(self.checkpoint_dir, "tensorboard"),
+                                    histogram_freq=tc.histogram_freq, enabled=tc.tensorboard,
+                                    write_grads=tc.write_grads)
         self._eval_epoch_counter = 0
 
     def _build_model(self, generator: torch.Generator):
@@ -405,8 +402,15 @@ class Trainer:
         and, when verbose, prints the table (trainer.py:486-514)."""
         avg_loss = sum(domain_loss.values()) / len(domain_loss)
         avg_auc = sum(domain_auc.values()) / len(domain_auc)
-        self.metrics.log_eval(mode, self._eval_epoch_counter, avg_loss, avg_auc, domain_auc)
+        epoch = self._eval_epoch_counter
+        self.metrics.log_eval(mode, epoch, avg_loss, avg_auc, domain_auc)
+        if self.tb.enabled:  # weighted_auc is paid for only when TensorBoard is on
+            self.tb.log_eval(mode, epoch, avg_loss, avg_auc, domain_auc,
+                             weighted_auc=self.weighted_auc(mode, domain_auc))
         if mode == "val":
+            self.tb.log_histograms(epoch, self.state.params)
+            if self.tb.write_grads and self.tb.histograms_due(epoch):
+                self.tb.log_grad_histograms(epoch, self._sample_grads())
             self._eval_epoch_counter += 1
         if self.verbose:
             print(f"Loss: {domain_loss}")
@@ -416,6 +420,35 @@ class Trainer:
             w_auc = self.weighted_auc(mode, domain_auc)
             print(f"Overall {mode} Loss: {avg_loss}, AUC: {avg_auc}, Weighted AUC: {w_auc}")
         return avg_loss, avg_auc, domain_loss, domain_auc
+
+    def _sample_batch(self) -> Dict[str, torch.Tensor]:
+        """The first (at most 2) train rows of domain 0, weight 1, on the
+        device (JAX ``_sample_batch``, trainer.py:276-300)."""
+        d0 = self.dataset.train[0]
+        n = min(2, d0.n)
+        cols = {k: torch.from_numpy(np.ascontiguousarray(getattr(d0, k)[:n])).to(self.device)
+                for k in COLUMNS}
+        cols["weight"] = torch.ones((n,), dtype=torch.float32, device=self.device)
+        return cols
+
+    def _sample_grads(self):
+        """The total loss's gradient on ``_sample_batch`` over the WHOLE
+        params tree, frozen tables included, dropout off and the norms in
+        eval mode reading the state's statistics: what ``jax.grad`` of the
+        JAX package's loss gives (trainer.py:302-314). A frozen table's l2
+        term is a constant, so its gradient is the gather's alone; a leaf
+        the loss does not reach gets zeros. Autograd through the model's
+        forward (K2 with its autograd rule), never K1."""
+        batch = self._sample_batch()
+        live = trees.tree_map(lambda x: x.detach().requires_grad_(True), self.state.params)
+        names = trees.param_names(live)
+        kw = {"stats": self.state.batch_stats} if self.model.has_batch_stats else {}
+        with torch.enable_grad():
+            loss = self.loss_fn(live, batch, **kw)[0]
+            got = dict(zip(names, torch.autograd.grad(loss, trees.leaves(live),
+                                                      allow_unused=True)))
+        return trees.named_tree_map(
+            lambda n, x: torch.zeros_like(x) if got[n] is None else got[n], live)
 
     def weighted_auc(self, mode: str, domain_auc: Dict[str, float]) -> float:
         """Example-weighted AUC (base_model.py:157-175)."""
@@ -449,8 +482,16 @@ class Trainer:
         the early stop, ``np_rng`` and both torch generators (``_seed_gen``,
         ``gen``), with the strategy's ``extra_trees``."""
         checkpoints.save_train_state(
-            self.resume_dir, self.state, epoch, self.stopper, self.np_rng, extra_trees,
-            generators={"seed_gen": self._seed_gen, "gen": self.gen})
+            self.resume_dir, self._snapshot_layout(self.state), epoch, self.stopper,
+            self.np_rng, extra_trees, generators={"seed_gen": self._seed_gen, "gen": self.gen})
+
+    def _snapshot_layout(self, state: TrainState) -> TrainState:
+        """``state`` as the resume snapshot stores it: with
+        ``flat_optimizer`` false the Adam slots in the JAX package's per-leaf
+        optax layout (``FlatAdam.to_optax``), else as they are."""
+        if getattr(self.tx, "optax_path", None) is None:
+            return state
+        return state.replace(opt_state=self.tx.to_optax(state.opt_state, state.params))
 
     def try_resume(self, extra_templates=None):
         """With ``train.resume`` and a snapshot in ``resume_dir``: restore the
@@ -460,7 +501,9 @@ class Trainer:
         if not (self.config.train.resume and checkpoints.has_train_state(self.resume_dir)):
             return None
         state, epoch, st, np_state, extras = checkpoints.load_train_state(
-            self.resume_dir, self.state, extra_templates)
+            self.resume_dir, self._snapshot_layout(self.state), extra_templates)
+        if getattr(self.tx, "optax_path", None) is not None:
+            state = state.replace(opt_state=self.tx.from_optax(state.opt_state))
         self.state = state
         gens = extras.pop("generators")
         self._seed_gen.set_state(gens["seed_gen"])

@@ -251,7 +251,8 @@ def test_dr_parallel_gate(tmp_path):
     assert not seq.dr_lanes
     with pytest.raises(ValueError, match="domain_emb"):
         _strategy(tmp_path, dr_parallel="on", **hidden).prepare_fused()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _strategy(tmp_path, dr_lane_chunk=2).prepare_fused()
+    chunked = _strategy(tmp_path, dr_lane_chunk=2)  # lanes in groups of 2
+    chunked.prepare_fused()
+    assert chunked.dr_lanes and chunked._dr_lane_chunk_effective == 2
     with pytest.raises(ValueError, match="dr_parallel"):
         _strategy(tmp_path, dr_parallel="maybe").prepare_fused()
