@@ -201,6 +201,9 @@ def main() -> int:
     from mamdr_tpu_torch.ops import _cuda
     from mamdr_tpu_torch import probe_gather
     from mamdr_tpu_torch.ops.embedding_lookup import (
+        CLAMP,
+        SILENT,
+        WINDOW,
         embedding_lookup,
         embedding_lookup_reference,
         gather_fields,
@@ -2806,6 +2809,251 @@ def main() -> int:
     shutil.rmtree(work_m, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # ---- 5n. the mesh: row-sharded tables through K2, data-parallel steps through K1 ----
+    # (a) K2 with row windows, as a (., 2) mesh's lookup runs it: the user and
+    # item tables as shard t of two ([50000, 128] each, WINDOW: zeros outside,
+    # the spare row as the row id), the domain field with the clamp at table
+    # index 0 and SILENT at 1; at the DN step's shapes (1024 ids) and the DR
+    # lane-step's (30 lanes x 1024, a lane-stacked domain table). Exact against
+    # the plain version at both table indices, the two shards' x summed equal
+    # to the unsharded gather; timed at table index 1 beside the plain version
+    # and the library call (torch.where after F.embedding, a field each).
+    half = n_rows // 2
+    w_tables = (rand_table((n_rows, dim)), rand_table((n_rows, dim)))
+    w_dom = {"dn": rand_table((n_dom, dim), 1e-4), "dr": rand_table((lanes, n_dom, dim), 1e-2)}
+    w_shape = {"dn": (batch,), "dr": (lanes, batch)}
+
+    def w_sets(what, k):
+        shape = w_shape[what]
+        dom = (torch.full(shape, 7, dtype=torch.int32, device=dev) if what == "dn" else
+               rand_ids(n_dom, (lanes, 1), False).expand(lanes, batch).contiguous())
+        return [(rand_ids(n_rows, shape, k == 0), rand_ids(n_rows, shape, k == 0), dom)
+                for _ in range(max(k, 1))]
+
+    def w_fields(what, ti):
+        return ((w_tables[0][ti * half:(ti + 1) * half], w_tables[1][ti * half:(ti + 1) * half],
+                 w_dom[what]),
+                ((ti * half, WINDOW), (ti * half, WINDOW), (0, CLAMP if ti == 0 else SILENT)))
+
+    def w_library(shards, win, ids_):
+        parts = []
+        for t_, (lo, mode), i in zip(shards, win, ids_):
+            v = t_.reshape(-1, dim)
+            local = i.long() - lo if mode == WINDOW else i.long()
+            inside = ((local >= 0) & (local < t_.shape[-2]))[..., None]
+            if t_.dim() == 3:
+                local = local.clamp(0, t_.shape[-2] - 1) + torch.arange(
+                    t_.shape[0], device=dev)[:, None] * t_.shape[-2]
+            rows = torch.nn.functional.embedding(local.clamp(0, v.shape[0] - 1), v)
+            parts.append(torch.where(inside, rows, 0.0) if mode == WINDOW else
+                         (rows if mode == CLAMP else torch.zeros_like(rows)))
+        return torch.cat(parts, dim=-1)
+
+    win_t, win_bound, win_err = {}, {}, 0.0
+    for what in ("dn", "dr"):
+        check_ids = w_sets(what, 0)[0]
+        xs = []
+        for ti in (0, 1):
+            shards, win = w_fields(what, ti)
+            x_k, f_k = gather_fields(shards, check_ids, train_mask=mask, windows=win)
+            x_p, f_p = gather_fields_reference(shards, check_ids, mask, win)
+            torch.cuda.synchronize()
+            err = float((x_k - x_p).abs().max())
+            win_err = max(win_err, err)
+            if err != 0.0 or not all((a is None and b is None) or torch.equal(a, b)
+                                     for a, b in zip(f_k, f_p)):
+                fail(f"5n: K2 with row windows at the {what} shape, table index {ti}, differs "
+                     f"from its plain version: max abs err {err}")
+            xs.append(x_k)
+        whole_x = gather_fields((*w_tables, w_dom[what]), check_ids)[0]
+        inside = [((i >= 0) & (i < n_rows))[..., None] for i in check_ids[:2]]
+        whole_x = torch.cat([torch.where(inside[0], whole_x[..., :dim], 0.0),
+                             torch.where(inside[1], whole_x[..., dim:2 * dim], 0.0),
+                             whole_x[..., 2 * dim:]], dim=-1)
+        if not torch.equal(xs[0] + xs[1], whole_x):
+            fail(f"5n: the two shards' windowed gathers do not sum to the whole gather ({what})")
+        shards, win = w_fields(what, 1)
+        sets = w_sets(what, 4)
+        win_t[what] = {
+            "k2": device_ms(lambda: in_turn(lambda s_: gather_fields(
+                shards, s_, train_mask=mask, windows=win), sets), inner=48),
+            "plain": device_ms(lambda: in_turn(lambda s_: gather_fields_reference(
+                shards, s_, mask, win), sets), inner=48),
+            "library": device_ms(lambda: in_turn(lambda s_: w_library(shards, win, s_), sets),
+                                 inner=48)}
+        least = 0
+        for s_ in sets:  # ids read, x and the marked row ids written, rows inside read once
+            n_ids = s_[0].numel()
+            rows_read = sum(int(torch.unique(i[(i >= lo) & (i < lo + half)]).numel())
+                            for i, (lo, _) in zip(s_[:2], win[:2]))
+            dom_rows = 0  # SILENT: the domain table is not read
+            least += 4 * n_ids * (3 + 3 * dim + sum(mask)) + 4 * dim * (rows_read + dom_rows)
+        win_bound[what] = least / len(sets) / HBM_BYTES * 1e3
+        ids_n = "x".join(map(str, w_shape[what]))
+        print(f"5n: K2 with row windows at the {what.upper()} shape ({ids_n} ids, 3 fields, "
+              f"shard 1 of 2: {half}x{dim} user and item shards, the domain "
+              f"field SILENT): exact against the plain version at both table indices, the two "
+              f"shards' x summed equal to the whole gather; {win_t[what]['k2'] * 1e3:.2f} "
+              f"us/call, plain {win_t[what]['plain'] * 1e3:.2f} us, torch.where after "
+              f"F.embedding {win_t[what]['library'] * 1e3:.2f} us, bound "
+              f"{win_bound[what] * 1e3:.3f} us (bytes); unwindowed K2 at this shape "
+              f"{(dn_t if what == 'dn' else dr_t)['k2'] * 1e3:.2f} us (4, 4a); {card}")
+    del w_tables, w_dom
+
+    # (b) the bench workload (mlp_meta_mamdr_finetune at Taobao-30 shapes,
+    # uncut) on three meshes of ranks on this one card, each rank a process
+    # of mamdr_tpu_torch.parallel.dryrun --bench with deterministic
+    # algorithms on before its first CUDA call: (1, 1) over NCCL with a whole
+    # run() after the epoch; (1, 2) and (2, 1) over gloo with CUDA tensors
+    # (NCCL refuses two ranks on one card); and the one-device reference in a
+    # process of its own with the same settings. Beside them, the dry run's
+    # tiny steps (1, 1c, 1d, 1e, 1f: the JAX package's dryrun_multichip and
+    # MMoE with shard_experts) on (1, 2) over gloo. All nine run at once.
+    work_n = tempfile.mkdtemp(prefix="mamdr_chip_smoke_5n_")
+    repo_root = os.path.dirname(os.path.abspath(__file__))
+    env_n = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "GLOO_SOCKET_IFNAME": "lo",
+             "NCCL_SOCKET_IFNAME": "lo", "LOCAL_RANK": "0", "OMP_NUM_THREADS": "1",
+             "PYTHONPATH": repo_root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    layouts = {"ref": (1, 1, None, True), "1x1": (1, 1, "nccl", True),
+               "1x2": (2, 2, "gloo", False), "2x1": (2, 1, "gloo", False),
+               "dry": (2, 2, "gloo", False)}
+    procs_n = []
+    t0 = time.perf_counter()
+    for tag, (world, tbl, backend, with_run) in layouts.items():
+        for r in range(world):
+            cmd = [sys.executable, "-m", "mamdr_tpu_torch.parallel.dryrun"]
+            if tag != "dry":
+                cmd += ["--bench", os.path.join(work_n, f"{tag}.npz"), "--deterministic"]
+            else:
+                cmd += ["--checkpoint-dir", os.path.join(work_n, "dry.ckpt")]
+            if tag == "2x1":  # DR and validation from the reference's post-DN state
+                cmd += ["--dr-from", os.path.join(work_n, "ref.npz")]
+            cmd += ["--run"] if with_run else []
+            cmd += (["--one-device"] if backend is None else
+                    ["--table", str(tbl), "--backend", backend,
+                     "--init-method", f"file://{os.path.join(work_n, 'store_' + tag)}"])
+            log = open(os.path.join(work_n, f"{tag}.rank{r}.log"), "w")
+            procs_n.append((tag, r, log, subprocess.Popen(
+                cmd, cwd=repo_root, stdout=log, stderr=subprocess.STDOUT,
+                env={**env_n, "RANK": str(r), "WORLD_SIZE": str(world)})))
+    deadline = time.time() + 600
+    for tag, r, log, p in procs_n:
+        try:
+            rc = p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        log.close()
+        if rc != 0:
+            for *_, q in procs_n:  # stop every rank before failing
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
+            with open(os.path.join(work_n, f"{tag}.rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            fail(f"5n: the {tag} rank {r} ended with {rc}:\n{tail}")
+    mesh_s = time.perf_counter() - t0
+    with open(os.path.join(work_n, "dry.rank0.log")) as f:
+        dry = json.loads([ln for ln in f.read().splitlines() if ln.startswith("{")][-1])
+    if sorted(dry) != ["1", "1c", "1d", "1e", "1f", "mesh"] or dry["1f"]["experts_held"] != 2:
+        fail(f"5n: the dry run on (1, 2) gave {dry}")
+    print(f"5n: the dry run on (1, 2) over gloo (steps 1, 1c, 1d, 1e, and 1f: MMoE with "
+          f"shard_experts, 2 of 4 experts a rank): every result finite; {json.dumps(dry)}")
+    layouts.pop("dry")
+
+    def rank_json(tag, r):
+        with open(os.path.join(work_n, f"{tag}.npz.rank{r}.json")) as f:
+            return json.load(f)
+
+    with np.load(os.path.join(work_n, "ref.npz")) as z:
+        ref_n = {k: z[k] for k in z.files}
+    ref_j = rank_json("ref", 0)
+    if not ref_j["dr_lanes"]:
+        fail("5n: the reference's DR phase did not take the lanes")
+    phases_n = ("dn", "dr", "val")
+    mesh_res = {}
+    for tag, (world, tbl, backend, with_run) in layouts.items():
+        if backend is None:
+            continue
+        with np.load(os.path.join(work_n, f"{tag}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        want_keys = sorted(k for k in ref_n if with_run or not k.startswith(("run_", "best/")))
+        if sorted(got) != want_keys:
+            fail(f"5n {tag}: arrays {sorted(got)} differ from the reference's {want_keys}")
+        for r in range(world):
+            j = rank_json(tag, r)
+            for ph in phases_n + (("run",) if with_run else ()):
+                c, cr = j[f"{ph}_counts"], ref_j[f"{ph}_counts"]
+                if c[:4] != cr[:4] or c[4] != c[2]:
+                    fail(f"5n {tag} rank {r}: {ph} launched (K1, K1-lanes, K2, K2 ids [L, B], "
+                         f"K2 windowed) {c}, expected the one device's {cr[:4]} with every "
+                         f"K2 launch windowed")
+        def apart(keys):
+            return max(float(np.max(np.abs(got[k].astype(np.float64) - ref_n[k]))
+                             / max(float(np.max(np.abs(ref_n[k]))), 1e-30)) for k in keys)
+
+        if not all(np.all(np.isfinite(v)) for v in got.values()):
+            fail(f"5n {tag}: a result is not finite")
+        if tag in ("1x1", "1x2"):
+            exact = [k for k in got if k != "val_loss" or tag == "1x1"]
+            diff = [k for k in exact if not np.array_equal(got[k], ref_n[k])]
+            if diff:
+                fail(f"5n {tag}: not bit-equal to one device: {diff[:8]}")
+            vl = float(np.max(np.abs(got["val_loss"] - ref_n["val_loss"])
+                              / np.abs(ref_n["val_loss"])))
+            if vl > 1e-6:
+                fail(f"5n {tag}: validation losses part by {vl} (tol 1e-6 relative)")
+            mesh_res[tag] = f"bit-equal (val loss within {vl:.1e})"
+        else:
+            # the data-parallel step sums its rows' gradients in another
+            # order: one step from the same state is held to 1e-5 of each
+            # tensor's max; the DN phase's 360 Adam steps on random labels
+            # carry such last bits to steps of order lr (as two unbroken
+            # one-device runs without deterministic algorithms part, 5i), so
+            # its losses' distance is reported, not gated. The DR phase and
+            # the validation start from the reference's post-DN state
+            # (--dr-from): each data rank's lanes, the spec stack gathered
+            # as a zero-filled sum, the last lane's state broadcast from the
+            # last data rank and the split validation's gathered counts are
+            # held bit-equal to one device
+            step_d = apart(["step_loss", "step_mu", "step_nu"])
+            if not step_d <= 1e-5:
+                fail(f"5n {tag}: one data-parallel step is {step_d} of a tensor's max apart "
+                     f"from one device's (tol 1e-5)")
+            exact = [k for k in got if not k.startswith("step_")
+                     and k not in ("dn_losses", "val_loss")]
+            diff = [k for k in exact if not np.array_equal(got[k], ref_n[k])]
+            if diff:
+                fail(f"5n {tag}: DR or validation from the reference's post-DN state not "
+                     f"bit-equal to one device: {diff[:8]}")
+            vl = float(np.max(np.abs(got["val_loss"] - ref_n["val_loss"])
+                              / np.abs(ref_n["val_loss"])))
+            if vl > 1e-6:
+                fail(f"5n {tag}: validation losses part by {vl} (tol 1e-6 relative)")
+            dn_d = apart(["dn_losses"])
+            mesh_res[tag] = (f"one step within {step_d:.2e} of a tensor's max (tol 1e-5); "
+                             f"DN losses {dn_d:.2e} of their max apart (not gated: Adam on "
+                             f"random labels); DR and validation from the reference's "
+                             f"post-DN state bit-equal ({len(exact)} arrays; val loss within "
+                             f"{vl:.1e})")
+    for tag, (world, tbl, backend, with_run) in layouts.items():
+        j = rank_json(tag, 0)
+        print(f"5n {tag if backend else 'one device'} ({'reference, ' if not backend else ''}"
+              f"{world} rank{'s' if world > 1 else ''}, table axis {tbl}"
+              f"{', ' + backend if backend else ''}): set-up {j['setup_s']:.1f} s, DN "
+              f"{j['dn_s']:.2f} s, DR {j['dr_s']:.2f} s, validation {j['val_s']:.2f} s"
+              f"{', run() %.1f s' % j['run_s'] if with_run else ''}; launches per rank (K1, "
+              f"K1-lanes, K2, K2 ids [L, B], K2 windowed) DN {j['dn_counts']}, DR "
+              f"{j['dr_counts']}, val {j['val_counts']}"
+              f"{', run() %s' % j['run_counts'] if with_run else ''}"
+              f"{'; ' + mesh_res[tag] if backend else ''}; {card}")
+    print(f"5n: nine processes at once on one card, {mesh_s:.1f} s wall (their times above "
+          f"overlap); every rank's launch counts equal one device's; {card}")
+    win_1x2 = [rank_json("1x2", r) for r in range(2)]
+    win_one = [sum(j[f"{ph}_counts"][4] - j[f"{ph}_counts"][3] for ph in phases_n)
+               for j in win_1x2]
+    win_lane = [sum(j[f"{ph}_counts"][3] for ph in phases_n) for j in win_1x2]
+    shutil.rmtree(work_n, ignore_errors=True)
+
     # ---- 6. kernels ----
     print(json.dumps({"kernels": [
         {"name": "fused_tower_grad", "route": "cuda",
@@ -3094,6 +3342,24 @@ def main() -> int:
            "plain_ms": trained_k2[nl][1]["plain"], "bound_ms": trained_k2[nl][2],
            "bound_by": "bytes", "library_ms": trained_k2[nl][1]["library"]}
           for nl in (lanes7, d_l)],
+        # 5n: K2 with row windows, on the (1, 2) mesh's ranks (each rank's
+        # launches: the DN steps and the validation's one-tower calls with
+        # ids [B], the DR lane-steps and the validation with ids [L, B])
+        {"name": f"gather_fields with row windows (3 fields x {batch} ids, the (1, 2) mesh's "
+                 "DN steps)", "route": "cuda", "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": win_one[0], "launches_per_rank": win_one, "max_abs_err": win_err,
+         "ms": win_t["dn"]["k2"], "plain_ms": win_t["dn"]["plain"],
+         "bound_ms": win_bound["dn"], "bound_by": "bytes",
+         "library_ms": win_t["dn"]["library"]},
+        {"name": f"gather_fields with row windows (3 fields x {lanes * batch} ids, the (1, 2) "
+                 "mesh's DR lane-steps and validation)", "route": "cuda",
+         "source": "mamdr_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "mamdr_tpu/ops/embedding_lookup.py:56",
+         "launches": win_lane[0], "launches_per_rank": win_lane, "max_abs_err": win_err,
+         "ms": win_t["dr"]["k2"], "plain_ms": win_t["dr"]["plain"],
+         "bound_ms": win_bound["dr"], "bound_by": "bytes",
+         "library_ms": win_t["dr"]["library"]},
         # K3's path is the gather probe, which runs it at both sizes: each
         # entry has the launches the probe counted at its depth and size, and
         # the error of its own comparison in 4b. At 1024 ids both depths plan

@@ -200,8 +200,10 @@ class TrainConfig:
     # the loss gradient's histograms on a sample batch (utils/logging.py).
     tensorboard: bool = False
     write_grads: bool = True
-    # Mesh-sharding knobs of the JAX package; without a mesh (the port runs
-    # one card) they change nothing there either.
+    # On a mesh (Trainer(mesh=), parallel/): a user or item table of at
+    # least sharded_lookup_min_rows rows is row-sharded over the table axis,
+    # and shard_experts splits MMoE / PLE expert banks over it. Without a
+    # mesh they change nothing.
     sharded_lookup_min_rows: int = 16384
     shard_experts: bool = False
     # Each domain's best finetuned weights as checkpoint_dir/domain_{i}.npz.

@@ -99,3 +99,48 @@ def meta_adam_state_from_jax(count, mu_tree, nu_tree, mask, device="cpu") -> Fla
         return np.concatenate(sel) if sel else np.zeros((0,), np.float32)
 
     return flat_adam_state_from_jax(count, flat(mu_tree), flat(nu_tree), device)
+
+
+def state_on_mesh(tree_of_numpy: Any, mesh, min_rows: int = 16384, opt_state=None,
+                  trainable_mask: Any = None, device=None, shard_experts: bool = False):
+    """The JAX package's params (numpy; from a trainer with or without a
+    mesh) -> one mesh rank's, as ``Trainer(mesh=)`` holds them: each
+    ``user_emb`` / ``item_emb`` field table padded with zero rows to a
+    multiple of the table axis (``pad_rows``), then this rank's slice kept of
+    each leaf ``trainer_sharding.sharded_axes`` splits (the rows of a table
+    the lookup shards, at least ``min_rows`` rows; with ``shard_experts``
+    an expert bank's leading axis). Returns (params, axes), or (params,
+    axes, FlatAdamState) given ``opt_state`` = (count, mu, nu) of a flat
+    Adam over the whole padded tree and its ``trainable_mask`` (the
+    optimizer's mask): the slots are cut to follow the slices. On
+    ``device`` (default: the mesh rank's)."""
+    from mamdr_tpu_torch.parallel.embedding_shard import pad_rows
+    from mamdr_tpu_torch.parallel.trainer_sharding import (
+        shard_flat_slots,
+        shard_tree,
+        sharded_axes,
+    )
+
+    device = mesh.device if device is None else device
+
+    def pad(name, x):
+        x = torch.tensor(np.asarray(x))
+        if name.rsplit("/", 1)[-1] in ("user_emb", "item_emb") and x.dim() == 2:
+            n = pad_rows(x.shape[0], mesh.table)
+            if n != x.shape[0]:
+                x = torch.cat([x, x.new_zeros((n - x.shape[0], x.shape[1]))])
+        return x
+
+    whole = trees.named_tree_map(pad, tree_of_numpy)
+    axes = sharded_axes(whole, mesh, min_rows, shard_experts)
+    params = trees.tree_map(lambda x: x.to(device), shard_tree(whole, axes, mesh))
+    if opt_state is None:
+        return params, axes
+
+    class _Sel:  # the optimizer's leaf selection, as FlatAdam keeps it
+        _trainable = trees.leaves(trainable_mask)
+
+    count, mu, nu = (torch.tensor(np.asarray(v)) for v in opt_state)
+    mu, nu = (shard_flat_slots(v, whole, axes, _Sel, mesh) for v in (mu, nu))
+    return params, axes, FlatAdamState(count=count.to(torch.int32).to(device),
+                                       mu=mu.to(device), nu=nu.to(device))

@@ -527,8 +527,11 @@ __global__ void __launch_bounds__(kSlabThreads, 1) slab_kernel(const Tower p) {
       float bce_w = 0.0f, dlog = 0.0f;
       if (r < rows) {
         const float l = dot, y = label[row0 + r], w = weight[row0 + r];
-        bce_w = (fmaxf(l, 0.0f) - l * y + log1pf(expf(-fabsf(l)))) * w;
-        dlog = (1.0f / (1.0f + expf(-l)) - y) * w / denom;
+        // sigmoid(l) - y as (1 - y) - sigmoid(-|l|) for l >= 0, so y = 1
+        // does not cancel a sigmoid rounded near 1
+        const float e = expf(-fabsf(l)), s = e / (1.0f + e);
+        bce_w = (fmaxf(l, 0.0f) - l * y + log1pf(e)) * w;
+        dlog = (l >= 0.0f ? (1.0f - y) - s : s - y) * w / denom;
       }
       s_loss[r] = bce_w;
       s_dlog[r] = dlog;

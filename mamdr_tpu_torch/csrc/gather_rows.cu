@@ -11,6 +11,20 @@
 // caller marks, the kernel also writes the flat row ids it read, int32 [L*B]
 // (lane offset plus clamped id), which the backward's scatter-add takes.
 //
+// A field may carry a row window instead of the clamp (the row-sharded
+// lookup, parallel/embedding_shard.py): the table is rows [row_lo, row_lo +
+// N_f) of a larger one, and
+//
+//   mode 1 (window): id v reads table_f[lane + v - row_lo] when that row is
+//     in the shard, else writes zeros, and its flat id is then the spare row
+//     one past the field's table view (lanes * N_f stacked, N_f shared),
+//     which the scatter-add drops;
+//   mode 2 (silent): writes zeros, with the clamped flat id of mode 0 (a
+//     replicated table that one rank of the shard group contributes, the
+//     others read for the gradient only).
+//
+// Mode 0 is the clamp above, and the descriptor's default.
+//
 // Replaces the Pallas row gather mamdr_tpu/ops/embedding_lookup.py:56
 // (pallas_gather_rows: rows DMA'd HBM->VMEM eight per grid step, ids
 // scalar-prefetched, no clip), which the JAX package calls once per field
@@ -61,6 +75,8 @@ struct Field {
   int lane_stride;      // rows between lanes' tables: 0 (shared) or n_rows
   int d4;               // width in float4
   int off4;             // first output column, in float4
+  int row_lo;           // mode 1: global row of this table's first row
+  int mode;             // 0 clamp, 1 window (zeros outside), 2 silent (zeros)
 };
 
 // What the wrapper fills in (ops/embedding_lookup.py::_GatherPlan mirrors it).
@@ -96,6 +112,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int* ids = p.field[0].ids;
   int* flat = p.field[0].flat;
   int n_rows = p.field[0].n_rows, stride = p.field[0].lane_stride;
+  int row_lo = p.field[0].row_lo, mode = p.field[0].mode;
 #pragma unroll
   for (int f = 1; f < kMaxFields; ++f) {
     if (lane == f) {
@@ -103,14 +120,27 @@ __global__ void __launch_bounds__(kMaxThreads)
       flat = p.field[f].flat;
       n_rows = p.field[f].n_rows;
       stride = p.field[f].lane_stride;
+      row_lo = p.field[f].row_lo;
+      mode = p.field[f].mode;
     }
   }
-  int id = 0;
+  int id = -1;  // the row read, -1 for zeros
   if (lane < p.n_fields) {
-    int v = __ldg(ids + row);
-    v = v < 0 ? 0 : (v >= n_rows ? n_rows - 1 : v);
-    id = (row / p.batch) * stride + v;
-    if (flat != nullptr) flat[row] = id;
+    const int v = __ldg(ids + row);
+    const int base = (row / p.batch) * stride;
+    int fid;
+    if (mode == 1) {
+      const long long local = static_cast<long long>(v) - row_lo;
+      const bool in = local >= 0 && local < n_rows;
+      // the spare row: one past the lanes' tables (stride n_rows) or the table
+      fid = in ? base + static_cast<int>(local)
+               : (stride != 0 ? (p.rows / p.batch) * stride : n_rows);
+      id = in ? fid : -1;
+    } else {
+      fid = base + (v < 0 ? 0 : (v >= n_rows ? n_rows - 1 : v));
+      id = mode == 0 ? fid : -1;
+    }
+    if (flat != nullptr) flat[row] = fid;
   }
   int rid[kMaxFields];
 #pragma unroll
@@ -135,7 +165,8 @@ __global__ void __launch_bounds__(kMaxThreads)
             r = rid[f];
           }
         }
-        v[j] = __ldg(table + static_cast<long long>(r) * d4 + (c - off4));
+        v[j] = r < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                     : __ldg(table + static_cast<long long>(r) * d4 + (c - off4));
       }
     }
 #pragma unroll
@@ -166,7 +197,7 @@ extern "C" int mamdr_gather_fields(const Plan* plan, int blocks, int threads, vo
   for (int f = 0; f < p.n_fields; ++f) {
     const Field& fd = p.field[f];
     if (fd.off4 != off4 || fd.d4 < 1 || fd.n_rows < 1 || fd.table == nullptr ||
-        fd.ids == nullptr)
+        fd.ids == nullptr || fd.mode < 0 || fd.mode > 2)
       return static_cast<int>(cudaErrorInvalidValue);
     off4 += fd.d4;
   }

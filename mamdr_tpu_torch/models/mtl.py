@@ -15,6 +15,20 @@ Parameter trees keep the flax names: ``towers/tower_{kernel,bias}_i``,
 fans (``layers.fans``: the receptive field counts). Dropout sites, in flax's
 call order: SharedBottom the bottom DNN's layers then the towers'; MMoE the
 experts', the gate DNN's, then the towers'; PLE the towers' only.
+
+Expert parallelism (``train.shard_experts`` on a mesh; JAX
+parallel/trainer_sharding.py:49-59, where the SPMD partitioner inserts the
+collective): a model whose expert-bank leaves hold fewer experts (MMoE) or
+tasks (PLE's task experts) than the model has is a rank's slice of them,
+at its table index on the ``expert_mesh`` it was built with. The rank runs
+its experts only, the gate-mixed sum over experts is completed by one
+``all_reduce`` over the table group (the mesh's ``table_sum``), and every
+replicated tensor that feeds the rank's part (the input, the gates, PLE's
+shared experts) passes the mesh's ``table_copy``, whose backward sums its
+gradient over the table group, so every replicated leaf's gradient is
+whole on every rank. With whole leaves both are the identity, and the same
+code computes the whole model. An expert's dropout mask is its rows of the
+whole bank's. Both collectives run under ``torch.func.vmap`` (the lanes).
 """
 
 from __future__ import annotations
@@ -26,6 +40,11 @@ from torch import nn
 
 from mamdr_tpu_torch.models.deepctr import ZooModel
 from mamdr_tpu_torch.models.layers import DNN, FastDropout, glorot_normal, glorot_uniform
+from mamdr_tpu_torch.ops.fast_random import IOTA_MUL, MASK32
+
+
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 def _param(shape, init, generator) -> nn.Parameter:
@@ -87,12 +106,18 @@ class ExpertBank(nn.Module):
             prev = units
         self.dropout = FastDropout(dropout)
 
-    def forward(self, x: torch.Tensor, seeds=None) -> torch.Tensor:
-        x = x.expand(self.n_expert, *x.shape)
+    def forward(self, x: torch.Tensor, seeds=None, first: int = 0) -> torch.Tensor:
+        """The bank's experts as its leaves hold them: all E, or a rank's
+        slice starting at expert ``first``, whose dropout masks are those
+        experts' rows of the whole [E, B, D] mask."""
+        x = x.expand(self.expert_kernel_0.shape[0], *x.shape)
         for li in range(self.n_layers):
             w, b = getattr(self, f"expert_kernel_{li}"), getattr(self, f"expert_bias_{li}")
             x = torch.relu(torch.einsum("ebi,eio->ebo", x, w) + b[:, None, :])
-            x = self.dropout(x, None if seeds is None else seeds[li])
+            seed = None if seeds is None else seeds[li]
+            if seed is not None and first:  # a row offset of the flat mask index
+                seed = (seed + (first * x.shape[1] * x.shape[2] * IOTA_MUL & MASK32)) & MASK32
+            x = self.dropout(x, seed)
         return x
 
 
@@ -107,7 +132,7 @@ class _MTLBase(ZooModel):
                  num_experts: int = 4, gate_dnn_hidden_units: Sequence[int] = (),
                  specific_expert_num: int = 1, shared_expert_num: int = 1,
                  num_levels: int = 2, pretrained_user=None, pretrained_item=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, expert_mesh=None):
         super().__init__(n_uid, n_pid, n_domain, user_dim, item_dim, domain_dim, hidden_dim,
                          dropout, pretrained_user, pretrained_item, generator)
         self.tower_hidden_dim = tuple(int(h) for h in tower_hidden_dim)
@@ -115,10 +140,24 @@ class _MTLBase(ZooModel):
         self.gate_dnn_hidden_units = tuple(int(h) for h in gate_dnn_hidden_units)
         self.specific_expert_num, self.shared_expert_num = specific_expert_num, shared_expert_num
         self.num_levels = num_levels
+        self.expert_mesh = expert_mesh  # a rank's expert slices run on it (shard_experts)
 
     def _towers(self, in_features: int, generator):
         self.towers = TaskTowers(self.n_domain, in_features, self.tower_hidden_dim,
                                  self.dropout, generator)
+
+    def _expert_split(self, held: int, total: int):
+        """(first index, copy, sum) for leaves that hold ``held`` of
+        ``total`` experts or tasks: a rank's slice with the expert mesh's
+        ``table_copy`` and ``table_sum``, or (0, identity, identity) for
+        whole leaves."""
+        if held == total:
+            return 0, _same, _same
+        mesh = self.expert_mesh
+        if mesh is None:
+            raise ValueError(f"the expert leaves hold {held} of {total}: a slice needs the "
+                             "model's expert_mesh")
+        return mesh.table_index * held, mesh.table_copy, mesh.table_sum
 
 
 class SharedBottom(_MTLBase):
@@ -163,12 +202,15 @@ class MMoE(_MTLBase):
 
     def tower(self, x, lin, domain, seeds):
         ne, ng = len(self.hidden_dim), len(self.gate_dnn_hidden_units)
-        experts = self.experts(x, _seeds(seeds, 0, ne))  # [E, B, D]
+        held = self.experts.expert_kernel_0.shape[0]
+        first, copy, total = self._expert_split(held, self.num_experts)
+        experts = self.experts(copy(x), _seeds(seeds, 0, ne), first)  # [E or its slice, B, D]
         gate_in = x
         if self.gate_dnn_hidden_units:
             gate_in = self.gate_dnn(gate_in, _seeds(seeds, ne, ne + ng))
         gates = torch.softmax(torch.einsum("bi,tie->tbe", gate_in, self.gate_kernel), dim=-1)
-        mixed = torch.einsum("tbe,ebd->tbd", gates, experts)  # [T, B, D]
+        mine = copy(gates)[..., first:first + held]
+        mixed = total(torch.einsum("tbe,ebd->tbd", mine, experts))  # [T, B, D]
         return select_head(self.towers(mixed, _seeds(seeds, ne + ng, None)), domain)
 
 
@@ -204,25 +246,43 @@ class PLE(_MTLBase):
 
     def tower(self, x, lin, domain, seeds):
         T = self.n_domain
+        held = self.task_expert_kernel_0.shape[0]
+        first, copy, total = self._expert_split(held, T)
         task_in = x.expand(T, *x.shape)  # [T, B, D]
         shared_in = x
         for level in range(self.num_levels):
             p = {n: getattr(self, f"{n}_{level}") for n in (
                 "task_expert_kernel", "task_expert_bias", "shared_expert_kernel",
                 "shared_expert_bias", "task_gate_kernel", "shared_gate_kernel")}
-            task_experts = torch.relu(
-                torch.einsum("kbi,ktio->ktbo", task_in, p["task_expert_kernel"])
-                + p["task_expert_bias"][:, :, None, :])  # [T, t, B, D']
-            shared_experts = torch.relu(
-                torch.einsum("bi,sio->sbo", shared_in, p["shared_expert_kernel"])
-                + p["shared_expert_bias"][:, None, :])  # [s, B, D']
-            gates = torch.softmax(
-                torch.einsum("kbi,kie->kbe", task_in, p["task_gate_kernel"]), dim=-1)
-            cat = torch.cat([task_experts, shared_experts.expand(T, *shared_experts.shape)],
-                            dim=1)  # [T, t+s, B, D']
-            task_in = torch.einsum("kbe,kebd->kbd", gates, cat)
-            all_experts = torch.cat(
-                [task_experts.reshape(-1, *task_experts.shape[2:]), shared_experts], dim=0)
-            sgates = torch.softmax(shared_in @ p["shared_gate_kernel"], dim=-1)
-            shared_in = torch.einsum("be,ebd->bd", sgates, all_experts)
+            task_in, shared_in = self._level(first, held, copy, total, p, task_in, shared_in)
         return select_head(self.towers(task_in, seeds), domain)
+
+    def _level(self, first: int, held: int, copy, total, p, task_in, shared_in):
+        """One CGC level over tasks [first, first + held) (all T on one
+        device): their experts, gates and mixed outputs, summed over the
+        table group into the whole [T, B, D'] (a zero-filled placement);
+        the shared path's mix is its part over those tasks' experts, summed
+        over the group, plus the shared experts' part (replicated)."""
+        T = self.n_domain
+        ti = copy(task_in)[first:first + held]
+        task_experts = torch.relu(
+            torch.einsum("kbi,ktio->ktbo", ti, p["task_expert_kernel"])
+            + p["task_expert_bias"][:, :, None, :])  # [held, t, B, D']
+        shared_experts = torch.relu(
+            torch.einsum("bi,sio->sbo", shared_in, p["shared_expert_kernel"])
+            + p["shared_expert_bias"][:, None, :])  # [s, B, D']
+        gates = torch.softmax(torch.einsum(
+            "kbi,kie->kbe", ti, copy(p["task_gate_kernel"])[first:first + held]), dim=-1)
+        se = copy(shared_experts)
+        cat = torch.cat([task_experts, se.expand(held, *se.shape)], dim=1)  # [held, t+s, B, D']
+        local = torch.einsum("kbe,kebd->kbd", gates, cat)  # [held, B, D']
+        if held < T:
+            rest = local.shape[1:]
+            local = torch.cat([local.new_zeros((first, *rest)), local,
+                               local.new_zeros((T - first - held, *rest))])
+        t = task_experts.shape[1]
+        sgates = torch.softmax(shared_in @ p["shared_gate_kernel"], dim=-1)
+        part = torch.einsum("be,ebd->bd", copy(sgates)[:, first * t:(first + held) * t],
+                            task_experts.reshape(-1, *task_experts.shape[2:]))
+        shared_out = total(part) + torch.einsum("be,ebd->bd", sgates[:, T * t:], shared_experts)
+        return total(local), shared_out

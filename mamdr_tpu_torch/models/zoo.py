@@ -39,10 +39,13 @@ def build_model(
     pretrained_user: Optional[np.ndarray] = None,
     pretrained_item: Optional[np.ndarray] = None,
     generator: Optional[torch.Generator] = None,
+    expert_mesh=None,
 ):
     """Instantiate the base model for a config, its init drawn from
     ``generator``. Pretrained tables are used only when
-    ``train.load_pretrain_emb`` is set (reference deepctr.py:104-116)."""
+    ``train.load_pretrain_emb`` is set (reference deepctr.py:104-116). An
+    MMoE or PLE built with ``expert_mesh`` runs a rank's slice of its expert
+    banks on that mesh (``train.shard_experts``, models/mtl.py)."""
     mc = config.model
     spec = mc.spec
     if not config.train.load_pretrain_emb:
@@ -76,6 +79,7 @@ def build_model(
             specific_expert_num=mc.specific_expert_num,
             shared_expert_num=mc.shared_expert_num,
             num_levels=mc.num_levels,
+            expert_mesh=expert_mesh,
             **common,
         )
     raise ValueError(f"unknown base family {spec.base_family}")

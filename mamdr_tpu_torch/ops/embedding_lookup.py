@@ -42,7 +42,10 @@ def embedding_lookup_reference(table: torch.Tensor, ids: torch.Tensor) -> torch.
     return table[ids.long().clamp(0, table.shape[0] - 1)]
 
 
-def table_rows(table, ids):
+CLAMP, WINDOW, SILENT = 0, 1, 2  # a field's read: K2's ``Field.mode``
+
+
+def table_rows(table, ids, window=None):
     """Rows of one field's table for one tower or for L lanes, by plain
     indexing: the building block of ``gather_fields_reference``.
 
@@ -52,14 +55,29 @@ def table_rows(table, ids):
     ids [L, B] clipped to the lane's rows before the lane's offset is added,
     so clip semantics hold per lane. Returns (rows [*ids.shape, D], the flat
     row ids read: clamped, lane offset added, ids' dtype).
+
+    ``window`` (row_lo, mode) reads the table as rows [row_lo, row_lo + N)
+    of a larger one: ``WINDOW`` gives an id outside them zeros and the flat
+    id of the spare row one past the table's [L*N or N, D] view, which
+    ``scatter_rows`` drops; ``SILENT`` gives zeros with the clamped flat id;
+    None or mode ``CLAMP`` is the clamp.
     """
-    if table.dim() == 2:
-        flat = ids.reshape(-1).clamp(0, table.shape[0] - 1)
-    else:
-        lanes, n = table.shape[:2]
-        offset = torch.arange(lanes, dtype=ids.dtype, device=ids.device)[:, None] * n
-        flat = (ids.clamp(0, n - 1) + offset).reshape(-1)
-    rows = embedding_lookup_reference(table.reshape(-1, table.shape[-1]), flat)
+    lo, mode = window or (0, CLAMP)
+    lanes, n = (1, table.shape[0]) if table.dim() == 2 else table.shape[:2]
+    offset = (torch.arange(lanes, dtype=ids.dtype, device=ids.device)[:, None] * n
+              if table.dim() == 3 else 0)
+    view = table.reshape(-1, table.shape[-1])
+    if mode == WINDOW:
+        local = ids.long() - int(lo)
+        inside = (local >= 0) & (local < n)
+        flat = torch.where(inside, local.clamp(0, n - 1) + offset, view.shape[0])
+        read = view[flat.reshape(-1).clamp(max=view.shape[0] - 1)]
+        rows = torch.where(inside.reshape(-1, 1), read, 0.0)
+        return rows.reshape(*ids.shape, -1), flat.to(ids.dtype).reshape(-1)
+    flat = (ids.clamp(0, n - 1) + offset).reshape(-1)
+    rows = embedding_lookup_reference(view, flat)
+    if mode == SILENT:  # zeros whose gradient still reaches the rows, as K2's rule
+        rows = rows - rows.detach()
     return rows.reshape(*ids.shape, -1), flat
 
 
@@ -68,11 +86,16 @@ def scatter_rows(table_shape, flat: torch.Tensor, rows: torch.Tensor) -> torch.T
     ``table_shape`` ([N, D], or [L, N, D] as its [L*N, D] view) with each of
     ``rows`` [..., D] added at its flat row id (``table_rows``' second
     result). ``jnp.take(mode="clip")``'s gradient (XLA's scatter in the JAX
-    package, not a Pallas kernel; ``index_add_`` here)."""
+    package, not a Pallas kernel; ``index_add_`` here). A flat id one past
+    the view (a windowed gather's row outside its shard) lands in a spare row
+    that the result leaves out."""
     d = table_shape[-1]
-    g = torch.zeros(table_shape, dtype=rows.dtype, device=rows.device)
-    g.view(-1, d).index_add_(0, flat.long(), rows.reshape(-1, d))
-    return g
+    n = 1
+    for s in table_shape[:-1]:
+        n *= int(s)
+    g = torch.zeros((n + 1, d), dtype=rows.dtype, device=rows.device)
+    g.index_add_(0, flat.long(), rows.reshape(-1, d))
+    return g[:n].view(table_shape)
 
 
 def _mask(train_mask, n: int) -> Tuple[bool, ...]:
@@ -82,11 +105,19 @@ def _mask(train_mask, n: int) -> Tuple[bool, ...]:
     return mask
 
 
+def _windows(windows, n: int):
+    w = (None,) * n if windows is None else tuple(windows)
+    if len(w) != n:
+        raise ValueError(f"{len(w)} windows for {n} fields")
+    return tuple((0, CLAMP) if x is None else (int(x[0]), int(x[1])) for x in w)
+
+
 def gather_fields_reference(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
-                            train_mask: Optional[Sequence[bool]] = None):
+                            train_mask: Optional[Sequence[bool]] = None, windows=None):
     """Plain PyTorch version of ``gather_fields``: ``table_rows`` of each
-    field, concatenated. Differentiable through indexing."""
-    parts = [table_rows(t, i) for t, i in zip(tables, ids)]
+    field (with its window), concatenated. Differentiable through indexing."""
+    parts = [table_rows(t, i, w)
+             for t, i, w in zip(tables, ids, _windows(windows, len(tables)))]
     mask = _mask(train_mask, len(parts))
     x = torch.cat([rows for rows, _ in parts], dim=-1)
     return x, tuple(flat if m else None for (_, flat), m in zip(parts, mask))
@@ -151,7 +182,8 @@ def field_plan(table_shapes: Sequence[Tuple[int, ...]], ids_shape: Tuple[int, ..
 class _Field(ctypes.Structure):
     _fields_ = [("table", ctypes.c_void_p), ("ids", ctypes.c_void_p), ("flat", ctypes.c_void_p),
                 ("n_rows", ctypes.c_int), ("lane_stride", ctypes.c_int),
-                ("d4", ctypes.c_int), ("off4", ctypes.c_int)]
+                ("d4", ctypes.c_int), ("off4", ctypes.c_int),
+                ("row_lo", ctypes.c_int), ("mode", ctypes.c_int)]
 
 
 class _GatherPlan(ctypes.Structure):
@@ -185,7 +217,7 @@ def _require_gather_operands(table: torch.Tensor, ids: torch.Tensor) -> None:
         raise ValueError("a gather needs a 16-byte aligned table")
 
 
-def _launch_k2(tables, ids, want: Tuple[bool, ...]):
+def _launch_k2(tables, ids, want: Tuple[bool, ...], windows):
     """One launch of kernel K2: (x [*ids.shape, sum D], flat int32
     [fields wanted, L*B] or None)."""
     for t, i in zip(tables, ids):
@@ -202,15 +234,18 @@ def _launch_k2(tables, ids, want: Tuple[bool, ...]):
     c = _GatherPlan(n_fields=len(tables), batch=plan.batch, rows=plan.rows,
                     out_d4=sum(plan.widths) // 4)
     k = 0
-    for f, (t, i, w) in enumerate(zip(tables, ids, want)):
+    for f, (t, i, w, (lo, mode)) in enumerate(zip(tables, ids, want, windows)):
+        if not -2**31 <= lo < 2**31:
+            raise ValueError(f"row_lo {lo} is past int32")
         c.field[f] = _Field(t.data_ptr(), i.data_ptr(), flat[k].data_ptr() if w else None,
                             plan.n_rows[f], plan.lane_strides[f], plan.widths[f] // 4,
-                            plan.offsets[f] // 4)
+                            plan.offsets[f] // 4, lo, mode)
         k += w
     _cuda.check(_bind()(ctypes.byref(c), plan.blocks, plan.threads, x.data_ptr(),
                         _cuda.stream_ptr(dev)), "gather_fields")
     gather_fields.launches += 1
     gather_fields.lane_launches += ids[0].dim() == 2
+    gather_fields.window_launches += any(m != CLAMP for _, m in windows)
     return x, flat
 
 
@@ -219,10 +254,10 @@ class _GatherFields(torch.autograd.Function):
     of each such field's column slice of dx at the clamped flat row ids."""
 
     @staticmethod
-    def forward(ctx, want, *operands):
+    def forward(ctx, want, windows, *operands):
         n = len(operands) // 2
         tables, ids = operands[:n], operands[n:]
-        x, flat = _launch_k2(tables, ids, want)
+        x, flat = _launch_k2(tables, ids, want, windows)
         ctx.want, ctx.shapes = want, [t.shape for t in tables]
         ctx.save_for_backward(flat)
         ctx.mark_non_differentiable(flat)
@@ -235,13 +270,13 @@ class _GatherFields(torch.autograd.Function):
         for f, (shape, w) in enumerate(zip(ctx.shapes, ctx.want)):
             d = shape[-1]
             grads.append(scatter_rows(shape, flat[k], gx[..., off:off + d])
-                         if ctx.needs_input_grad[1 + f] else None)
+                         if ctx.needs_input_grad[2 + f] else None)
             k, off = k + w, off + d
-        return (None, *grads, *(None,) * len(grads))
+        return (None, None, *grads, *(None,) * len(grads))
 
 
 def gather_fields(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
-                  train_mask: Optional[Sequence[bool]] = None):
+                  train_mask: Optional[Sequence[bool]] = None, windows=None):
     """Gather every field's rows into one output: the tower input.
 
     ``tables[f]`` float32 [N_f, D_f] (one tower, or a table every lane
@@ -257,17 +292,23 @@ def gather_fields(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
     when the ids are [L, B]), differentiable in the tables that require a
     gradient. A CUDA call the kernel does not take raises. CPU tensors run
     the plain version.
+
+    ``windows[f]``, None or (row_lo, mode), reads field f as a row shard
+    (``table_rows``: ``WINDOW`` zeros outside it, ``SILENT`` zeros with the
+    clamped row ids); a call with a window other than the clamp is also
+    counted in ``gather_fields.window_launches``.
     """
     tables, ids = tuple(tables), tuple(ids)
     mask = _mask(train_mask, len(tables))
     if len(ids) != len(tables):
         raise ValueError(f"{len(tables)} tables and {len(ids)} id tensors")
+    win = _windows(windows, len(tables))
     if all(t.device.type == "cpu" for t in (*tables, *ids)):
-        return gather_fields_reference(tables, ids, mask)
+        return gather_fields_reference(tables, ids, mask, win)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in tables)
     want = tuple(m or (grad and t.requires_grad) for m, t in zip(mask, tables))
-    x, flat = (_GatherFields.apply(want, *tables, *ids) if grad
-               else _launch_k2(tables, ids, want))
+    x, flat = (_GatherFields.apply(want, win, *tables, *ids) if grad
+               else _launch_k2(tables, ids, want, win))
     flats, k = [], 0
     for w, m in zip(want, mask):  # flat holds a row for each wanted field
         flats.append(flat[k] if m else None)
@@ -277,6 +318,7 @@ def gather_fields(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
 
 gather_fields.launches = 0
 gather_fields.lane_launches = 0
+gather_fields.window_launches = 0
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -89,15 +89,15 @@ def tower_grad_reference(x, label, weight, seeds, dense, dims, rate):
     scale = _dropout_scale(rate) if rate > 0.0 else 1.0
     zs, acts, keeps, logits = tower_forward_reference(x, seeds, dense, dims, rate)
 
-    bce = (
-        torch.clamp(logits, min=0.0)
-        - logits * label
-        + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
+    e = torch.exp(-torch.abs(logits))
+    bce = torch.clamp(logits, min=0.0) - logits * label + torch.log1p(e)
     denom = torch.clamp(torch.sum(weight), min=1.0)
     loss = torch.sum(bce * weight) / denom
 
-    dlogits = (torch.sigmoid(logits) - label) * weight / denom  # [B,1]
+    # sigmoid(z) - y without rounding sigmoid(z) near 1 before y = 1 cancels
+    # it: with r = sigmoid(-|z|), (1 - y) - r for z >= 0 and r - y below
+    r = e / (1.0 + e)
+    dlogits = torch.where(logits >= 0.0, (1.0 - label) - r, r - label) * weight / denom
     dwl = acts[-1].T @ dlogits
     dh = dlogits @ wl.T
     grads = [None] * (2 * n_layers)
@@ -418,7 +418,7 @@ def _set(tree, path, value):
 
 
 def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
-                        gather: Callable = gather_fields):
+                        gather: Optional[Callable] = None):
     """Returns f(params, batch, seeds, train=True) -> (data_loss, grads), for
     one tower or for L lanes at once; the shapes of the batch decide.
 
@@ -429,9 +429,9 @@ def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
     ``gather_fields``). ``grads`` has the structure of ``params`` with
     ``None`` at frozen tables. The tower input x and the row ids of the
     tables that train come from ONE ``gather`` (kernel K2's wrapper by
-    default). ``tower_grad`` defaults to kernel K1's wrapper for the batch's
-    shape; a check on the card passes the plain versions of both to compare a
-    whole step.
+    default; on a mesh, ``cfg.lookup``). ``tower_grad`` defaults to kernel
+    K1's wrapper for the batch's shape; a check on the card passes the plain
+    versions of both to compare a whole step.
     """
     dims = (
         int(model.user_dim) + int(model.item_dim) + int(model.domain_dim),
@@ -441,12 +441,14 @@ def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
     u_dim, i_dim = int(model.user_dim), int(model.item_dim)
     l2 = float(cfg.l2_emb)
     emb_trainable = bool(cfg.emb_trainable)
+    gather = gather or cfg.lookup or gather_fields
 
     def table_grad(table, flat, dx_part):
         """``scatter_rows`` of dx's rows into the table, plus its l2 term."""
         if table.dim() != dx_part.dim():
             raise ValueError("a table that trains needs one copy per lane")
-        return scatter_rows(table.shape, flat, dx_part) + 2.0 * l2 * table
+        g = scatter_rows(table.shape, flat, dx_part)
+        return g + 2.0 * l2 * table if l2 else g
 
     def loss_grad(params, batch, seeds, train: bool = True):
         mp = params["model"]

@@ -1,10 +1,12 @@
 """MAMDR = Domain Negotiation + Domain Regularization (the flagship).
 
-Counterpart of ``mamdr_tpu/strategies/mamdr.py`` on one device
-(``__init__`` :55-105, ``_dr_parallel_eligible`` :123-225, the eval plumbing
-and the finetune :229-297, ``prepare_fused`` :307-418 without the mesh,
-``run_fused_epoch`` :442-470, ``_train_fused`` :472-521 with its resume
-snapshot).
+Counterpart of ``mamdr_tpu/strategies/mamdr.py`` (``__init__`` :55-105,
+``_row_sharded_table_mask`` :107-119, ``_dr_parallel_eligible`` :123-225
+with its mesh checks, the eval plumbing and the finetune :229-297,
+``prepare_fused`` :307-418, ``run_fused_epoch`` :442-470, ``_train_fused``
+:472-521 with its resume snapshot). On a trainer built on a mesh the DR
+lanes are split over the data group (train/fused.py) and the merged evals
+split the domains over it; the decomposition is written whole by rank 0.
 State: shared weights plus per-domain specific deltas on the meta-param
 subset.
 
@@ -43,7 +45,7 @@ import torch
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.strategies.separate import separate_train_val_test
-from mamdr_tpu_torch.train import checkpoints, fused
+from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.steps import make_subset_train_step
 from mamdr_tpu_torch.utils import trees
 
@@ -84,6 +86,12 @@ class MAMDRStrategy(MetaStrategy):
         )
         self._eval_merged = None
 
+    def _row_sharded_table_mask(self):
+        """Bool tree over params: the tables this rank holds a row shard of
+        (JAX :107-119, the mesh lookup's own predicate on the padded
+        shapes; trainable ones included). All False without a mesh."""
+        return trees.tree_map(lambda a: a == -2, self.trainer.shard_axes)
+
     def _dr_parallel_eligible(self) -> bool:
         """Gate for the query-domain-lanes DR phase (fused.make_fused_dr_parallel).
 
@@ -113,6 +121,18 @@ class MAMDRStrategy(MetaStrategy):
             raise ValueError(f"dr_parallel must be auto, on or off, got {mode!r}")
         if mode == "off":
             return False
+        mesh = self.trainer.mesh
+        if mesh is not None:  # each group's lanes split over the data axis (JAX :151-178)
+            why = None
+            if self.n_domain % mesh.data:
+                why = f"n_domain {self.n_domain} does not divide the mesh data axis {mesh.data}"
+            elif self.tc.dr_lane_chunk > 0 and self.tc.dr_lane_chunk % mesh.data:
+                why = (f"dr_lane_chunk {self.tc.dr_lane_chunk} does not divide the mesh "
+                       f"data axis {mesh.data}")
+            if why is not None:
+                if mode == "on":
+                    raise ValueError(f"dr_parallel='on' but {why}")
+                return False
         if self.trainer.state.batch_stats:
             if mode == "on":
                 raise ValueError(
@@ -139,6 +159,8 @@ class MAMDRStrategy(MetaStrategy):
         concurrent = self.n_domain
         if self.tc.dr_lane_chunk > 0:
             concurrent = min(concurrent, self.tc.dr_lane_chunk)
+        if mesh is not None:  # a rank holds its lanes only (JAX :209-216)
+            concurrent = concurrent / mesh.data
         free_bytes, _ = torch.cuda.mem_get_info(self.trainer.device)
         return 3 * concurrent * trainable_bytes < 0.4 * free_bytes
 
@@ -146,8 +168,10 @@ class MAMDRStrategy(MetaStrategy):
         """The DR lanes' group size (JAX mamdr.py:370-401): ``dr_lane_chunk``
         when set; else 7 when a user or item table is trainable (the lanes
         then stack whole tables) and there are more than 7 domains; else 0,
-        every lane at once. Chunked and whole lanes give the same results,
-        so the rule moves memory and launches, never a number."""
+        every lane at once. On a mesh the 7 becomes max((7 // data) * data,
+        data), a multiple of the data axis (JAX :397-401). Chunked and whole
+        lanes give the same results, so the rule moves memory and launches,
+        never a number."""
         if self.tc.dr_lane_chunk > 0:
             return self.tc.dr_lane_chunk
         frozen = self.trainer.frozen_mask()
@@ -155,7 +179,10 @@ class MAMDRStrategy(MetaStrategy):
             ("user_emb" in n or "item_emb" in n) and x.dim() == 2 and not f
             for (n, x), f in zip(trees.leaves_with_names(self.trainer.state.params),
                                  trees.leaves(frozen)))
-        return 7 if trainable_table and self.n_domain > 7 else 0
+        if not (trainable_table and self.n_domain > 7):
+            return 0
+        data = 1 if self.trainer.mesh is None else self.trainer.mesh.data
+        return max((7 // data) * data, data)
 
     def prepare_fused(self) -> None:
         """Build the device-resident data block and the two phase functions;
@@ -176,7 +203,8 @@ class MAMDRStrategy(MetaStrategy):
             self._dr_lane_chunk_effective = self._lane_chunk()
             self._dr_phase = fused.make_fused_dr_parallel(
                 sub_step, to_sub, combine, self.mask, method, n_steps, batch,
-                reg_step, steps_list=steps_list, lane_chunk=self._dr_lane_chunk_effective)
+                reg_step, steps_list=steps_list, lane_chunk=self._dr_lane_chunk_effective,
+                mesh=t.mesh)
         self._spec_stack = fused.stack_specific(self.specific, self.mask)
 
     def draw_epoch(self):
@@ -273,9 +301,9 @@ class MAMDRStrategy(MetaStrategy):
         self.best_shared = self.shared
         self.best_specific = list(self.specific)
         t.save_checkpoint()
-        checkpoints.save_decomposition(
-            t.checkpoint_dir + "/decomposition", self.best_shared, self.best_specific,
-            extra={"merged_method": self.tc.merged_method}, mask=self.mask)
+        t.save_decomposition(t.checkpoint_dir + "/decomposition", self.best_shared,
+                             self.best_specific, {"merged_method": self.tc.merged_method},
+                             self.mask)
 
     def test(self):
         return self._merged_eval("test", self.best_shared, self.best_specific)

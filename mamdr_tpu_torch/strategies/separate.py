@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from mamdr_tpu_torch.ops.fast_random import lane_seeds
-from mamdr_tpu_torch.train import checkpoints, fused
+from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import make_subset_train_step
 from mamdr_tpu_torch.train.trainer import Trainer
@@ -191,9 +191,8 @@ def _separate_fused(trainer: Trainer, init_params: bool, params_fn, max_epochs=N
         # each domain's trainable leaves (frozen tables are placeholders
         # here; they live in model_parameters.npz)
         for i, g in enumerate(lanes.ids):
-            checkpoints.save_pytree(
-                osp.join(t.checkpoint_dir, f"domain_{g}.npz"),
-                trees.tree_map(lambda x: x[i] if x.dim() > 0 else x, best))
+            t.save_tree(osp.join(t.checkpoint_dir, f"domain_{g}.npz"),
+                        trees.tree_map(lambda x: x[i] if x.dim() > 0 else x, best))
     if domains is not None:
         return 0.0, 0.0, domain_loss, domain_auc
     return t.summarize("test", domain_loss, domain_auc)
@@ -238,8 +237,7 @@ def _separate_loop(trainer: Trainer, init_params: bool = True, params_fn=None,
         loss, auc = t.evaluate_domain("test", idx, best_params, best_stats)
         domain_loss[str(idx)], domain_auc[str(idx)] = loss, auc
         if tc.domain_checkpoints:  # the whole best tree, frozen tables included
-            checkpoints.save_pytree(osp.join(t.checkpoint_dir, f"domain_{idx}.npz"),
-                                    best_params)
+            t.save_tree(osp.join(t.checkpoint_dir, f"domain_{idx}.npz"), best_params)
     avg_loss = sum(domain_loss.values()) / len(domain_loss)
     avg_auc = sum(domain_auc.values()) / len(domain_auc)
     if t.verbose:

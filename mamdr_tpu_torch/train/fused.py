@@ -5,9 +5,10 @@ formation, the ragged sequential pass with its step cap,
 ``make_fused_passes``, ``make_fused_dn``, ``make_fused_reptile``,
 ``_grad_epoch_on_flat``, ``make_fused_maml``, ``make_fused_pcgrad``,
 ``make_fused_mamdr``,
-``make_fused_dr_parallel`` with its lane chunks and without its
-mesh-sharding branch, ``stack_specific`` / ``unstack_specific``, the fused
-evals and ``make_fused_separate``):
+``make_fused_dr_parallel`` with its lane chunks and its lanes split over
+the data group of a mesh, ``stack_specific`` / ``unstack_specific``, the
+fused evals — on a mesh each data rank evaluating its share of the domains
+— and ``make_fused_separate``):
 
   - all domain data lives on the device once, padded to a uniform
     [n_domain, n_steps*batch] block (weight-0 tail rows);
@@ -60,12 +61,14 @@ import torch
 
 from mamdr_tpu_torch.data.dataset import DomainSplit
 from mamdr_tpu_torch.metrics.auc import auc_init, auc_result, auc_update
-from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import dropout_mask, lane_seeds
+from mamdr_tpu_torch.parallel.data_feed import process_local_rows
+from mamdr_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_sum_, broadcast
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.train.flat_optimizer import apply_updates
 from mamdr_tpu_torch.train.state import TrainState
-from mamdr_tpu_torch.train.steps import l2_lanes, model_logits, uncertainty_loss, weighted_bce
+from mamdr_tpu_torch.train.steps import (field_gather, l2_lanes, model_logits, uncertainty_loss,
+                                          weighted_bce)
 from mamdr_tpu_torch.utils import trees
 
 Tree = Any
@@ -586,9 +589,9 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
                            n_steps: int, batch: int, domain_regulation_step: int = 0,
                            shuffle: bool = True,
                            steps_list: Optional[Sequence[int]] = None,
-                           lane_chunk: int = 0):
+                           lane_chunk: int = 0, mesh=None):
     """The DR phase with every query domain as a lane (JAX
-    fused.make_fused_dr_parallel, :989-1265, single device).
+    fused.make_fused_dr_parallel, :989-1265).
 
     Query q's DR work only reads `shared` and the data block and writes
     specific[q], so the queries are independent once DN has fixed `shared`.
@@ -619,10 +622,23 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
     differ as described. The caller gates eligibility (MAMDRStrategy): the
     meta mask must cover every trainable leaf.
 
+    On a ``mesh`` (parallel/mesh.py) the lanes of each group are split over
+    the data group: data rank r of D runs lanes [r * C/D, (r + 1) * C/D) of
+    a group of C (JAX ``lane_sharding``, :1033-1051; the caller makes D
+    divide d and C). Every epoch's shuffle keys are then drawn for all d
+    lanes first (as with groups), so a lane's inputs, seed and results do
+    not depend on the rank that runs it. A trainable row-sharded table's
+    lane copies keep the rank's rows, [C/D, rows/T, D] (the JAX
+    ``P(data, table, None)``). After the last group the specific stack's
+    rows are gathered over the data group (each domain's row from the rank
+    that ran it, an exact zero-fill ``all_reduce``) and the last lane's
+    state is broadcast from the last data rank.
+
     Returns dr_parallel with dr_phase's signature. A state with batch
     statistics is refused: they chain through the query domains in the
     sequential phase, and lanes would keep one lane's.
     """
+    ranks, rank = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
     steps_of = None if steps_list is None else [int(s) for s in steps_list]
 
     def longest(doms) -> Optional[int]:
@@ -640,8 +656,11 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
         shared_sub = to_sub(shared)
         sub0 = to_sub(state.params)
         seeds = lane_seeds(state.seed, d, device)
+        if d % ranks or chunk % ranks:
+            raise ValueError(f"{d} lanes in groups of {chunk} do not split over "
+                             f"{ranks} data ranks")
         keys = None
-        if chunk < d and shuffle:  # the whole dispatch's draws: support j, query j, ...
+        if (chunk < d or ranks > 1) and shuffle:  # the whole dispatch's draws: support j, ...
             shape = (d, block["weight"].shape[-1])
             keys = [torch.rand(shape, generator=gen, device=device) for _ in range(2 * k)]
 
@@ -673,18 +692,41 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
                 lambda m, st, new: st.index_copy(0, order_t, new) if m else st,
                 mask, spec_stack, spec_lanes)
 
+        mine = []  # the lanes this data rank runs
         for start in range(0, d, chunk):
             lane_state = None  # a group's lane state goes before the next one is made
-            lane_state, specific_stack = run_lanes(slice(start, start + chunk), specific_stack)
+            per = (min(start + chunk, d) - start) // ranks
+            lanes = slice(start + rank * per, start + (rank + 1) * per)
+            mine.extend(range(lanes.start, lanes.stop))
+            lane_state, specific_stack = run_lanes(lanes, specific_stack)
 
         def last(x):
             return x[-1] if x.dim() > 0 else x  # placeholders carry no lane axis
 
-        final = state.replace(
-            params=combine(trees.tree_map(last, lane_state.params)),
-            opt_state=type(state.opt_state)(*(x[-1] for x in lane_state.opt_state)),
-            step=lane_state.step[-1],
-        )
+        params = trees.tree_map(last, lane_state.params)
+        opt_state = type(state.opt_state)(*(x[-1] for x in lane_state.opt_state))
+        step = lane_state.step[-1]
+        if ranks > 1:
+            rows = torch.as_tensor(order[mine], dtype=torch.long, device=device)
+
+            def gathered(m, st):
+                if not m:
+                    return st
+                buf = torch.zeros_like(st)
+                buf[rows] = st[rows]
+                return all_reduce_sum_(mesh, buf, DATA_AXIS)
+
+            specific_stack = trees.tree_map(gathered, mask, specific_stack)
+            src = ranks - 1
+
+            def bcast(x):
+                return broadcast(mesh, x, DATA_AXIS, src) if x.dim() > 0 else x
+
+            params = trees.tree_map(bcast, params)
+            opt_state = type(opt_state)(*(broadcast(mesh, x, DATA_AXIS, src)
+                                          for x in opt_state))
+            step = broadcast(mesh, step, DATA_AXIS, src)
+        final = state.replace(params=combine(params), opt_state=opt_state, step=step)
         return final, specific_stack
 
     return dr_parallel
@@ -711,7 +753,7 @@ def stack_domains_eval(splits: List[DomainSplit], batch_size: int,
     return {k: v.reshape(v.shape[0], n_steps, batch_size) for k, v in cols.items()}
 
 
-def make_lane_eval(model, cfg, gather=gather_fields):
+def make_lane_eval(model, cfg, gather=None):
     """The one lane-batched eval every eval path runs (JAX ``_make_eval_step``
     and its scans, fused.py:254-336).
 
@@ -732,9 +774,10 @@ def make_lane_eval(model, cfg, gather=gather_fields):
     averaged over the batches that hold data, a partial batch by its
     weighted mean; the confusion counts of every
     batch (500 thresholds) are formed from zero and added. Nothing waits for
-    the host. ``gather`` is K2's wrapper, or its plain version to hold the
-    eval through K2 against.
+    the host. ``gather`` is K2's wrapper (on a mesh, ``cfg.lookup``), or its
+    plain version to hold the eval through K2 against.
     """
+    gather = field_gather(cfg, gather)
 
     def eval_lanes(params, block, steps: Optional[int] = None, stats=None):
         mp = params["model"]
@@ -743,7 +786,7 @@ def make_lane_eval(model, cfg, gather=gather_fields):
         n_steps, lanes = by_step["weight"].shape[:2]
         steps = n_steps if steps is None else min(int(steps), n_steps)
         dev = by_step["weight"].device
-        l2 = l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable)
+        l2 = l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable, cfg.lookup)
         log_vars = params["uncertainty"]["log_vars"] if cfg.uncertainty_weight else None
         counts = auc_init(lanes=(lanes,), device=dev)
         loss_sum = torch.zeros((lanes,), dtype=torch.float32, device=dev)
@@ -765,6 +808,34 @@ def make_lane_eval(model, cfg, gather=gather_fields):
     return eval_lanes
 
 
+def _split_eval(model, cfg, run, params, block, stats):
+    """``run`` (a ``make_lane_eval``) over every domain lane of ``block``; on a
+    mesh with a data axis above 1, each data rank runs its block of the
+    lanes (``process_local_rows``; a leaf with a lane axis cut to them) and the [L] losses and [L, T] confusion counts are gathered
+    over the data group in one exact zero-fill ``all_reduce`` — the counts
+    are integers, so the merged AUC equals one device's bit for bit."""
+    lookup = cfg.lookup
+    if lookup is None or lookup.mesh.data == 1:
+        return run(params, block, stats=stats)
+    mesh = lookup.mesh
+    n = block["weight"].shape[0]
+    sl = process_local_rows(n, mesh.data_index, mesh.data)
+    dev = block["weight"].device
+    counts = auc_init(lanes=(n,), device=dev)
+    t = counts.true_positives.shape[-1]
+    buf = torch.zeros((n, 1 + 4 * t), dtype=torch.float32, device=dev)
+    if sl.stop > sl.start:
+        axes = model.lane_axes(params["model"])
+        local = dict(params, model=trees.tree_map(
+            lambda a, x: x[sl] if a == 0 else x, axes, params["model"]))
+        if "uncertainty" in params and params["uncertainty"]["log_vars"].dim() == 3:
+            local["uncertainty"] = {"log_vars": params["uncertainty"]["log_vars"][sl]}
+        losses, c = run(local, {k: v[sl] for k, v in block.items()}, stats=stats)
+        buf[sl] = torch.cat([losses[:, None], *c], dim=1)
+    buf = all_reduce_sum_(mesh, buf, DATA_AXIS)
+    return buf[:, 0], type(counts)(*torch.split(buf[:, 1:], t, dim=1))
+
+
 def make_fused_eval(model, cfg):
     """Every domain with one set of weights (JAX ``make_fused_eval``,
     fused.py:339-367): eval_all(params, block [D, S, B], stats=None) -> ([D]
@@ -773,7 +844,7 @@ def make_fused_eval(model, cfg):
     run = make_lane_eval(model, cfg)
 
     def eval_all(params, block, stats=None):
-        losses, counts = run(params, block, stats=stats)
+        losses, counts = _split_eval(model, cfg, run, params, block, stats)
         return losses, auc_result(counts)
 
     return eval_all
@@ -791,7 +862,8 @@ def make_fused_eval_merged(model, cfg, mask, merged_method: str):
 
     def eval_all(params, shared, specific_stack, block, stats=None):
         merged = ops.merge_weights(shared, specific_stack, mask, merged_method)
-        losses, counts = run(ops.load_masked(params, merged, mask), block, stats=stats)
+        losses, counts = _split_eval(model, cfg, run, ops.load_masked(params, merged, mask),
+                                     block, stats)
         return losses, auc_result(counts)
 
     return eval_all

@@ -54,6 +54,8 @@ from mamdr_tpu_torch.models.deepctr import MLP
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import step_seeds
 from mamdr_tpu_torch.ops.fused_mlp_step import make_fast_loss_grad
+from mamdr_tpu_torch.parallel.mesh import table_sum
+from mamdr_tpu_torch.parallel.trainer_sharding import make_data_parallel_loss_grad
 from mamdr_tpu_torch.train.flat_optimizer import apply_updates, flat_adam, masked_sgd
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.utils import trees
@@ -63,6 +65,15 @@ class StepConfig(NamedTuple):
     l2_emb: float = 1e-5
     emb_trainable: bool = True
     uncertainty_weight: bool = False
+    # on a (data, table) mesh: the model's field gather over it
+    # (parallel/embedding_shard.py::MeshLookup); None on one device
+    lookup: Optional[Callable] = None
+
+
+def field_gather(cfg: StepConfig, gather: Optional[Callable] = None) -> Callable:
+    """The field gather a function built from ``cfg`` uses: ``gather`` when
+    given, else the mesh's lookup, else K2's wrapper."""
+    return gather or cfg.lookup or gather_fields
 
 
 def weighted_bce(logits, labels, weights):
@@ -78,16 +89,25 @@ def weighted_bce(logits, labels, weights):
     return torch.sum(bce * weights, dim=-1) / denom
 
 
-def _l2_term(model_params, l2_emb: float, emb_trainable: bool):
+def _shard_total(lookup, name: str, t):
+    """A row-sharded table's term summed over the table group (the whole
+    table's), or ``t`` as it is."""
+    if lookup is None or not lookup.sharded_leaf(name):
+        return t
+    return table_sum(lookup.mesh, t)
+
+
+def _l2_term(model_params, l2_emb: float, emb_trainable: bool, lookup=None):
     """l2 * sum(table^2) over embedding-table params ('emb' in path); frozen
-    tables are detached (their term is a constant)."""
+    tables are detached (their term is a constant). On a mesh a row-sharded
+    table's sum is taken over its table group."""
     if l2_emb <= 0.0:
         return 0.0
     total = 0.0
     for name, x in trees.leaves_with_names(model_params):
         if "emb" not in name:
             continue
-        t = torch.sum(torch.square(x))
+        t = _shard_total(lookup, name, torch.sum(torch.square(x)))
         if not emb_trainable and ("user_emb" in name or "item_emb" in name):
             t = t.detach()
         total = total + t
@@ -130,18 +150,20 @@ def _losses(model, cfg: StepConfig, params, batch, seeds, gather, stats=None,
     if cfg.uncertainty_weight:
         data_loss = uncertainty_loss(data_loss, params["uncertainty"]["log_vars"],
                                      batch["domain"])
-    l2 = (_l2_term(mp, cfg.l2_emb, cfg.emb_trainable) if batch["uid"].dim() == 1
-          else l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable))
+    lookup = cfg.lookup
+    l2 = (_l2_term(mp, cfg.l2_emb, cfg.emb_trainable, lookup) if batch["uid"].dim() == 1
+          else l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable, lookup))
     return data_loss + l2, data_loss, logits, new_stats
 
 
-def make_loss_fn(model, cfg: StepConfig, gather=gather_fields):
+def make_loss_fn(model, cfg: StepConfig, gather=None):
     """loss_fn(params, batch, seeds=None, probs=False, stats=None,
     train=False) -> (loss, data_loss), then the probabilities when
     ``probs``, then the batch statistics when ``stats`` is given (a model
     with a norm: updated when ``train``, else ``stats``): the model's
     forward pass on one tower's batch (``model_logits``) and the loss on
     it."""
+    gather = field_gather(cfg, gather)
 
     def loss_fn(params, batch, seeds=None, probs: bool = False, stats=None,
                 train: bool = False):
@@ -173,9 +195,10 @@ def uncertainty_loss(data_loss, log_vars, domain):
     return data_loss / torch.square(var) + torch.log(var)
 
 
-def l2_lanes(model, model_params, l2_emb: float, emb_trainable: bool):
+def l2_lanes(model, model_params, l2_emb: float, emb_trainable: bool, lookup=None):
     """``_l2_term`` of each lane: [L] where an embedding table carries a lane
-    axis (``model.lane_axes``), else one value; frozen tables detached."""
+    axis (``model.lane_axes``), else one value; frozen tables detached; a
+    row-sharded table's sums over its table group."""
     if l2_emb <= 0.0:
         return 0.0
     axes = dict(trees.leaves_with_names(model.lane_axes(model_params)))
@@ -183,15 +206,15 @@ def l2_lanes(model, model_params, l2_emb: float, emb_trainable: bool):
     for name, x in trees.leaves_with_names(model_params):
         if "emb" not in name:
             continue
-        t = (torch.sum(torch.square(x.flatten(1)), dim=1) if axes[name] == 0
-             else torch.sum(torch.square(x)))
+        t = _shard_total(lookup, name, torch.sum(torch.square(x.flatten(1)), dim=1)
+                         if axes[name] == 0 else torch.sum(torch.square(x)))
         if not _trainable(name, emb_trainable):
             t = t.detach()
         total = total + t
     return l2_emb * total
 
 
-def make_autograd_loss_grad(model, cfg: StepConfig, gather=gather_fields):
+def make_autograd_loss_grad(model, cfg: StepConfig, gather=None):
     """f(params, batch, seeds, train=True, stats=None) -> (data_loss, grads)
     by autograd: the contract of ``make_fast_loss_grad``; with ``stats``
     (a model with batch statistics) -> (data_loss, grads, new stats), the
@@ -211,6 +234,7 @@ def make_autograd_loss_grad(model, cfg: StepConfig, gather=gather_fields):
     version). The JAX package takes this route (``jax.value_and_grad`` of
     its loss, vmapped over the lanes) wherever its fused kernel is not
     eligible."""
+    gather = field_gather(cfg, gather)
 
     def loss_grad(params, batch, seeds, train: bool = True, stats=None):
         def trains(name):
@@ -247,11 +271,26 @@ def make_loss_grad(model, cfg: StepConfig):
     K1-lanes), anything else — the other base models, a model with batch
     statistics (STAR), the uncertainty-weighted loss, an MLP whose tower
     computes in bfloat16 (K1 computes float32; JAX fused_mlp_step.py:227) —
-    autograd (``make_autograd_loss_grad``), for one tower or for lanes."""
-    if (isinstance(model, MLP) and model.compute_dtype == "float32"
-            and not model.has_batch_stats and not cfg.uncertainty_weight):
-        return make_fast_loss_grad(model, cfg)
-    return make_autograd_loss_grad(model, cfg)
+    autograd (``make_autograd_loss_grad``), for one tower or for lanes.
+
+    On a mesh (``cfg.lookup``) the fields come from the mesh's lookup, and a
+    one-tower batch — the whole batch, on every rank — is data-parallel
+    (``parallel/trainer_sharding.make_data_parallel_loss_grad``: each data
+    rank its rows, the gradients summed over the data group, the l2 terms
+    after the sum); a lane batch is computed whole where it is given (the
+    DR lanes are split over the data group by lane)."""
+    fast = (isinstance(model, MLP) and model.compute_dtype == "float32"
+            and not model.has_batch_stats and not cfg.uncertainty_weight)
+    build = make_fast_loss_grad if fast else make_autograd_loss_grad
+    lanes = build(model, cfg)
+    if cfg.lookup is None:
+        return lanes
+    one = make_data_parallel_loss_grad(build(model, cfg._replace(l2_emb=0.0)), model, cfg)
+
+    def loss_grad(params, batch, seeds, train: bool = True, **kw):
+        return (one if batch["uid"].dim() == 1 else lanes)(params, batch, seeds, train, **kw)
+
+    return loss_grad
 
 
 def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = None,
@@ -403,7 +442,7 @@ def make_train_epoch(train_step: Callable):
     return train_epoch
 
 
-def make_eval_epoch(model, cfg: StepConfig, gather=gather_fields):
+def make_eval_epoch(model, cfg: StepConfig, gather=None):
     """eval_epoch(params, stacked, stats=None) -> (loss, AUC), 0-d tensors on
     the device: one domain's [S, B] batches through the model's one-tower
     forward (K2 with ids [B]), dropout off, the norms in eval mode reading

@@ -26,6 +26,22 @@ are gathered on the device from each split's columns, which are uploaded
 once (or, past half the block budget, gathered on the host and staged
 through pinned memory).
 
+On a (data, table) mesh (``mesh=``, parallel/mesh.py; one process a rank,
+JAX trainer.py:60-151): the user and item tables are padded to the table
+axis (``pad_rows``, pretrained ones included), each rank keeps its rows of
+those the mesh lookup shards (``sharded_lookup_min_rows``) and, with
+``shard_experts``, its experts of the MMoE / PLE banks (``shard_axes``),
+with Adam's slots following them, and the steps and evals read the fields through
+``StepConfig.lookup`` (``MeshLookup``): one-tower train and accumulate
+steps split a batch's rows over the data group, the all-domain evals split
+the domains over it, a per-call ``evaluate_domain`` runs its domain whole on
+every rank. The host's draws agree on every rank (one seed); the
+checkpoint folder's timestamp is rank 0's. Files are written once, by rank
+0, with the whole tables gathered over the table group at their padded
+row count (what the JAX package writes), while the other ranks wait; the
+metrics log is rank 0's, and only rank 0 prints. The resume snapshot and
+TensorBoard are refused on a mesh.
+
 Randomness is explicit: ``np_rng`` (numpy, seeded by the dataset seed) makes
 the host-side draws the JAX package makes with numpy — domain order, aux
 domains, support/query splits, the per-call route's batch orders — so both
@@ -50,6 +66,9 @@ from mamdr_tpu_torch import DeviceLike, resolve_device
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.dataset import COLUMNS, DomainSplit, MultiDomainDataset, batch_rows
 from mamdr_tpu_torch.models.zoo import build_model
+from mamdr_tpu_torch.parallel.embedding_shard import MeshLookup, pad_rows
+from mamdr_tpu_torch.parallel.mesh import barrier, broadcast_object
+from mamdr_tpu_torch.parallel.trainer_sharding import shard_tree, sharded_axes, whole_tree
 from mamdr_tpu_torch.train import checkpoints, fused
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import (
@@ -70,6 +89,15 @@ from mamdr_tpu_torch.utils.logging import MetricsLogger, TensorBoardLogger
 MAX_WASTE_RATIO = 4.0
 STEPS_PER_DISPATCH = 250.0
 MAX_BLOCK_BYTES = 4 * 2**30
+
+
+def _pad_table(table, n: int):
+    """A pretrained table with zero rows appended up to ``n`` (None stays)."""
+    if table is None or table.shape[0] == n:
+        return table
+    out = np.zeros((n, table.shape[1]), table.dtype)
+    out[: table.shape[0]] = table
+    return out
 
 
 class EarlyStopper:
@@ -98,29 +126,62 @@ class EarlyStopper:
 
 class Trainer:
     def __init__(self, config: ExperimentConfig, dataset: MultiDomainDataset,
-                 device: DeviceLike = None, verbose: bool = True):
+                 device: DeviceLike = None, verbose: bool = True, mesh=None):
         """device: None runs on the CUDA card (and raises without one);
         "cpu" runs the plain versions of the kernels on the CPU. verbose:
-        print each evaluation's table, as the JAX package does."""
+        print each evaluation's table, as the JAX package does. mesh: this
+        rank's ``parallel.mesh.Mesh``; the trainer then runs on its device
+        (see the module docstring)."""
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device if device is None else device
+            if torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's {mesh.device}")
         self.device = resolve_device(device)
         self.config = config
         self.dataset = dataset
-        self.verbose = verbose
         tc, mc = config.train, config.model
-
+        self.rank0 = mesh is None or mesh.rank == 0
+        self.verbose = verbose and self.rank0
+        self._n_uid, self._n_pid = dataset.n_uid, dataset.n_pid
+        self._pretrained = (dataset.user_emb, dataset.item_emb)
+        if mesh is not None:
+            if tc.resume or tc.resume_every > 0 or tc.tensorboard or tc.histogram_freq > 0:
+                raise ValueError("the resume snapshot and TensorBoard are not written on a "
+                                 "mesh: set resume, resume_every, tensorboard and "
+                                 "histogram_freq off")
+            self._n_uid, self._n_pid = pad_rows(self._n_uid, mesh.table), pad_rows(
+                self._n_pid, mesh.table)
+            self._pretrained = tuple(_pad_table(t, n) for t, n in zip(
+                self._pretrained, (self._n_uid, self._n_pid)))
+            self._sample_batch()  # refuses a domain 0 smaller than the data axis, as JAX's init
         self.np_rng = np.random.default_rng(dataset.seed)
         init_gen = torch.Generator().manual_seed(dataset.seed)
         self.model = self._build_model(init_gen)
-        params = {"model": trees.tree_map(
-            lambda p: p.to(self.device, copy=True), self.model.param_tree())}
+        whole = self.model.param_tree()
+        # on a mesh: the axis (from the end) of each leaf this rank keeps a
+        # slice of — the sharded tables' rows, with shard_experts the expert
+        # banks' leading axis — else None
+        self.shard_axes = {"model": trees.tree_map(lambda x: None, whole) if mesh is None
+                           else sharded_axes(whole, mesh, tc.sharded_lookup_min_rows,
+                                             tc.shard_experts)}
+        params = {"model": trees.tree_map(lambda p: p.to(self.device, copy=True),
+                                          self._shard(whole, self.shard_axes["model"]))}
         params.update(self._uncertainty_params(self.device))
+        self.shard_axes.update(trees.tree_map(lambda x: None, {
+            k: v for k, v in params.items() if k != "model"}))
         dropout_seed = int(torch.randint(0, 2**32, (), generator=init_gen,
                                          dtype=torch.int64))
         self._seed_gen = init_gen  # later base seeds (draw_seed)
         self.gen = torch.Generator(device=self.device).manual_seed(dataset.seed)
 
+        lookup = None
+        if mesh is not None:
+            emb = self.shard_axes["model"].get("embedding", {})
+            lookup = MeshLookup(mesh, (bool(emb.get("user_emb")), bool(emb.get("item_emb")),
+                                       False))
         self.step_cfg = StepConfig(uncertainty_weight=config.spec.uncertainty_weight,
-                                   l2_emb=1e-5, emb_trainable=tc.emb_trainable)
+                                   l2_emb=1e-5, emb_trainable=tc.emb_trainable, lookup=lookup)
         self.tx = make_optimizer(tc.optimizer, tc.learning_rate, params,
                                  tc.emb_trainable, flat=tc.flat_optimizer)
         # a model with a norm starts from its initial moving statistics (STAR)
@@ -153,6 +214,8 @@ class Trainer:
         self.best_params = None  # on-device copy of the best checkpoint
 
         ts = time.strftime("%Y%m%d-%H%M%S")
+        if mesh is not None:
+            ts = broadcast_object(ts)
         ds_cfg = config.dataset
         self.checkpoint_dir = osp.join(tc.checkpoint_path, mc.name, ds_cfg.name,
                                        ds_cfg.domain_split_path, ts)
@@ -163,7 +226,8 @@ class Trainer:
         self.result_dir = osp.join(tc.result_save_path, mc.name, ds_cfg.name,
                                    ds_cfg.domain_split_path)
         self.metrics = MetricsLogger(
-            osp.join(self.checkpoint_dir, "metrics.jsonl") if tc.metrics_jsonl else None)
+            osp.join(self.checkpoint_dir, "metrics.jsonl")
+            if tc.metrics_jsonl and self.rank0 else None)
         # the reference's Keras TensorBoard callback at dirname(checkpoint_path)
         # (maml.py:21-23); histogram_freq > 0 turns the writer on
         self.tb = TensorBoardLogger(osp.join(self.checkpoint_dir, "tensorboard"),
@@ -172,19 +236,64 @@ class Trainer:
         self._eval_epoch_counter = 0
 
     def _build_model(self, generator: torch.Generator):
-        """The config's base model, its init drawn from ``generator``."""
+        """The config's base model, its init drawn from ``generator`` (on a
+        mesh: the padded tables, whole; with ``shard_experts`` the mesh its
+        expert slices run on)."""
         ds = self.dataset
-        return build_model(self.config, n_uid=ds.n_uid, n_pid=ds.n_pid,
-                           n_domain=ds.n_domain, pretrained_user=ds.user_emb,
-                           pretrained_item=ds.item_emb, generator=generator)
+        experts = self.mesh if self.config.train.shard_experts else None
+        return build_model(self.config, n_uid=self._n_uid, n_pid=self._n_pid,
+                           n_domain=ds.n_domain, pretrained_user=self._pretrained[0],
+                           pretrained_item=self._pretrained[1], generator=generator,
+                           expert_mesh=experts)
+
+    def _shard(self, tree, axes):
+        """This rank's part of a whole tree (its slice of each leaf ``axes``
+        splits); the tree itself without a mesh."""
+        if self.mesh is None:
+            return tree
+        return shard_tree(tree, axes, self.mesh)
+
+    def whole(self, tree, axes=None):
+        """A params-shaped tree with each split leaf gathered whole over the
+        table group (every rank of the group must call it); the tree itself
+        without a mesh. ``axes`` defaults to ``shard_axes`` (a leaf may carry
+        a leading lane or domain axis)."""
+        if self.mesh is None:
+            return tree
+        return whole_tree(tree, self.shard_axes if axes is None else axes, self.mesh)
+
+    def save_tree(self, path: str, tree, keep=None, axes=None) -> None:
+        """``checkpoints.save_pytree`` of the whole tree (``whole``), written
+        by rank 0 while the other ranks wait."""
+        tree = self.whole(tree, axes)
+        if self.rank0:
+            checkpoints.save_pytree(path, tree, keep=keep)
+        self._barrier()
+
+    def save_decomposition(self, dirpath: str, shared, specific, extra, mask) -> None:
+        """``checkpoints.save_decomposition`` of whole trees, by rank 0: the
+        shared tree whole, and of each specific tree the masked leaves (the
+        ones its file keeps)."""
+        spec_axes = trees.tree_map(lambda a, m: a if m else None, self.shard_axes, mask)
+        shared = self.whole(shared)
+        specific = [self.whole(s, spec_axes) for s in specific]
+        if self.rank0:
+            checkpoints.save_decomposition(dirpath, shared, specific, extra=extra, mask=mask)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            barrier()
 
     def fresh_params(self, seed: int):
         """A fresh random draw of the full parameter tree, on the CPU
-        (pretrained tables are the dataset's buffers, not copies). MAMDR's
-        per-domain specific init re-runs the initialisers per domain
-        (reference mamdr.py:30-33)."""
+        (pretrained tables are the dataset's buffers, not copies; on a mesh,
+        this rank's rows of the sharded tables). MAMDR's per-domain
+        specific init re-runs the initialisers per domain (reference
+        mamdr.py:30-33)."""
         model = self._build_model(torch.Generator().manual_seed(seed))
-        return {"model": model.param_tree(), **self._uncertainty_params("cpu")}
+        return {"model": self._shard(model.param_tree(), self.shard_axes["model"]),
+                **self._uncertainty_params("cpu")}
 
     def _uncertainty_params(self, device):
         """{'uncertainty': {'log_vars': ones [n_domain, 1]}} when the model name
@@ -423,9 +532,18 @@ class Trainer:
 
     def _sample_batch(self) -> Dict[str, torch.Tensor]:
         """The first (at most 2) train rows of domain 0, weight 1, on the
-        device (JAX ``_sample_batch``, trainer.py:276-300)."""
+        device (JAX ``_sample_batch``, trainer.py:276-300); on a mesh at
+        least one row a data rank, and a domain 0 with fewer train rows
+        than data ranks is refused, as there."""
         d0 = self.dataset.train[0]
         n = min(2, d0.n)
+        if self.mesh is not None:
+            if d0.n < self.mesh.data:
+                raise ValueError(
+                    f"domain 0 has {d0.n} train rows but the mesh data axis has "
+                    f"{self.mesh.data} ranks; the sample batch must divide the data axis "
+                    "— use a smaller mesh or more data")
+            n = max(n, self.mesh.data)
         cols = {k: torch.from_numpy(np.ascontiguousarray(getattr(d0, k)[:n])).to(self.device)
                 for k in COLUMNS}
         cols["weight"] = torch.ones((n,), dtype=torch.float32, device=self.device)
@@ -466,10 +584,23 @@ class Trainer:
         statistics, as the JAX package writes them."""
         params = params if params is not None else self.state.params
         self.best_params = params
-        checkpoints.save_pytree(self.checkpoint_path, params)
+        self.save_tree(self.checkpoint_path, params)
 
     def load_checkpoint(self):
-        return checkpoints.load_pytree(self.checkpoint_path, self.state.params)
+        """The best-params file, on every rank: the whole tree read, then this
+        rank's rows kept."""
+        if self.mesh is None:
+            return checkpoints.load_pytree(self.checkpoint_path, self.state.params)
+        def whole_like(a, x):
+            if not a:
+                return x
+            shape = list(x.shape)
+            shape[a] *= self.mesh.table
+            return x.new_empty(shape)
+
+        template = trees.tree_map(whole_like, self.shard_axes, self.state.params)
+        return self._shard(checkpoints.load_pytree(self.checkpoint_path, template),
+                           self.shard_axes)
 
     def resume_due(self, epoch: int) -> bool:
         """Whether the resume snapshot is written after ``epoch``: every
@@ -526,7 +657,14 @@ class Trainer:
         folder's path."""
         folder = "loss_{:.3f}_auc_{:.3f}_{}".format(
             avg_loss, avg_auc, time.strftime("%a-%b-%d-%H-%M-%S"))
+        if self.mesh is not None:
+            folder = broadcast_object(folder)
         result_path = osp.join(self.result_dir, folder)
+        params = self.whole(self.best_params if self.best_params is not None
+                            else self.state.params)
+        if not self.rank0:
+            self._barrier()
+            return result_path
         os.makedirs(result_path, exist_ok=True)
         with open(osp.join(result_path, "dataset_info.json"), "w") as f:
             json.dump(self.dataset.dataset_info, f)
@@ -535,7 +673,6 @@ class Trainer:
         with open(osp.join(result_path, "result.json"), "w") as f:
             json.dump({"avg_loss": avg_loss, "avg_auc": avg_auc,
                        "domain_loss": domain_loss, "domain_auc": domain_auc}, f)
-        checkpoints.save_pytree(
-            osp.join(result_path, "model_parameters.npz"),
-            self.best_params if self.best_params is not None else self.state.params)
+        checkpoints.save_pytree(osp.join(result_path, "model_parameters.npz"), params)
+        self._barrier()
         return result_path

@@ -356,6 +356,78 @@ def test_field_gather_backward_on_the_card_equals_the_cpu(cuda_device, lanes):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lanes,b,stacked", [(1, 1024, False), (30, 1024, False),
+                                             (3, 37, True)])
+@pytest.mark.parametrize("table_index", [0, 1])
+def test_field_gather_row_window_matches_plain(cuda_device, lanes, b, stacked, table_index):
+    """K2 with row windows (the row-sharded lookup of a (., 2) mesh): the
+    user and item fields as shard ``table_index`` of a table twice their
+    rows (WINDOW: zeros outside, the spare row as their row id), the domain
+    field read with the clamp by table index 0 and SILENT by the other
+    (zeros, the clamped row ids); ids inside, outside and past int32 in
+    every lane. Exact against the plain version, x and row ids, the
+    windowed launch counted; the two shards' x summed equal the unsharded
+    gather; the backward's scatter drops the spare row, as on the CPU
+    (``index_add_`` sums a row's terms in another order: float32 rounding,
+    held to 1e-6 of the gradient's largest value)."""
+    from mamdr_tpu_torch.ops.embedding_lookup import CLAMP, SILENT, WINDOW
+
+    n = (300, 400, 4)
+    tables, ids = _field_inputs(lanes, b, (128, 128, 128), (stacked, False, lanes > 1),
+                                cuda_device, seed=lanes + table_index, n_rows=n)
+    whole = [torch.cat([t, t.flip(-2)], dim=-2) if f < 2 else t
+             for f, t in enumerate(tables)]  # shard 0: rows [0, n), shard 1: [n, 2n)
+    ids = [i.clamp(-4, 2 * n[f] + 3) if f < 2 else i for f, i in enumerate(ids)]
+    xs = []
+    for ti in (0, 1):
+        shards = [w.narrow(-2, ti * n[f], n[f]).contiguous() if f < 2 else w
+                  for f, w in enumerate(whole)]
+        win = ((ti * n[0], WINDOW), (ti * n[1], WINDOW), (0, CLAMP if ti == 0 else SILENT))
+        before = (gather_fields.launches, gather_fields.window_launches)
+        x, flats = gather_fields(shards, ids, train_mask=(True, True, True), windows=win)
+        torch.cuda.synchronize()
+        assert (gather_fields.launches, gather_fields.window_launches) == (
+            before[0] + 1, before[1] + 1)
+        want, want_flats = gather_fields_reference(shards, ids, (True, True, True), win)
+        assert torch.equal(x, want)
+        assert all(torch.equal(a, e) for a, e in zip(flats, want_flats))
+        xs.append(x)
+        if ti == table_index:
+            c = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+            grads = {}
+            for where in ("cuda", "cpu"):
+                tt = [t.detach().to(where).requires_grad_(True) for t in shards]
+                xw, _ = gather_fields(tt, [i.to(where) for i in ids], windows=win)
+                (xw * c.to(where)).sum().backward()
+                grads[where] = [t.grad.cpu() for t in tt]
+            for a, e in zip(grads["cuda"], grads["cpu"]):
+                torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-6 * float(e.abs().max()))
+    full, _ = gather_fields_reference(
+        whole, [torch.where((i >= 0) & (i < 2 * n[f]), i, 0) if f < 2 else i
+                for f, i in enumerate(ids)])
+    inside = [((i >= 0) & (i < 2 * n[f]))[..., None] for f, i in enumerate(ids[:2])]
+    full = torch.cat([torch.where(inside[0], full[..., :128], 0.0),
+                      torch.where(inside[1], full[..., 128:256], 0.0), full[..., 256:]], -1)
+    assert torch.equal(xs[0] + xs[1], full)
+
+
+@pytest.mark.gpu
+def test_field_gather_default_window_is_the_clamp(cuda_device):
+    """No window and an explicit clamp window are the same launch, bit for
+    bit, with the same row ids, and are not counted as windowed."""
+    from mamdr_tpu_torch.ops.embedding_lookup import CLAMP
+
+    tables, ids = _field_inputs(30, 1024, (128, 128, 128), (False, False, True), cuda_device)
+    before = gather_fields.window_launches
+    x0, f0 = gather_fields(tables, ids, train_mask=(False, False, True))
+    x1, f1 = gather_fields(tables, ids, train_mask=(False, False, True),
+                           windows=((0, CLAMP),) * 3)
+    torch.cuda.synchronize()
+    assert gather_fields.window_launches == before
+    assert torch.equal(x0, x1) and torch.equal(f0[2], f1[2])
+
+
+@pytest.mark.gpu
 def test_model_loss_gives_the_tables_a_gradient_on_the_card(cuda_device):
     """MLP.forward through make_loss_fn on the card: autograd gives every
     table that trains (the domain table above all) the gradient it has on
