@@ -153,6 +153,22 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      deterministic algorithms, equal bit for bit (the Adam state's count,
      mu and nu included), and the state through the per-leaf optax layout
      of the resume snapshot and back, bit-equal;
+  5n. the (data, table) mesh of mamdr_tpu_torch/parallel: K2 with row
+     windows exactly against its plain version at the DN and DR shapes at
+     both table indices, and timed; then ten processes at once on the
+     card, each a rank of mamdr_tpu_torch.parallel.dryrun under
+     deterministic algorithms: the bench epoch on (1, 1) over NCCL with a
+     run(), on (1, 2) and (2, 1) over gloo, a one-device reference, the
+     dry run on (1, 2) — (1, 1) and (1, 2) bit-equal to one device, (2, 1)'s
+     step within 1e-5 and its DR and validation from the reference's
+     post-DN state bit-equal, every rank's launches one device's with every
+     K2 launch windowed — and the resume run (check_resume_tb): run() of 2
+     epochs with the resume snapshot every epoch and TensorBoard
+     (histogram_freq 1, write_grads) on the (1, 2) ranks and on one device,
+     and fresh (1, 2) ranks resumed from the first snapshot, bit-equal to
+     the unbroken run with one epoch's launches fewer; the (1, 2) run's
+     event files (rank 0's alone) equal to one device's; the snapshot's
+     seconds and bytes and the TensorBoard work's seconds;
   6. one JSON line describing each kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
@@ -189,6 +205,134 @@ LEARN_GATE = 0.75    # its least test macro AUC
 
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def check_resume_tb(work: str) -> list:
+    """5n (c): the resume run of ``dryrun.bench_resume`` in ``work``, from the
+    one-device reference ("ref"), the unbroken (1, 2) ranks ("1x2") and the
+    fresh (1, 2) ranks resumed from their first snapshot ("1x2c"). Fails
+    unless every run's launches are the ones its step counts give (K1, K1-
+    lanes, K2, K2 with ids [L, B], K2 windowed: every K2 launch of a mesh
+    rank windowed, one one-tower K2 a validation's ``_sample_grads``), the
+    resumed run starts at epoch 1 and launches one epoch fewer than the
+    unbroken one, is bit-equal to it (weights, Adam's slots, the best
+    params, the test results), the unbroken (1, 2) run is bit-equal to one
+    device's (test losses within 1e-6 relative: the frozen tables' l2 term
+    sums its shards in another order), and the (1, 2) run's TensorBoard
+    folder holds rank 0's one event file, whose scalars equal one device's
+    (losses within 1e-6 relative) and whose weight and gradient histograms
+    equal one device's of the same padded tree (buckets, counts, num, min
+    and max exactly; sum and sum of squares within 1e-12 relative: float64
+    sums over the shards). Returns the lines to print."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    def ranks(tag, n):
+        out = []
+        for r in range(n):
+            with open(os.path.join(work, f"{tag}_resume.npz.rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+
+    def arrays(tag):
+        with np.load(os.path.join(work, f"{tag}_resume.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    (ref,), unbroken, resumed = ranks("ref", 1), ranks("1x2", 2), ranks("1x2c", 2)
+    st = ref["steps"]
+    spd, k, cap, val, test, ft_e = (st["per_domain"], st["k"], st["cap"], st["val"],
+                                    st["test"], st["epochs"])
+    ft = max(spd)
+    dr = k * (ft + (min(ft, cap) if cap > 0 else ft))
+
+    def want(epochs, mesh):
+        one_tower = epochs * sum(spd) + epochs  # + a _sample_grads K2 each val epoch
+        lane = epochs * (dr + val) + test + (ft + val) * ft_e + test
+        return [epochs * sum(spd), epochs * dr + ft * ft_e, one_tower + lane, lane,
+                one_tower + lane if mesh else 0]
+
+    one_epoch = [a - c for a, c in zip(want(2, True), want(1, True))]
+    for what, runs, epochs, mesh in (("the one-device run", [ref], 2, False),
+                                     ("the unbroken (1, 2) run", unbroken, 2, True),
+                                     ("the resumed (1, 2) run", resumed, 1, True)):
+        for r, j in enumerate(runs):
+            if j["steps"] != st or j["run_counts"] != want(epochs, mesh):
+                fail(f"5n: {what}, rank {r}, launched (K1, K1-lanes, K2, K2 ids [L, B], K2 "
+                     f"windowed) {j['run_counts']}, expected {want(epochs, mesh)}")
+    if [j.get("started") for j in resumed] != [1, 1] or unbroken[0].get("started") is not None:
+        fail(f"5n: the resumed ranks started at {[j.get('started') for j in resumed]}, "
+             "expected epoch 1")
+    a, c, one = arrays("1x2"), arrays("1x2c"), arrays("ref")
+    if not (sorted(a) == sorted(c) == sorted(one)):
+        fail(f"5n: the resume runs' arrays differ in keys: {sorted(a)} / {sorted(c)}")
+    diff = [key for key in a if not np.array_equal(a[key], c[key])]
+    if diff:
+        fail(f"5n: the resumed (1, 2) run is not the unbroken one bit for bit: {diff[:8]}")
+    diff = [key for key in a if key != "run_loss" and not np.array_equal(a[key], one[key])]
+    test_loss = float(np.max(np.abs(a["run_loss"] - one["run_loss"]) / np.abs(one["run_loss"])))
+    if diff or test_loss > 1e-6:
+        fail(f"5n: the unbroken (1, 2) run is not one device's: {diff[:8]}, test losses "
+             f"{test_loss} apart (tol 1e-6 relative)")
+
+    logdir = unbroken[0]["logdir"]
+    if unbroken[1]["logdir"] != logdir or len(os.listdir(logdir)) != 1:
+        fail(f"5n: the (1, 2) run's TensorBoard folder holds {os.listdir(logdir)}, expected "
+             "rank 0's one event file")
+    acc = {}
+    for tag, d in (("mesh", logdir), ("one", ref["logdir"])):
+        acc[tag] = EventAccumulator(d, size_guidance={"scalars": 0, "histograms": 0})
+        acc[tag].Reload()
+    tags = {kind: sorted(acc["one"].Tags()[kind]) for kind in ("scalars", "histograms")}
+    if any(sorted(acc["mesh"].Tags()[kind]) != tags[kind] for kind in tags):
+        fail(f"5n: the (1, 2) run's TensorBoard tags differ from one device's: "
+             f"{acc['mesh'].Tags()}")
+    scalar_d = 0.0
+    for tag in tags["scalars"]:
+        m, o = acc["mesh"].Scalars(tag), acc["one"].Scalars(tag)
+        if [e.step for e in m] != [e.step for e in o]:
+            fail(f"5n: TensorBoard {tag}: steps {[e.step for e in m]} against one device's")
+        for x, y in zip(m, o):
+            d = abs(x.value - y.value) / max(abs(y.value), 1e-30)
+            if (d > 1e-6) if tag.endswith("avg_loss") else x.value != y.value:
+                fail(f"5n: TensorBoard {tag} at step {x.step}: {x.value} against one "
+                     f"device's {y.value}")
+            scalar_d = max(scalar_d, d)
+    n_hist = 0
+    for tag in tags["histograms"]:
+        m, o = acc["mesh"].Histograms(tag), acc["one"].Histograms(tag)
+        if [h.step for h in m] != [h.step for h in o] or not m:
+            fail(f"5n: TensorBoard histogram {tag}: steps {[h.step for h in m]} against one "
+                 f"device's {[h.step for h in o]}")
+        for x, y in zip(m, o):
+            hx, hy = x.histogram_value, y.histogram_value
+            same = (list(hx.bucket_limit) == list(hy.bucket_limit)
+                    and list(hx.bucket) == list(hy.bucket)
+                    and (hx.num, hx.min, hx.max) == (hy.num, hy.min, hy.max))
+            sums = all(abs(p - q) <= 1e-12 * max(abs(q), 1e-300)
+                       for p, q in ((hx.sum, hy.sum), (hx.sum_squares, hy.sum_squares)))
+            if not (same and sums):
+                fail(f"5n: TensorBoard histogram {tag} at step {x.step} differs from one "
+                     f"device's: num {hx.num} / {hy.num}, min {hx.min} / {hy.min}, max "
+                     f"{hx.max} / {hy.max}, sum {hx.sum} / {hy.sum}")
+            n_hist += 1
+    snap = unbroken[0]
+    snap_bytes = sum(snap["snapshot_bytes"].values())
+    return [
+        f"5n resume on (1, 2) (mlp_meta_mamdr_finetune at bench shapes, run() of 2 epochs, "
+        f"deterministic algorithms): unbroken run() {snap['run_s']:.1f} s, launches per rank "
+        f"{snap['run_counts']}; its snapshots {', '.join('%.3f' % x for x in snap['snapshot_s'])}"
+        f" s each ({snap_bytes} bytes: {json.dumps(snap['snapshot_bytes'])}); fresh ranks "
+        f"resumed from the first at epoch {resumed[0]['started']} (try_resume "
+        f"{resumed[0]['resume_s']:.3f} s), run() {resumed[0]['run_s']:.1f} s, launches "
+        f"{resumed[0]['run_counts']} (one epoch {one_epoch} fewer), bit-equal to the unbroken "
+        f"run ({len(a)} arrays); the unbroken run bit-equal to one device's (test losses "
+        f"within {test_loss:.1e}); one device: snapshots "
+        f"{', '.join('%.3f' % x for x in ref['snapshot_s'])} s, run() {ref['run_s']:.1f} s",
+        f"5n TensorBoard on (1, 2) (histogram_freq 1, write_grads): {snap['tb_s']:.3f} s in "
+        f"{snap['tb_calls']} calls on rank 0 ({unbroken[1]['tb_s']:.3f} s on rank 1; one "
+        f"device {ref['tb_s']:.3f} s); rank 0's one event file, {len(tags['scalars'])} scalar "
+        f"tags equal to one device's (losses within {scalar_d:.1e}), {n_hist} histograms "
+        f"({len(tags['histograms'])} tags) equal to one device's of the same padded tree",
+    ]
 
 
 def main() -> int:
@@ -2914,18 +3058,30 @@ def main() -> int:
     env_n = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "GLOO_SOCKET_IFNAME": "lo",
              "NCCL_SOCKET_IFNAME": "lo", "LOCAL_RANK": "0", "OMP_NUM_THREADS": "1",
              "PYTHONPATH": repo_root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    # (c) before their epoch, the (1, 2) ranks and the reference run the
+    # resume run of dryrun.bench_resume (run() of 2 epochs, the snapshot
+    # every epoch, TensorBoard with weight and gradient histograms); the
+    # (1, 2) ranks copy their first snapshot aside, and two fresh (1, 2)
+    # ranks ("1x2c"), started with the others, wait for it and resume.
     layouts = {"ref": (1, 1, None, True), "1x1": (1, 1, "nccl", True),
                "1x2": (2, 2, "gloo", False), "2x1": (2, 1, "gloo", False),
-               "dry": (2, 2, "gloo", False)}
+               "dry": (2, 2, "gloo", False), "1x2c": (2, 2, "gloo", False)}
     procs_n = []
     t0 = time.perf_counter()
     for tag, (world, tbl, backend, with_run) in layouts.items():
         for r in range(world):
             cmd = [sys.executable, "-m", "mamdr_tpu_torch.parallel.dryrun"]
-            if tag != "dry":
+            if tag == "1x2c":
+                cmd += ["--resumed-run", os.path.join(work_n, "1x2c_resume.npz"),
+                        "--deterministic"]
+            elif tag != "dry":
                 cmd += ["--bench", os.path.join(work_n, f"{tag}.npz"), "--deterministic"]
             else:
                 cmd += ["--checkpoint-dir", os.path.join(work_n, "dry.ckpt")]
+            if tag in ("ref", "1x2"):
+                cmd += ["--resume-run", os.path.join(work_n, f"{tag}_resume.npz")]
+            if tag == "1x2":
+                cmd += ["--snapshot-to", os.path.join(work_n, "1x2c_resume.npz.ckpt")]
             if tag == "2x1":  # DR and validation from the reference's post-DN state
                 cmd += ["--dr-from", os.path.join(work_n, "ref.npz")]
             cmd += ["--run"] if with_run else []
@@ -2959,6 +3115,9 @@ def main() -> int:
     print(f"5n: the dry run on (1, 2) over gloo (steps 1, 1c, 1d, 1e, and 1f: MMoE with "
           f"shard_experts, 2 of 4 experts a rank): every result finite; {json.dumps(dry)}")
     layouts.pop("dry")
+    layouts.pop("1x2c")
+    for line in check_resume_tb(work_n):
+        print(f"{line}; {card}")
 
     def rank_json(tag, r):
         with open(os.path.join(work_n, f"{tag}.npz.rank{r}.json")) as f:
@@ -3046,7 +3205,7 @@ def main() -> int:
               f"{j['dr_counts']}, val {j['val_counts']}"
               f"{', run() %s' % j['run_counts'] if with_run else ''}"
               f"{'; ' + mesh_res[tag] if backend else ''}; {card}")
-    print(f"5n: nine processes at once on one card, {mesh_s:.1f} s wall (their times above "
+    print(f"5n: {len(procs_n)} processes at once on one card, {mesh_s:.1f} s wall (their times above "
           f"overlap); every rank's launch counts equal one device's; {card}")
     win_1x2 = [rank_json("1x2", r) for r in range(2)]
     win_one = [sum(j[f"{ph}_counts"][4] - j[f"{ph}_counts"][3] for ph in phases_n)

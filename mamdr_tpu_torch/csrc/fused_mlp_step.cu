@@ -528,8 +528,9 @@ __global__ void __launch_bounds__(kSlabThreads, 1) slab_kernel(const Tower p) {
       if (r < rows) {
         const float l = dot, y = label[row0 + r], w = weight[row0 + r];
         // sigmoid(l) - y as (1 - y) - sigmoid(-|l|) for l >= 0, so y = 1
-        // does not cancel a sigmoid rounded near 1
-        const float e = expf(-fabsf(l)), s = e / (1.0f + e);
+        // does not cancel a sigmoid rounded near 1; sigmoid(-|l|) is taken
+        // as torch.sigmoid takes it, 1 / (1 + exp(|l|))
+        const float e = expf(-fabsf(l)), s = 1.0f / (1.0f + expf(fabsf(l)));
         bce_w = (fmaxf(l, 0.0f) - l * y + log1pf(e)) * w;
         dlog = (l >= 0.0f ? (1.0f - y) - s : s - y) * w / denom;
       }

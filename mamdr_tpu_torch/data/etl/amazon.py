@@ -11,8 +11,10 @@ Nothing is fetched. The raw files are looked for under
 ``<raw_data_path>/<Category_Name>`` with the suffixes ``_5.json.gz`` (the
 reference's name), ``.json.gz``, ``.jsonl``, ``.json`` or ``.csv`` (uid, pid,
 score columns), then in a local mirror directory (``mirror_path`` or
-``MAMDR_AMAZON_MIRROR``), from which they are copied into place. Where the
-JAX package would download, this raises ``FileNotFoundError``.
+``MAMDR_AMAZON_MIRROR``), from which ``get_raw_data.get_raw_data_path``
+copies them into place. Where the JAX package would download, this raises
+``FileNotFoundError``; ``python -m mamdr_tpu_torch.data.etl.get_raw_data``
+fetches the files.
 
 CLI: ``python -m mamdr_tpu_torch.data.etl.amazon --config config.json``
 with the reference's split-config schema (categories, ctr_ratio /
@@ -27,14 +29,12 @@ import json
 import os
 import os.path as osp
 import random
-import shutil
 from typing import List, Optional
 
 import numpy as np
 
 from mamdr_tpu_torch.data.etl.common import Frame, RawId2Id, read_csv, split_domains, write_csv
-
-BASE_NAME = "{}_5.json.gz"  # the reference's raw file name (get_raw_data.py:10-11)
+from mamdr_tpu_torch.data.etl.get_raw_data import category_name_to_filename, get_raw_data_path
 
 
 def _category_filename(category: str) -> str:
@@ -42,23 +42,14 @@ def _category_filename(category: str) -> str:
 
 
 def _from_mirror(category: str, raw_data_path: str, mirror_path: Optional[str]) -> str:
-    """Copy the category's file from a local mirror directory (the
-    reference's name, or without ``_5``) to ``raw_data_path``, as the JAX
-    package's ``get_raw_data_path`` does; raises when there is no mirror or
-    the file is not in it."""
-    filename = BASE_NAME.format(_category_filename(category))
+    """Copy the category's file from a local mirror directory to
+    ``raw_data_path`` (``get_raw_data_path``); raises when there is no
+    mirror or the file is not in it."""
     mirror_path = mirror_path or os.environ.get("MAMDR_AMAZON_MIRROR", "")
     if not mirror_path:
-        raise FileNotFoundError(f"{filename}: no local mirror given, and nothing is downloaded")
-    for cand in (filename, filename.replace("_5.json.gz", ".json.gz")):
-        src = osp.join(mirror_path, cand)
-        if osp.exists(src):
-            os.makedirs(raw_data_path, exist_ok=True)
-            file_path = osp.join(raw_data_path, filename)
-            shutil.copyfile(src, file_path)
-            print(f"{filename} copied from mirror to {file_path}")
-            return file_path
-    raise FileNotFoundError(f"{filename} not found in mirror {mirror_path}")
+        raise FileNotFoundError(f"{category_name_to_filename(category)}: no local mirror "
+                                "given, and nothing is downloaded")
+    return get_raw_data_path(category, raw_data_path, mirror_path=mirror_path)
 
 
 def _raw_path(category: str, raw_data_path: str, mirror_path=None) -> str:

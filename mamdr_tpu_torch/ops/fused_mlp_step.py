@@ -96,7 +96,7 @@ def tower_grad_reference(x, label, weight, seeds, dense, dims, rate):
 
     # sigmoid(z) - y without rounding sigmoid(z) near 1 before y = 1 cancels
     # it: with r = sigmoid(-|z|), (1 - y) - r for z >= 0 and r - y below
-    r = e / (1.0 + e)
+    r = torch.sigmoid(-torch.abs(logits))
     dlogits = torch.where(logits >= 0.0, (1.0 - label) - r, r - label) * weight / denom
     dwl = acts[-1].T @ dlogits
     dh = dlogits @ wl.T

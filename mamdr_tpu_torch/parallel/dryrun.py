@@ -30,13 +30,24 @@ device's where the DN phase's sums differ in order (a data axis).
 Checkpoints go to ``--checkpoint-dir`` (default ``OUT.ckpt``, shared by
 the ranks; rank 0 writes). ``--deterministic`` turns on
 ``torch.use_deterministic_algorithms`` before the first CUDA call.
+
+``--resume-run OUT`` (before ``--bench`` when both are given) runs the bench
+workload's ``run()`` of 2 epochs with the resume snapshot after every epoch
+and TensorBoard's weight and gradient histograms at every validation;
+``--snapshot-to CKPT`` copies its first snapshot (after epoch 1) to where a
+run with checkpoint root ``CKPT`` looks for one, as a run stopped there
+would have left it. ``--resumed-run OUT`` is that run on fresh ranks,
+resumed from the snapshot in its own checkpoint root (``OUT.ckpt``), which
+it waits for. Both write what ``bench_resume`` says.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import shutil
 import tempfile
 import time
 
@@ -195,6 +206,29 @@ def _load_dr_start(t, s, path: str, timeout: float = 900.0) -> None:
     s.shared = trees.named_tree_map(put("shared/"), s.shared)
 
 
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed(device, fn):
+    """(fn(), its seconds, the kernel launches it made: K1, K1-lanes, K2, K2
+    with ids [L, B], K2 with a row window), the card synchronised at both
+    ends."""
+    from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
+    from mamdr_tpu_torch.ops.fused_mlp_step import fused_tower_grad, fused_tower_grad_lanes
+
+    _sync(device)
+    fused_tower_grad.launches = fused_tower_grad_lanes.launches = 0
+    gather_fields.launches = gather_fields.lane_launches = gather_fields.window_launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0, [
+        fused_tower_grad.launches, fused_tower_grad_lanes.launches, gather_fields.launches,
+        gather_fields.lane_launches, gather_fields.window_launches]
+
+
 def bench(mesh, out_path: str, run: bool, device=None, ckpt=None, dr_from=None) -> None:
     """The bench workload's fused epoch (DN, then DR) and merged validation
     and, with ``run``, a whole ``run()`` on a fresh trainer, on ``mesh`` (None:
@@ -209,8 +243,6 @@ def bench(mesh, out_path: str, run: bool, device=None, ckpt=None, dr_from=None) 
     with ``dr_from`` the DR phase and the validation start from
     ``dr_from + ".dn.npz"`` instead of this run's DN phase. Checkpoints go
     to ``ckpt`` (default ``OUT.ckpt``)."""
-    from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
-    from mamdr_tpu_torch.ops.fused_mlp_step import fused_tower_grad, fused_tower_grad_lanes
     from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
     from mamdr_tpu_torch.train.checkpoints import _flatten
     from mamdr_tpu_torch.train.trainer import Trainer
@@ -218,29 +250,7 @@ def bench(mesh, out_path: str, run: bool, device=None, ckpt=None, dr_from=None) 
     from mamdr_tpu_torch.workload import bench_config, bench_dataset
 
     device = torch.device(device or "cuda") if mesh is None else mesh.device
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    def zero():
-        sync()
-        fused_tower_grad.launches = fused_tower_grad_lanes.launches = 0
-        gather_fields.launches = gather_fields.lane_launches = 0
-        gather_fields.window_launches = 0
-
-    def counts():
-        sync()
-        return [fused_tower_grad.launches, fused_tower_grad_lanes.launches,
-                gather_fields.launches, gather_fields.lane_launches,
-                gather_fields.window_launches]
-
-    def timed(fn):
-        zero()
-        t0 = time.perf_counter()
-        out = fn()
-        c = counts()
-        return out, time.perf_counter() - t0, c
+    timed = functools.partial(_timed, device)
 
     ds = bench_dataset()
     cfg = bench_config(checkpoint_path=ckpt or out_path + ".ckpt")
@@ -297,6 +307,122 @@ def bench(mesh, out_path: str, run: bool, device=None, ckpt=None, dr_from=None) 
         np.savez(out_path, **arrays)
 
 
+def bench_resume(mesh, out_path: str, resumed: bool = False, device=None,
+                 snapshot_to=None, timeout: float = 900.0) -> None:
+    """The bench workload's ``run()`` of 2 epochs with the resume snapshot
+    after every epoch and TensorBoard (weight and gradient histograms every
+    validation) on ``mesh`` (None: one device), its checkpoints under
+    ``OUT.ckpt``: unbroken, its first snapshot copied to ``snapshot_to``'s
+    resume folder when given; or (``resumed``) resumed from the snapshot in
+    its own resume folder, which it waits for. Every rank writes
+    ``OUT.rank<r>.json``: the run's seconds and kernel launch counts (as
+    ``bench``), the snapshots' seconds and bytes, the TensorBoard work's
+    seconds, the epoch the run started at and ``try_resume``'s seconds, the
+    event folder, and the step counts the launches follow from; rank 0
+    writes ``OUT`` (npz): the test losses and AUCs, the whole shared
+    weights, specific stack, state params, Adam slots and best snapshot
+    (shared and the specific stack; frozen tables left out)."""
+    from mamdr_tpu_torch.parallel.trainer_sharding import whole_train_state
+    from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
+    from mamdr_tpu_torch.train import fused
+    from mamdr_tpu_torch.train.checkpoints import _flatten
+    from mamdr_tpu_torch.train.trainer import Trainer
+    from mamdr_tpu_torch.utils import trees
+    from mamdr_tpu_torch.workload import bench_config, bench_dataset
+
+    device = torch.device(device or "cuda") if mesh is None else mesh.device
+    rank = 0 if mesh is None else mesh.rank
+
+    def sync():
+        _sync(device)
+
+    ckpt = out_path + ".ckpt"
+    cfg = bench_config(checkpoint_path=ckpt)
+    tc = cfg.train
+    tc.metrics_jsonl = False
+    tc.epoch, tc.tensorboard, tc.histogram_freq, tc.write_grads = 2, True, 1, True
+    tc.resume, tc.resume_every = resumed, 0 if resumed else 1
+    t = Trainer(cfg, bench_dataset(), device=device, verbose=False, mesh=mesh)
+    s = MAMDRStrategy(t)
+    res = {"snapshot_s": [], "tb_s": 0.0, "tb_calls": 0,
+           "logdir": os.path.join(t.checkpoint_dir, "tensorboard")}
+
+    save = t.save_resume_state
+
+    def timed_save(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        save(*a, **k)
+        res["snapshot_s"].append(time.perf_counter() - t0)
+        if len(res["snapshot_s"]) == 1:
+            res["snapshot_bytes"] = {f: os.path.getsize(os.path.join(t.resume_dir, f))
+                                     for f in sorted(os.listdir(t.resume_dir))}
+            if snapshot_to and rank == 0:
+                dst = os.path.join(snapshot_to, os.path.relpath(t.resume_dir, ckpt))
+                shutil.copytree(t.resume_dir, dst + ".part")
+                os.rename(dst + ".part", dst)  # the folder appears whole
+
+    t.save_resume_state = timed_save
+
+    def timed_tb(fn):
+        def wrapped(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            res["tb_s"] += time.perf_counter() - t0
+            res["tb_calls"] += 1
+            return out
+        return wrapped
+
+    for name in ("log_eval", "log_histograms", "log_grad_histograms"):
+        setattr(t.tb, name, timed_tb(getattr(t.tb, name)))
+    t._sample_grads = timed_tb(t._sample_grads)
+    try_resume = t.try_resume
+
+    def timed_resume(*a, **k):
+        t0 = time.perf_counter()
+        r = try_resume(*a, **k)
+        res["resume_s"], res["started"] = time.perf_counter() - t0, None if r is None else r[0]
+        return r
+
+    t.try_resume = timed_resume
+    if resumed:
+        deadline = time.monotonic() + timeout
+        while not os.path.exists(os.path.join(t.resume_dir, "resume_meta.json")):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no snapshot in {t.resume_dir} after {timeout} s")
+            time.sleep(0.2)
+    r, res["run_s"], res["run_counts"] = _timed(device, s.run)
+    t.tb.close()
+    res["steps"] = {"per_domain": t.steps_per_domain(),
+                    "val": max(t.eval_steps_per_domain("val")),
+                    "test": max(t.eval_steps_per_domain("test")),
+                    "k": min(tc.sample_num, t.dataset.n_domain - 1) + int(tc.add_query_domain),
+                    "cap": tc.domain_regulation_step, "epochs": tc.epoch}
+    frozen = t.frozen_mask()
+
+    def whole(tree):  # frozen tables never move: left out
+        return _flatten(t.whole(trees.tree_map(
+            lambda f, x: x.new_zeros(()) if f else x, frozen, tree)))
+
+    opt = (t.state.opt_state if mesh is None
+           else whole_train_state(t.state, t.shard_axes, mesh, t.tx).opt_state)
+    doms = [str(d) for d in range(s.n_domain)]
+    arrays = {"run_loss": np.asarray([r[2][d] for d in doms]),
+              "run_auc": np.asarray([r[3][d] for d in doms]),
+              "mu": opt.mu.cpu().numpy(), "nu": opt.nu.cpu().numpy()}
+    best_spec = fused.stack_specific(s.best_specific, s.mask)
+    for prefix, tree in (("shared/", s.shared), ("spec/", s._spec_stack),
+                         ("state/", t.state.params), ("best_shared/", s.best_shared),
+                         ("best_spec/", best_spec)):
+        arrays.update({prefix + k: v for k, v in whole(tree).items() if v.ndim})
+    with open(f"{out_path}.rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        np.savez(out_path, **arrays)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--table", type=int, default=None, help="table-axis size")
@@ -311,6 +437,13 @@ def main() -> int:
     p.add_argument("--dr-from", default=None, metavar="REF",
                    help="with --bench: the DR phase and the validation start from the "
                         "one-device reference's REF.dn.npz")
+    p.add_argument("--resume-run", default=None, metavar="OUT",
+                   help="(before --bench) the bench run() of 2 epochs with the resume "
+                        "snapshot and TensorBoard")
+    p.add_argument("--snapshot-to", default=None, metavar="CKPT",
+                   help="with --resume-run: copy its first snapshot to checkpoint root CKPT")
+    p.add_argument("--resumed-run", default=None, metavar="OUT",
+                   help="that run resumed from the snapshot in OUT.ckpt (waited for)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoints (default: OUT.ckpt with --bench, else a folder in "
                         "the temporary directory)")
@@ -319,16 +452,24 @@ def main() -> int:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True, warn_only=True)
     if a.one_device:
-        if not a.bench:
-            raise SystemExit("--one-device goes with --bench")
-        bench(None, a.bench, a.run, a.device, a.checkpoint_dir)
+        if not (a.bench or a.resume_run):
+            raise SystemExit("--one-device goes with --bench or --resume-run")
+        if a.resume_run:
+            bench_resume(None, a.resume_run, device=a.device)
+        if a.bench:
+            bench(None, a.bench, a.run, a.device, a.checkpoint_dir)
         return 0
     dev = init_distributed(a.backend, a.device, a.init_method)
     mesh = make_mesh(table_parallelism=a.table, device=dev)
     if dev.type == "cpu":
         torch.set_num_threads(1)
-    if a.bench:
-        bench(mesh, a.bench, a.run, ckpt=a.checkpoint_dir, dr_from=a.dr_from)
+    if a.bench or a.resume_run or a.resumed_run:
+        if a.resume_run:
+            bench_resume(mesh, a.resume_run, snapshot_to=a.snapshot_to)
+        if a.bench:
+            bench(mesh, a.bench, a.run, ckpt=a.checkpoint_dir, dr_from=a.dr_from)
+        if a.resumed_run:
+            bench_resume(mesh, a.resumed_run, resumed=True)
     else:
         out = dryrun(mesh, a.checkpoint_dir
                      or os.path.join(tempfile.gettempdir(), "mamdr_dryrun"))

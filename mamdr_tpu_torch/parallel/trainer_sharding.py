@@ -150,6 +150,37 @@ def shard_flat_slots(vec: torch.Tensor, whole_params, axes, tx, mesh: Mesh):
     return torch.cat(out, dim=-1) if out else vec
 
 
+def whole_flat_slots(vec: torch.Tensor, params, axes, tx, mesh: Mesh) -> torch.Tensor:
+    """The inverse of ``shard_flat_slots``: a flat Adam slot vector over this
+    rank's leaves of ``params`` -> the one over the whole leaves, in the
+    whole tree's flat order, each split leaf's segment gathered over the
+    table group (exactly). Every member of the group must call it."""
+    out, off = [], 0
+    lead = vec.shape[:-1]
+    for a, sel, x in zip(trees.leaves(axes), tx._trainable, trees.leaves(params)):
+        if not sel:
+            continue
+        seg = vec[..., off:off + x.numel()]
+        off += x.numel()
+        if a:
+            seg = seg.reshape(*lead, *x.shape).contiguous()
+            seg = all_gather_dim0(mesh, seg, TABLE_AXIS, dim=seg.dim() + a)
+        out.append(seg.reshape(*lead, -1))
+    return torch.cat(out, dim=-1) if out else vec
+
+
+def whole_train_state(state, axes, mesh: Mesh, tx):
+    """The inverse of ``shard_train_state``: this rank's TrainState -> the
+    whole one (``whole_tree`` of the params, ``whole_flat_slots`` of flat
+    Adam's slots). Every member of the table group must call it."""
+    opt = state.opt_state
+    if hasattr(opt, "mu"):
+        opt = type(opt)(count=opt.count,
+                        mu=whole_flat_slots(opt.mu, state.params, axes, tx, mesh),
+                        nu=whole_flat_slots(opt.nu, state.params, axes, tx, mesh))
+    return state.replace(params=whole_tree(state.params, axes, mesh), opt_state=opt)
+
+
 def row_offset_seeds(seeds: torch.Tensor, first_row: int, widths) -> torch.Tensor:
     """Dropout seeds for rows starting at global row ``first_row``: the hash
     takes (idx * 2654435761 + seed) mod 2**32 over a layer's flat row-major

@@ -53,6 +53,7 @@ class MAMLStrategy(MetaStrategy):
         self.meta_tx = flat_adam(self.tc.meta_learning_rate, self.mask)
         self.meta_opt_state = self.meta_tx.init(trainer.state.params)
         self.meta = trainer.state.params
+        self.snapshot_optimizers = {"meta_opt": self.meta_tx}
 
     def grad_scale(self) -> float:
         """'mean' divides by n_domain*meta_train_step iff meta_train_step>0."""

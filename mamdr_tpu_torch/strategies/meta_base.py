@@ -166,12 +166,15 @@ class MetaStrategy(Strategy):
 
     # ---------------- the resume snapshot (fused loops) ----------------
 
+    # {extra tree name: the flat Adam whose state it is} (MAML's meta-Adam)
+    snapshot_optimizers: Dict = {}
+
     def try_resume_meta(self, extra: Dict) -> Tuple[int, Dict]:
         """(start epoch, extra trees): with ``train.resume`` and a snapshot,
         the trainer's state, early stop and random streams restored and the
         saved trees of ``extra``'s names (meta weights, meta-optimizer
         slots) in place of its values; else (0, ``extra``)."""
-        resumed = self.trainer.try_resume(extra)
+        resumed = self.trainer.try_resume(extra, self.snapshot_optimizers)
         if resumed is None:
             return 0, extra
         start, ex = resumed
@@ -180,7 +183,8 @@ class MetaStrategy(Strategy):
     def maybe_snapshot(self, epoch: int, extra: Dict) -> None:
         """The resume snapshot after every ``resume_every``-th epoch."""
         if self.trainer.resume_due(epoch):
-            self.trainer.save_resume_state(epoch, extra_trees=extra)
+            self.trainer.save_resume_state(epoch, extra_trees=extra,
+                                           optimizers=self.snapshot_optimizers)
 
     def fit_target_domain(self, state):
         """A whole epoch on the target domain after the outer update, when

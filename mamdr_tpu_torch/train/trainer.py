@@ -39,8 +39,10 @@ every rank. The host's draws agree on every rank (one seed); the
 checkpoint folder's timestamp is rank 0's. Files are written once, by rank
 0, with the whole tables gathered over the table group at their padded
 row count (what the JAX package writes), while the other ranks wait; the
-metrics log is rank 0's, and only rank 0 prints. The resume snapshot and
-TensorBoard are refused on a mesh.
+metrics log is rank 0's, and only rank 0 prints. The resume snapshot is
+written the same way (flat Adam's slots in the whole tree's order) and read
+on every rank, each keeping its rows; TensorBoard's writer is rank 0's, and
+every rank counts its shards of the histograms (``TensorBoardLogger``).
 
 Randomness is explicit: ``np_rng`` (numpy, seeded by the dataset seed) makes
 the host-side draws the JAX package makes with numpy — domain order, aux
@@ -66,9 +68,18 @@ from mamdr_tpu_torch import DeviceLike, resolve_device
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.dataset import COLUMNS, DomainSplit, MultiDomainDataset, batch_rows
 from mamdr_tpu_torch.models.zoo import build_model
+from mamdr_tpu_torch.parallel.data_feed import data_rows
 from mamdr_tpu_torch.parallel.embedding_shard import MeshLookup, pad_rows
-from mamdr_tpu_torch.parallel.mesh import barrier, broadcast_object
-from mamdr_tpu_torch.parallel.trainer_sharding import shard_tree, sharded_axes, whole_tree
+from mamdr_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_sum_, barrier, broadcast_object
+from mamdr_tpu_torch.parallel.trainer_sharding import (
+    shard_flat_slots,
+    shard_train_state,
+    shard_tree,
+    sharded_axes,
+    whole_flat_slots,
+    whole_train_state,
+    whole_tree,
+)
 from mamdr_tpu_torch.train import checkpoints, fused
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import (
@@ -146,10 +157,6 @@ class Trainer:
         self._n_uid, self._n_pid = dataset.n_uid, dataset.n_pid
         self._pretrained = (dataset.user_emb, dataset.item_emb)
         if mesh is not None:
-            if tc.resume or tc.resume_every > 0 or tc.tensorboard or tc.histogram_freq > 0:
-                raise ValueError("the resume snapshot and TensorBoard are not written on a "
-                                 "mesh: set resume, resume_every, tensorboard and "
-                                 "histogram_freq off")
             self._n_uid, self._n_pid = pad_rows(self._n_uid, mesh.table), pad_rows(
                 self._n_pid, mesh.table)
             self._pretrained = tuple(_pad_table(t, n) for t, n in zip(
@@ -232,7 +239,7 @@ class Trainer:
         # (maml.py:21-23); histogram_freq > 0 turns the writer on
         self.tb = TensorBoardLogger(osp.join(self.checkpoint_dir, "tensorboard"),
                                     histogram_freq=tc.histogram_freq, enabled=tc.tensorboard,
-                                    write_grads=tc.write_grads)
+                                    write_grads=tc.write_grads, mesh=mesh)
         self._eval_epoch_counter = 0
 
     def _build_model(self, generator: torch.Generator):
@@ -517,9 +524,9 @@ class Trainer:
             self.tb.log_eval(mode, epoch, avg_loss, avg_auc, domain_auc,
                              weighted_auc=self.weighted_auc(mode, domain_auc))
         if mode == "val":
-            self.tb.log_histograms(epoch, self.state.params)
+            self.tb.log_histograms(epoch, self.state.params, self.shard_axes)
             if self.tb.write_grads and self.tb.histograms_due(epoch):
-                self.tb.log_grad_histograms(epoch, self._sample_grads())
+                self.tb.log_grad_histograms(epoch, self._sample_grads(), self.shard_axes)
             self._eval_epoch_counter += 1
         if self.verbose:
             print(f"Loss: {domain_loss}")
@@ -556,15 +563,37 @@ class Trainer:
         JAX package's loss gives (trainer.py:302-314). A frozen table's l2
         term is a constant, so its gradient is the gather's alone; a leaf
         the loss does not reach gets zeros. Autograd through the model's
-        forward (K2 with its autograd rule), never K1."""
+        forward (K2 with its autograd rule), never K1.
+
+        On a mesh, through the mesh lookup: a split leaf's gradient is this
+        rank's part of it. On a data axis above 1 each data rank takes its
+        rows of the batch, its data loss's gradient weighted by its rows'
+        share of the weights, and these are summed over the data group in
+        one ``all_reduce`` before the l2 term's gradient is added."""
         batch = self._sample_batch()
         live = trees.tree_map(lambda x: x.detach().requires_grad_(True), self.state.params)
-        names = trees.param_names(live)
+        leaves = trees.leaves(live)
         kw = {"stats": self.state.batch_stats} if self.model.has_batch_stats else {}
+        mesh = self.mesh
         with torch.enable_grad():
-            loss = self.loss_fn(live, batch, **kw)[0]
-            got = dict(zip(names, torch.autograd.grad(loss, trees.leaves(live),
-                                                      allow_unused=True)))
+            if mesh is None or mesh.data == 1:
+                loss = self.loss_fn(live, batch, **kw)[0]
+                got = torch.autograd.grad(loss, leaves, allow_unused=True)
+            else:
+                local = {k: v[data_rows(mesh, v.shape[0])] for k, v in batch.items()}
+                loss, data_loss = self.loss_fn(live, local, **kw)[:2]
+                share = (torch.clamp(torch.sum(local["weight"]), min=1.0)
+                         / torch.clamp(torch.sum(batch["weight"]), min=1.0))
+                data_g = torch.autograd.grad(data_loss * share, leaves, retain_graph=True,
+                                             allow_unused=True)
+                # the l2 term alone: the data loss's path gets 1 - 1 = 0
+                l2_g = torch.autograd.grad(loss - data_loss, leaves, allow_unused=True)
+                flat = all_reduce_sum_(mesh, torch.cat([
+                    (torch.zeros_like(x) if g is None else g).reshape(-1)
+                    for g, x in zip(data_g, leaves)]), DATA_AXIS)
+                got = [s.view(x.shape) + (0.0 if g is None else g) for s, g, x in zip(
+                    torch.split(flat, [x.numel() for x in leaves]), l2_g, leaves)]
+        got = dict(zip(trees.param_names(live), got))
         return trees.named_tree_map(
             lambda n, x: torch.zeros_like(x) if got[n] is None else got[n], live)
 
@@ -591,16 +620,48 @@ class Trainer:
         rank's rows kept."""
         if self.mesh is None:
             return checkpoints.load_pytree(self.checkpoint_path, self.state.params)
-        def whole_like(a, x):
-            if not a:
+        return self._shard(checkpoints.load_pytree(
+            self.checkpoint_path, self._whole_like(self.state.params)), self.shard_axes)
+
+    def _whole_like(self, tree):
+        """Uninitialised tensors shaped as ``whole(tree)`` would give (a
+        template to read a whole tree into)."""
+        def like(a, x):
+            if not a or x.dim() < -a:
                 return x
             shape = list(x.shape)
             shape[a] *= self.mesh.table
             return x.new_empty(shape)
 
-        template = trees.tree_map(whole_like, self.shard_axes, self.state.params)
-        return self._shard(checkpoints.load_pytree(self.checkpoint_path, template),
-                           self.shard_axes)
+        return trees.tree_map(like, self.shard_axes, tree)
+
+    def _whole_slots(self, opt, tx):
+        """A flat Adam state of ``tx`` over this rank's leaves -> the whole
+        tree's (``whole_flat_slots``); any other state as it is."""
+        if self.mesh is None or not hasattr(opt, "mu"):
+            return opt
+        mu, nu = (whole_flat_slots(v, self.state.params, self.shard_axes, tx, self.mesh)
+                  for v in (opt.mu, opt.nu))
+        return type(opt)(count=opt.count, mu=mu, nu=nu)
+
+    def _whole_slots_like(self, opt, tx):
+        """A template of ``_whole_slots(opt, tx)``."""
+        if self.mesh is None or not hasattr(opt, "mu"):
+            return opt
+        whole = self._whole_like(self.state.params)
+        n = sum(x.numel() for x, m in zip(trees.leaves(whole), tx._trainable) if m)
+        lead = opt.mu.shape[:-1]
+        return type(opt)(count=opt.count, mu=opt.mu.new_empty((*lead, n)),
+                         nu=opt.nu.new_empty((*lead, n)))
+
+    def _cut_slots(self, opt, tx):
+        """The inverse of ``_whole_slots``: this rank's segments kept."""
+        if self.mesh is None or not hasattr(opt, "mu"):
+            return opt
+        whole = self._whole_like(self.state.params)
+        mu, nu = (shard_flat_slots(v, whole, self.shard_axes, tx, self.mesh)
+                  for v in (opt.mu, opt.nu))
+        return type(opt)(count=opt.count, mu=mu, nu=nu)
 
     def resume_due(self, epoch: int) -> bool:
         """Whether the resume snapshot is written after ``epoch``: every
@@ -608,33 +669,70 @@ class Trainer:
         every = self.config.train.resume_every
         return every > 0 and (epoch + 1) % every == 0
 
-    def save_resume_state(self, epoch: int, extra_trees=None) -> None:
+    def save_resume_state(self, epoch: int, extra_trees=None, optimizers=None) -> None:
         """The resume snapshot after ``epoch`` in ``resume_dir``: the state,
         the early stop, ``np_rng`` and both torch generators (``_seed_gen``,
-        ``gen``), with the strategy's ``extra_trees``."""
-        checkpoints.save_train_state(
-            self.resume_dir, self._snapshot_layout(self.state), epoch, self.stopper,
-            self.np_rng, extra_trees, generators={"seed_gen": self._seed_gen, "gen": self.gen})
+        ``gen``), with the strategy's ``extra_trees``; ``optimizers`` names
+        the flat Adam whose state an extra tree is ({name: tx}). On a mesh
+        rank 0 writes the whole of each while the other ranks wait: every
+        split leaf gathered over the table group at its padded row count,
+        flat Adam's slots in the whole tree's order (the JAX package's file);
+        the random streams and the early stop are rank 0's, the same on every
+        rank."""
+        optimizers = optimizers or {}
+        state = self.state
+        if self.mesh is not None:
+            state = whole_train_state(state, self.shard_axes, self.mesh, self.tx)
+        extra = {k: self._whole_slots(v, optimizers[k]) if k in optimizers else self.whole(v)
+                 for k, v in (extra_trees or {}).items()}
+        if self.rank0:
+            checkpoints.save_train_state(
+                self.resume_dir, self._snapshot_layout(state), epoch, self.stopper,
+                self.np_rng, extra, generators={"seed_gen": self._seed_gen, "gen": self.gen})
+        self._barrier()
 
     def _snapshot_layout(self, state: TrainState) -> TrainState:
-        """``state`` as the resume snapshot stores it: with
+        """``state`` (whole) as the resume snapshot stores it: with
         ``flat_optimizer`` false the Adam slots in the JAX package's per-leaf
         optax layout (``FlatAdam.to_optax``), else as they are."""
         if getattr(self.tx, "optax_path", None) is None:
             return state
         return state.replace(opt_state=self.tx.to_optax(state.opt_state, state.params))
 
-    def try_resume(self, extra_templates=None):
+    def try_resume(self, extra_templates=None, optimizers=None):
         """With ``train.resume`` and a snapshot in ``resume_dir``: restore the
         state, the early stop's four fields, ``np_rng``'s bit-generator state
         and both torch generators, and return (the next epoch, {name: extra
-        tree} of ``extra_templates``' names found); else None."""
-        if not (self.config.train.resume and checkpoints.has_train_state(self.resume_dir)):
+        tree} of ``extra_templates``' names found); else None.
+        ``optimizers`` as in ``save_resume_state``. On a mesh rank 0 alone
+        looks for the snapshot and tells the others; every rank reads the
+        whole files and keeps its rows of the split leaves and of their Adam
+        slots."""
+        if not self.config.train.resume:
             return None
+        found = self.rank0 and checkpoints.has_train_state(self.resume_dir)
+        if self.mesh is not None:
+            found = broadcast_object(found)
+        if not found:
+            return None
+        optimizers = optimizers or {}
+        template = self.state
+        templates = dict(extra_templates or {})
+        if self.mesh is not None:
+            whole = self._whole_like(self.state.params)
+            template = template.replace(params=whole, opt_state=self._whole_slots_like(
+                self.state.opt_state, self.tx))
+            templates = {k: self._whole_slots_like(v, optimizers[k]) if k in optimizers
+                         else self._whole_like(v) for k, v in templates.items()}
         state, epoch, st, np_state, extras = checkpoints.load_train_state(
-            self.resume_dir, self._snapshot_layout(self.state), extra_templates)
+            self.resume_dir, self._snapshot_layout(template), templates)
         if getattr(self.tx, "optax_path", None) is not None:
             state = state.replace(opt_state=self.tx.from_optax(state.opt_state))
+        if self.mesh is not None:
+            state = shard_train_state(state, self.shard_axes, self.mesh, self.tx)
+            extras = {k: v if k == "generators" else self._cut_slots(v, optimizers[k])
+                      if k in optimizers else self._shard(v, self.shard_axes)
+                      for k, v in extras.items()}
         self.state = state
         gens = extras.pop("generators")
         self._seed_gen.set_state(gens["seed_gen"])

@@ -9,7 +9,11 @@ callback (reference model_zoo/maml.py:42-45), written, as the JAX package
 writes them, through ``torch.utils.tensorboard.SummaryWriter`` (imported at
 the first write, so a run without TensorBoard never imports it). A
 histogram's buckets are counted on the tensor's device (``histogram``) and
-handed to ``add_histogram_raw``. The profiler hook is not ported.
+handed to ``add_histogram_raw``. On a (data, table) mesh every rank calls
+the logger alike and only rank 0 opens a writer: a leaf split over the
+table group is counted on each shard and the counts and sums are added
+over the group (``histogram(..., mesh=)``), so no table is gathered for its
+histogram. The profiler hook is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from mamdr_tpu_torch.parallel.mesh import TABLE_AXIS, all_gather_dim0, all_reduce_sum
 from mamdr_tpu_torch.utils import trees
 
 
@@ -66,12 +71,18 @@ def _default_bins() -> List[float]:
 DEFAULT_BINS = _default_bins()
 
 
-def histogram(values: torch.Tensor) -> Dict:
+def histogram(values: torch.Tensor, mesh=None) -> Dict:
     """The histogram ``SummaryWriter.add_histogram(bins="tensorflow")``
     writes for ``values``, as ``add_histogram_raw``'s arguments. The values
     are taken in float64; the buckets are counted on the tensor's device
     with ``np.histogram``'s rule (each bucket [lo, hi), the last [lo, hi]),
-    and trimmed as ``make_histogram`` trims them. One host read."""
+    and trimmed as ``make_histogram`` trims them. One host read.
+
+    With ``mesh``, ``values`` is this rank's part of a leaf split over the
+    table group, and the result is the whole leaf's on every member: the
+    buckets, ``num``, ``sum`` and ``sum_squares`` added over the group in
+    one ``all_reduce``, ``min`` and ``max`` taken over one exact all-gather.
+    Every member must call it."""
     x = values.detach().reshape(-1).to(torch.float64)
     if x.numel() == 0:
         raise ValueError("histogram of no values")
@@ -81,8 +92,18 @@ def histogram(values: torch.Tensor) -> Dict:
     idx = torch.where(x == edges[-1], n_bins - 1, idx)
     inside = (idx >= 0) & (idx < n_bins)
     counts = torch.bincount(idx[inside], minlength=n_bins)
-    stats = torch.stack([x.min(), x.max(), x.sum(), torch.dot(x, x)]).cpu().numpy()
-    counts = counts.cpu().numpy()
+    num = x.numel()
+    if mesh is None:
+        stats = torch.stack([x.min(), x.max(), x.sum(), torch.dot(x, x)]).cpu().numpy()
+        counts = counts.cpu().numpy()
+    else:
+        summed = all_reduce_sum(mesh, torch.cat([counts.to(torch.float64), torch.stack(
+            [x.sum(), torch.dot(x, x), x.new_tensor(float(num))])]), TABLE_AXIS).cpu()
+        ends = all_gather_dim0(mesh, torch.stack([x.min(), -x.max()]).reshape(1, 2),
+                               TABLE_AXIS).amin(dim=0).cpu()
+        counts = summed[:n_bins].to(torch.int64).numpy()
+        stats = np.asarray([ends[0], -ends[1], summed[n_bins], summed[n_bins + 1]])
+        num = int(summed[n_bins + 2])
     limits = np.asarray(DEFAULT_BINS)
 
     cum = np.cumsum(np.greater(counts, 0))
@@ -90,7 +111,7 @@ def histogram(values: torch.Tensor) -> Dict:
     start, end = int(start), int(end) + 1
     counts = counts[start - 1:end] if start > 0 else np.concatenate([[0], counts[:end]])
     limits = limits[start:end + 1]
-    return {"min": float(stats[0]), "max": float(stats[1]), "num": int(x.numel()),
+    return {"min": float(stats[0]), "max": float(stats[1]), "num": int(num),
             "sum": float(stats[2]), "sum_squares": float(stats[3]),
             "bucket_limits": [float(v) for v in limits],
             "bucket_counts": [float(c) for c in counts]}
@@ -103,14 +124,18 @@ class TensorBoardLogger:
     ``histogram_freq`` val epochs; ``write_grads`` counts only when
     ``histogram_freq > 0``. A disabled logger writes nothing and makes no
     directory; an enabled one opens its ``SummaryWriter`` at ``logdir`` at
-    its first write."""
+    its first write. ``mesh``: every rank of the mesh holds a logger with
+    the same settings and makes the same calls; rank 0 alone writes (the
+    others open no writer and make no directory)."""
 
     def __init__(self, logdir: Optional[str], histogram_freq: int = 0,
-                 enabled: bool = False, write_grads: bool = False):
+                 enabled: bool = False, write_grads: bool = False, mesh=None):
         self.histogram_freq = int(histogram_freq)
         self.enabled = bool(enabled) or self.histogram_freq > 0
         self.write_grads = bool(write_grads) and self.histogram_freq > 0
         self.logdir = logdir
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         self._writer = None
         if self.enabled and not logdir:
             raise ValueError("TensorBoardLogger enabled without a logdir")
@@ -130,7 +155,7 @@ class TensorBoardLogger:
                  domain_auc: Dict, weighted_auc=None) -> None:
         """``{mode}/avg_loss``, ``{mode}/avg_auc``, ``{mode}/weighted_auc``
         (when given) and ``{mode}/domain_{k}_AUC`` at step ``epoch``."""
-        if not self.enabled:
+        if not (self.enabled and self.writes):
             return
         w = self.writer
         w.add_scalar(f"{mode}/avg_loss", float(avg_loss), epoch)
@@ -141,24 +166,30 @@ class TensorBoardLogger:
             w.add_scalar(f"{mode}/domain_{k}_AUC", float(v), epoch)
         w.flush()
 
-    def _histograms(self, epoch: int, tree, prefix: str) -> None:
-        w = self.writer
+    def _histograms(self, epoch: int, tree, prefix: str, axes=None) -> None:
+        split = (dict(trees.leaves_with_names(axes)) if axes is not None and self.mesh
+                 is not None else {})
         for name, leaf in trees.leaves_with_names(tree):
-            w.add_histogram_raw(prefix + name, global_step=epoch, **histogram(leaf))
-        w.flush()
+            h = histogram(leaf, self.mesh if split.get(name) else None)
+            if self.writes:
+                self.writer.add_histogram_raw(prefix + name, global_step=epoch, **h)
+        if self.writes:
+            self.writer.flush()
 
-    def log_histograms(self, epoch: int, params) -> None:
+    def log_histograms(self, epoch: int, params, axes=None) -> None:
         """A histogram of every leaf of ``params``, tagged with its path,
-        every ``histogram_freq`` val epochs (Keras TensorBoard semantics)."""
+        every ``histogram_freq`` val epochs (Keras TensorBoard semantics).
+        On a mesh, ``axes`` (a tree like ``params``) marks the leaves split
+        over the table group: each is the whole leaf's histogram."""
         if self.histograms_due(epoch):
-            self._histograms(epoch, params, "")
+            self._histograms(epoch, params, "", axes)
 
-    def log_grad_histograms(self, epoch: int, grads) -> None:
+    def log_grad_histograms(self, epoch: int, grads, axes=None) -> None:
         """``grad/<path>`` histograms of a gradient tree (the loss gradient
         on a sample batch; the reference's ``write_grads=True``), on the
-        same epochs as ``log_histograms``."""
+        same epochs as ``log_histograms``; ``axes`` as there."""
         if self.write_grads and self.histograms_due(epoch):
-            self._histograms(epoch, grads, "grad/")
+            self._histograms(epoch, grads, "grad/", axes)
 
     def close(self) -> None:
         if self._writer is not None:

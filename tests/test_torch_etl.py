@@ -12,6 +12,11 @@ first and a second invocation (the on-disk shuffle re-runs every time).
 - the Taobao ETL (both samplers) and the Amazon ETL (gzipped JSON lines and
   a CSV input) on tiny raw files the tests write; the Amazon raw-file
   lookup (a local mirror; nothing fetched);
+- ``get_raw_data`` against the JAX module, with no network: the filename
+  contract, a mirror directory with and without the ``_5`` suffix (given or
+  from ``MAMDR_AMAZON_MIRROR``), a ``file://`` base URL (given, from
+  ``MAMDR_AMAZON_BASE_URL`` or on the CLI), a file already in place kept
+  unless ``redownload``, and a missing file raising what the JAX one raises;
 - ``generate_amazon_reviews``: the decompressed files equal (a gzip header
   carries a time);
 - ``validate.build_raw`` and the Taobao ETL at the Taobao-10 recipe against
@@ -36,10 +41,11 @@ from mamdr_tpu.data import synthetic as jsynthetic
 from mamdr_tpu.data.dataset import MultiDomainDataset as JDataset
 from mamdr_tpu.data.etl import amazon as jamazon
 from mamdr_tpu.data.etl import common as jcommon
+from mamdr_tpu.data.etl import get_raw_data as jget_raw_data
 from mamdr_tpu.data.etl import taobao as jtaobao
 from mamdr_tpu_torch import validate
 from mamdr_tpu_torch.data import synthetic
-from mamdr_tpu_torch.data.etl import amazon, common, taobao
+from mamdr_tpu_torch.data.etl import amazon, common, get_raw_data, taobao
 from test_etl import _write_amazon_raw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -231,6 +237,103 @@ def test_amazon_raw_lookup(tmp_path, monkeypatch):
     assert p == str(raw / "Video_Games_5.json.gz") and os.path.exists(p)
     assert amazon._raw_path("Video Games", str(raw)) == p  # found locally now
     assert p == jamazon._raw_path("Video Games", str(raw))
+
+
+CATEGORIES = ["Video Games", "Clothing, Shoes and Jewelry", "Toys_and_Games", "Books"]
+
+
+@pytest.fixture
+def no_fetch_env(monkeypatch):
+    """Neither override taken from the environment unless a test sets it."""
+    monkeypatch.delenv("MAMDR_AMAZON_MIRROR", raising=False)
+    monkeypatch.delenv("MAMDR_AMAZON_BASE_URL", raising=False)
+    return monkeypatch
+
+
+def _fetched(tmp_path, side, **kw):
+    """``get_raw_data_path`` of each package for "Video Games" into
+    ``tmp_path/side``: (path relative to it, bytes)."""
+    mod = {"jax": jget_raw_data, "port": get_raw_data}[side]
+    target = tmp_path / side
+    p = mod.get_raw_data_path("Video Games", str(target), **kw)
+    with open(p, "rb") as f:
+        return os.path.relpath(p, target), f.read()
+
+
+@pytest.mark.parametrize("category", CATEGORIES)
+def test_get_raw_data_filename_contract(category):
+    assert (get_raw_data.category_name_to_filename(category)
+            == jget_raw_data.category_name_to_filename(category))
+    assert get_raw_data.DEFAULT_BASE_URL == jget_raw_data.DEFAULT_BASE_URL
+
+
+@pytest.mark.parametrize("name,from_env", [("Video_Games_5.json.gz", False),
+                                           ("Video_Games.json.gz", False),
+                                           ("Video_Games.json.gz", True)])
+def test_get_raw_data_from_mirror(tmp_path, no_fetch_env, name, from_env):
+    mirror = tmp_path / "mirror"
+    mirror.mkdir()
+    (mirror / name).write_bytes(b"reviews of " + name.encode())
+    kw = {"mirror_path": str(mirror)}
+    if from_env:
+        no_fetch_env.setenv("MAMDR_AMAZON_MIRROR", str(mirror))
+        kw = {}
+    got = _fetched(tmp_path, "port", **kw)
+    assert got == _fetched(tmp_path, "jax", **kw)
+    assert got == ("Video_Games_5.json.gz", b"reviews of " + name.encode())
+
+
+@pytest.mark.parametrize("how", ["argument", "env", "cli"])
+def test_get_raw_data_from_file_url(tmp_path, no_fetch_env, how):
+    src = tmp_path / "served"
+    src.mkdir()
+    for c in ("Video Games", "Books"):
+        (src / get_raw_data.category_name_to_filename(c)).write_bytes(c.encode() * 3)
+    url = f"file://{src}/{{}}"
+    if how == "cli":
+        target = tmp_path / "port"
+        assert get_raw_data.main(["--categories", "Video Games", "Books", "--target",
+                                  str(target), "--base-url", url]) == 0
+        assert files_of(target) == ["Books_5.json.gz", "Video_Games_5.json.gz"]
+        assert (target / "Books_5.json.gz").read_bytes() == b"Books" * 3
+        return
+    kw = {"base_url": url}
+    if how == "env":
+        no_fetch_env.setenv("MAMDR_AMAZON_BASE_URL", url)
+        kw = {}
+    got = _fetched(tmp_path, "port", **kw)
+    assert got == _fetched(tmp_path, "jax", **kw) == ("Video_Games_5.json.gz",
+                                                      b"Video Games" * 3)
+    assert files_of(tmp_path / "port") == ["Video_Games_5.json.gz"]  # no .part left
+
+
+def test_get_raw_data_keeps_a_file_unless_redownload(tmp_path, no_fetch_env):
+    mirror = tmp_path / "mirror"
+    mirror.mkdir()
+    (mirror / "Video_Games_5.json.gz").write_bytes(b"mirror")
+    for side in ("jax", "port"):
+        (tmp_path / side).mkdir()
+        (tmp_path / side / "Video_Games_5.json.gz").write_bytes(b"old")
+    for redownload, want in ((False, b"old"), (True, b"mirror")):
+        kw = {"mirror_path": str(mirror), "redownload": redownload}
+        got = _fetched(tmp_path, "port", **kw)
+        assert got == _fetched(tmp_path, "jax", **kw) == ("Video_Games_5.json.gz", want)
+
+
+@pytest.mark.parametrize("where", ["mirror", "url"])
+def test_get_raw_data_missing_file_raises_as_jax(tmp_path, no_fetch_env, where):
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    kw = ({"mirror_path": str(empty)} if where == "mirror"
+          else {"base_url": f"file://{empty}/{{}}"})
+    errors = {}
+    for side in ("jax", "port"):
+        with pytest.raises((FileNotFoundError, RuntimeError)) as e:
+            _fetched(tmp_path, side, **kw)
+        errors[side] = (type(e.value), str(e.value).replace(str(tmp_path / side), "T"))
+        assert files_of(tmp_path / side) == []  # nothing left behind
+    assert errors["port"] == errors["jax"]
+    assert errors["port"][0] is (FileNotFoundError if where == "mirror" else RuntimeError)
 
 
 def test_generate_amazon_reviews_matches(tmp_path):

@@ -28,6 +28,13 @@ ranks work:
   row), so only the summation order differs — within 1e-4 of each leaf's
   largest value;
 - ``make_sharded_train_step`` against the JAX one from the JAX init;
+- the resume snapshot on (2, 2): joint, DN and MAML resumed on the mesh
+  against the JAX package's resumed mesh run (``test_torch_resume.py``'s
+  recipe, the JAX init carried across; rtol 2e-5, atol 1e-5), and the
+  joint snapshot read by the JAX ``load_pytree`` with the JAX mesh
+  trainer's templates;
+- TensorBoard on (2, 2): ``summarize``'s event files against the JAX mesh
+  trainer's, rank 0 the only writer;
 - ``shard_experts`` on MMoE and PLE (``tests/test_expert_parallel.py``'s
   recipe, four domains so PLE's task experts split over the table axis):
   three data-parallel steps, a lane step and a lane eval (the collectives
@@ -40,6 +47,8 @@ ranks work:
 
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -49,7 +58,8 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RANK_TIMEOUT = 180  # seconds every rank has from its start
+CASE_SECONDS = 60  # a case's own time limit on a rank, unless its file names another
+START_SECONDS = 30  # a rank's imports and process group before its first case
 
 TRAINER_CFG = {  # tests/test_mesh_trainer.py's recipe
     "model": {"name": "mlp", "user_dim": 8, "item_dim": 8, "domain_dim": 8,
@@ -65,20 +75,50 @@ TRAIN_STEP = dict(n_uid=64, n_pid=64, n_domain=4, batch=64, hidden=(16, 8), dim=
                   learning_rate=1e-2)
 
 
-def trainer_config(tag, root, **model):
+TB_LOSS = {"0": 0.61, "1": 0.65}  # the evaluations summarize() is handed
+TB_AUC = {"0": 0.55, "1": 0.6123456789}
+TB_TRAIN = {"histogram_freq": 1, "write_grads": True}
+TB_MODES = ("val", "test")
+# tests/test_torch_resume.py's routes that resume, on the trainer recipe
+# above cut to one batch a domain (the fused passes' shuffles, threefry and
+# torch, then permute the same rows)
+RESUME_ROUTES = {
+    "joint_fused": ("mlp", {}),
+    "dn": ("mlp_meta_domain_negotiation_finetune", {}),
+    "maml": ("mlp_meta_maml_finetune", {"meta_split": "meta-train/val",
+                                        "meta_split_ratio": 0.5}),
+}
+RESUME_DS = {**TRAINER_DS, "n_per_domain": 100}
+
+
+def trainer_config(tag, root, train=None, **model):
     d = json.loads(json.dumps(TRAINER_CFG))
     d["model"].update(model)
     d["train"].update(checkpoint_path=os.path.join(root, f"c{tag}"),
-                      result_save_path=os.path.join(root, f"r{tag}"))
+                      result_save_path=os.path.join(root, f"r{tag}"), **(train or {}))
     return d
 
 
-def launch(script, root, world, cases):
+def resume_config(route, root, side, epoch, **train):
+    name, extra = RESUME_ROUTES[route]
+    d = trainer_config(f"{side}_{route}", os.path.join(root, side), dict(
+        epoch=epoch, patience=2, meta_learning_rate=0.05, sample_num=2, **extra, **train),
+        name=name)
+    return d
+
+
+def case_seconds(name, seconds=None):
+    return (seconds or {}).get(name, CASE_SECONDS)
+
+
+def launch(script, root, world, cases, seconds=None):
     """Start ``world`` gloo ranks of ``script``'s ``__main__`` on ``cases``;
-    returns a function that waits for them and fails on any rank's error."""
+    returns a function that waits for them and fails on any rank's error.
+    The ranks have the cases' time limits (``seconds``, else
+    ``CASE_SECONDS`` each) together, after ``START_SECONDS``."""
     env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     init = f"file://{os.path.join(root, 'store')}"
-    deadline = time.monotonic() + RANK_TIMEOUT
+    deadline = time.monotonic() + START_SECONDS + sum(case_seconds(c, seconds) for c in cases)
     procs = []
     for r in range(world):
         log = open(os.path.join(root, f"rank{r}.log"), "w")
@@ -103,9 +143,10 @@ def launch(script, root, world, cases):
     return wait
 
 
-def rank_main(cases_of):
+def rank_main(cases_of, seconds=None):
     """A rank's ``__main__``: join the file store's group on the CPU, run the
-    named cases, leave the group."""
+    named cases, each within its time limit (``case_seconds``: past it the
+    rank raises, naming the case), leave the group."""
     rank, world, init, root, *cases = sys.argv[1:]
     os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK="0")
     torch.set_num_threads(1)
@@ -114,7 +155,19 @@ def rank_main(cases_of):
     init_distributed(device="cpu", init_method=init)
     inputs = dict(np.load(os.path.join(root, "inputs.npz"), allow_pickle=True))
     for name in cases:
-        cases_of[name](root, inputs)
+        limit = case_seconds(name, seconds)
+
+        def late(*_, name=name, limit=limit):
+            raise TimeoutError(f"case {name} ran past its {limit} s")
+
+        signal.signal(signal.SIGALRM, late)
+        signal.alarm(limit)
+        t0 = time.monotonic()
+        try:
+            cases_of[name](root, inputs)
+        finally:
+            signal.alarm(0)
+        print(f"case {name}: {time.monotonic() - t0:.1f} s", flush=True)
     shutdown()
 
 
@@ -158,14 +211,14 @@ def _mesh22():
     return make_mesh(table_parallelism=2, device="cpu")
 
 
-def _mesh_trainer(mesh, root, tag, inputs, **model):
+def _mesh_trainer(mesh, root, tag, inputs, train=None, **model):
     from mamdr_tpu_torch.config import ExperimentConfig
     from mamdr_tpu_torch.convert import state_on_mesh
     from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
     from mamdr_tpu_torch.train.trainer import Trainer
     from mamdr_tpu_torch.utils import trees
 
-    cfg = ExperimentConfig.from_dict(trainer_config(tag, root, **model))
+    cfg = ExperimentConfig.from_dict(trainer_config(tag, root, train, **model))
     t = Trainer(cfg, make_synthetic_dataset(**TRAINER_DS), verbose=False, mesh=mesh)
     whole = trees.unflatten({k[len("init/"):].replace("//", "/"): v
                              for k, v in inputs.items() if k.startswith("init/")})
@@ -260,6 +313,126 @@ def case_sharded_train(root, inputs):
         save(root, "sharded_train", losses=np.asarray(losses), **flat_whole("p/", p))
 
 
+def slots_whole(t, vec, tx):
+    """A flat Adam slot vector over a rank's leaves -> the whole tree's flat
+    one, leaf by leaf through ``Trainer.whole`` (not the flat path the
+    snapshot takes)."""
+    from mamdr_tpu_torch.utils import trees
+
+    sel = [x for x, m in zip(trees.leaves(t.state.params), tx._trainable) if m]
+    pieces = iter(torch.split(vec, [x.numel() for x in sel]))
+    tree = trees.tree_map(lambda m, x: next(pieces).reshape(x.shape) if m else x.new_zeros(()),
+                          tx.mask, t.state.params)
+    return torch.cat([x.reshape(-1) for x, m in zip(trees.leaves(t.whole(tree)), tx._trainable)
+                      if m]).numpy()
+
+
+def hold_snapshots(t, held, copy_to=None):
+    """Wrap ``t.save_resume_state``: after the first snapshot ``held`` holds
+    the whole trees the ranks hold, keyed "<file>:<npz key>" as the snapshot
+    names them (Adam's slots by ``slots_whole``), and with ``copy_to`` rank 0
+    copies the snapshot's folder there (the folder a run stopped after that
+    epoch would have left)."""
+    from mamdr_tpu_torch.parallel.mesh import barrier
+
+    save = t.save_resume_state
+
+    def wrapped(epoch, extra_trees=None, optimizers=None):
+        save(epoch, extra_trees, optimizers)
+        if held:
+            return
+        if copy_to and t.mesh.rank == 0:
+            shutil.copytree(t.resume_dir, copy_to)
+        barrier()
+        optimizers = optimizers or {}
+        held.update(flat_whole("train_state:params//", t.whole(t.state.params)))
+        opt = t.state.opt_state
+        held["train_state:opt_state//count"] = opt.count.numpy()
+        held["train_state:step"] = t.state.step.numpy()
+        for k in ("mu", "nu"):
+            held[f"train_state:opt_state//{k}"] = slots_whole(t, getattr(opt, k), t.tx)
+        for name, tree in (extra_trees or {}).items():
+            if name in optimizers:
+                held[f"{name}:count"] = tree.count.numpy()
+                for k in ("mu", "nu"):
+                    held[f"{name}:{k}"] = slots_whole(t, getattr(tree, k), optimizers[name])
+            else:
+                held.update(flat_whole(f"{name}:", t.whole(tree)))
+
+    t.save_resume_state = wrapped
+
+
+def spy_starts(trainer):
+    """The epochs each ``try_resume`` call of ``trainer`` returned."""
+    starts = []
+    fn = trainer.try_resume
+
+    def spy(*a, **k):
+        r = fn(*a, **k)
+        starts.append(-1 if r is None else r[0])
+        return r
+
+    trainer.try_resume = spy
+    return starts
+
+
+def case_resume_routes(root, inputs):
+    """Each route of ``RESUME_ROUTES`` from the JAX init on (2, 2): 1 epoch
+    writing the snapshot (the trees held then kept beside it), then fresh
+    trainers resumed to 2 epochs: where they start, np_rng, the early stop,
+    the test split and the whole params."""
+    from mamdr_tpu_torch.config import ExperimentConfig
+    from mamdr_tpu_torch.convert import state_on_mesh
+    from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mamdr_tpu_torch.strategies.base import build_strategy
+    from mamdr_tpu_torch.train.trainer import Trainer
+    from mamdr_tpu_torch.utils import trees
+
+    mesh = _mesh22()
+    whole = trees.unflatten({k[len("init/"):].replace("//", "/"): v
+                             for k, v in inputs.items() if k.startswith("init/")})
+    for route in RESUME_ROUTES:
+
+        def strategy(epoch, **train):
+            t = Trainer(ExperimentConfig.from_dict(resume_config(route, root, "port", epoch,
+                                                                 **train)),
+                        make_synthetic_dataset(**RESUME_DS), verbose=False, mesh=mesh)
+            params, _ = state_on_mesh(whole, mesh, min_rows=16)
+            t.state = t.state.replace(params=params, opt_state=t.tx.init(params))
+            return t, build_strategy(t)
+
+        held = {}
+        tb, sb = strategy(1, resume_every=1)
+        assert tb.shard_axes["model"]["embedding"]["user_emb"]
+        hold_snapshots(tb, held)
+        sb.train()
+        tc, sc = strategy(2, resume=True)
+        starts = spy_starts(tc)
+        sc.train()
+        _, _, dloss, dauc = tc.val_and_test("test", params=tc.state.params)
+        params = tc.whole(tc.state.params)
+        if mesh.rank == 0:
+            save(root, f"resume_{route}", starts=np.asarray(starts), dir=tb.resume_dir,
+                 np_rng=json.dumps(tc.np_rng.bit_generator.state),
+                 stopper=np.asarray([tc.stopper.counter, tc.stopper.best_metric]),
+                 test=np.asarray([[dloss[k], dauc[k]] for k in sorted(dloss)]),
+                 **flat_whole("p/", params), **held)
+
+
+def case_tensorboard(root, inputs):
+    """``summarize`` of a val, a test and a val evaluation on a (2, 2) mesh
+    trainer from the JAX init, TensorBoard with weight and gradient
+    histograms on; each rank says whether it opened a writer."""
+    mesh = _mesh22()
+    t = _mesh_trainer(mesh, root, "tb", inputs, train=TB_TRAIN)
+    for mode in TB_MODES:
+        t.summarize(mode, dict(TB_LOSS), dict(TB_AUC))
+    opened = t.tb._writer is not None
+    t.tb.close()
+    save(root, f"tb_rank{mesh.rank}", opened=opened,
+         logdir=os.path.join(t.checkpoint_dir, "tensorboard"))
+
+
 EXPERT_CFG = {  # tests/test_expert_parallel.py's recipe
     "model": {"user_dim": 8, "item_dim": 8, "domain_dim": 8, "hidden_dim": [16, 8],
               "tower_hidden_dim": [8], "num_experts": 4, "dropout": 0.0},
@@ -341,17 +514,19 @@ def _case_experts(name):
 CASES = {"lookup": case_lookup, "trainer": case_trainer, "joint_run": case_joint_run,
          "dropout": case_dropout, "sharded_train": case_sharded_train,
          "mamdr_run": case_mamdr_run,
-         "experts_mmoe": _case_experts("mmoe"), "experts_ple": _case_experts("ple")}
+         "experts_mmoe": _case_experts("mmoe"), "experts_ple": _case_experts("ple"),
+         "tensorboard": case_tensorboard, "resume_routes": case_resume_routes}
+SECONDS = {"resume_routes": 90}  # the cases' own time limits (CASE_SECONDS otherwise)
 
 
 # ---------------- the pytest side ----------------
 
-def _jax_trainer(tmp_path, tag, mesh):
+def _jax_trainer(tmp_path, tag, mesh, train=None):
     from mamdr_tpu.config import ExperimentConfig as JConfig
     from mamdr_tpu.data.synthetic import make_synthetic_dataset as jax_synthetic
     from mamdr_tpu.train.trainer import Trainer as JTrainer
 
-    cfg = JConfig.from_dict(trainer_config(tag, str(tmp_path)))
+    cfg = JConfig.from_dict(trainer_config(tag, str(tmp_path), train))
     return JTrainer(cfg, jax_synthetic(**TRAINER_DS), verbose=False, mesh=mesh)
 
 
@@ -380,11 +555,11 @@ def ranks(tmp_path_factory):
     inputs.update({"init/" + k: v for k, v in jflatten(jax.device_get(jt.state.params)).items()})
     inputs.update({"st/" + k: np.asarray(v) for k, v in jflatten(st).items()})
     experts = {}
-    for name in ("mmoe", "ple"):
-        from mamdr_tpu.config import ExperimentConfig as JConfig
-        from mamdr_tpu.data.synthetic import make_synthetic_dataset as jax_synthetic
-        from mamdr_tpu.train.trainer import Trainer as JTrainer
+    from mamdr_tpu.config import ExperimentConfig as JConfig
+    from mamdr_tpu.data.synthetic import make_synthetic_dataset as jax_synthetic
+    from mamdr_tpu.train.trainer import Trainer as JTrainer
 
+    for name in ("mmoe", "ple"):
         try:
             ej = JTrainer(JConfig.from_dict(expert_config(name, str(root), f"j{name}")),
                           jax_synthetic(**EXPERT_DS), verbose=False,
@@ -395,7 +570,7 @@ def ranks(tmp_path_factory):
                        for k, v in jflatten(jax.device_get(ej.state.params)).items()})
         experts[name] = ej
     np.savez(root / "inputs.npz", **inputs)
-    wait = launch(__file__, str(root), 4, list(CASES))
+    wait = launch(__file__, str(root), 4, list(CASES), SECONDS)
     yield {"mesh": mesh, "jt": jt, "wait": wait, "root": root, "inputs": inputs,
            "jstep": (jstep, jstate, jbatch), "experts": experts}
     set_lookup_mesh(None)
@@ -521,6 +696,139 @@ def test_shard_train_state_and_state_on_mesh_cut_the_adam_slots(tmp_path, table_
     assert trees.leaves(a) == trees.leaves(axes)
     assert all(torch.equal(u, v) for u, v in zip(trees.leaves(p), trees.leaves(cut.params)))
     assert all(torch.equal(u, v) for u, v in zip(opt, cut.opt_state))
+
+
+def _jax_side(ranks):
+    """The JAX package's side of the snapshot and TensorBoard tests, run
+    once, by the first of them, while the ranks work: for each route of
+    ``RESUME_ROUTES`` a mesh trainer of 1 epoch with the snapshot on, then a
+    fresh one resumed to 2 epochs (its try_resume starts and test results
+    kept); and a TensorBoard mesh trainer's ``summarize`` of a val and a
+    test evaluation. Every trainer starts from the fixture's init."""
+    import jax
+    from mamdr_tpu.config import ExperimentConfig as JConfig
+    from mamdr_tpu.data.synthetic import make_synthetic_dataset as jax_synthetic
+    from mamdr_tpu.ops.embedding_lookup import set_lookup_mesh
+    from mamdr_tpu.strategies import build_strategy as jbuild_strategy
+    from mamdr_tpu.train.checkpoints import _flatten as jflatten
+    from mamdr_tpu.train.trainer import Trainer as JTrainer
+
+    if "jax_side" in ranks:
+        return ranks["jax_side"]
+    root, mesh = str(ranks["root"]), ranks["mesh"]
+    init = {k[len("init/"):]: v for k, v in ranks["inputs"].items() if k.startswith("init/")}
+
+    def trainer(d, ds_kw):
+        t = JTrainer(JConfig.from_dict(d), jax_synthetic(**ds_kw), verbose=False, mesh=mesh)
+        flat = jflatten(jax.device_get(t.state.params))
+        assert sorted(flat) == sorted(init) and all(
+            np.array_equal(np.asarray(v), init[k]) for k, v in flat.items())
+        return t
+
+    out = {}
+    try:
+        for route in RESUME_ROUTES:
+            first = trainer(resume_config(route, root, "jax", 1, resume_every=1), RESUME_DS)
+            jbuild_strategy(first).train()
+            jt = trainer(resume_config(route, root, "jax", 2, resume=True), RESUME_DS)
+            starts = spy_starts(jt)
+            jbuild_strategy(jt).train()
+            out[route] = (first, jt, starts, jt.val_and_test("test", params=jt.state.params))
+        out["tb"] = trainer(trainer_config("jtb", root, TB_TRAIN), TRAINER_DS)
+        for mode in TB_MODES:
+            out["tb"].summarize(mode, dict(TB_LOSS), dict(TB_AUC))
+    finally:
+        set_lookup_mesh(None)
+    ranks["jax_side"] = out
+    return out
+
+
+@pytest.mark.parametrize("route", list(RESUME_ROUTES))
+def test_resumed_mesh_run_matches_jax_resumed_mesh_run(ranks, route):
+    """1 epoch with the snapshot, then fresh trainers resumed to 2, on the
+    (2, 2) mesh in both packages from the JAX init: the same start epoch,
+    np_rng state and early stop, the test split (loss rtol 1e-4, AUC abs
+    1e-5) and every whole parameter within rtol 2e-5 / atol 1e-5. The JAX
+    package's resume restarts the domain ``sequence`` from its unshuffled
+    order (ROADMAP.md §3), and so does the port's."""
+    from test_torch_strategies import results_close
+
+    _, jt, jstarts, jres = _jax_side(ranks)[route]
+    got = _load(ranks, f"resume_{route}")
+    assert list(got["starts"]) == jstarts == [1]
+    assert json.loads(str(got["np_rng"])) == jt.np_rng.bit_generator.state
+    assert int(got["stopper"][0]) == jt.stopper.counter
+    assert float(got["stopper"][1]) == pytest.approx(jt.stopper.best_metric, abs=1e-5)
+    doms = sorted(jres[2])
+    results_close((None, None, {k: float(got["test"][i][0]) for i, k in enumerate(doms)},
+                   {k: float(got["test"][i][1]) for i, k in enumerate(doms)}), jres)
+    _leaves_close(got, jt.state.params)
+
+
+def test_joint_snapshot_on_mesh_read_by_jax(ranks):
+    """The joint route's snapshot written on (2, 2) (its first epoch), read
+    by the JAX ``load_pytree`` with the JAX mesh trainer's templates of the
+    same config: every key of the JAX state but its PRNG keys (``rng``,
+    ``host_rng``: the port keeps its base seed and generators instead), the
+    padded shapes, and every value equal to the whole trees the ranks held
+    (Adam's slots gathered leaf by leaf); the best params' file likewise."""
+    import jax
+    from mamdr_tpu.train.checkpoints import _flatten as jflatten
+    from mamdr_tpu.train.checkpoints import load_pytree as jax_load_pytree
+
+    jt = _jax_side(ranks)["joint_fused"][0]
+    got = _load(ranks, "resume_joint_fused")
+    snap = str(got["dir"])
+    template = {"params": jt.state.params, "opt_state": jt.state.opt_state,
+                "batch_stats": jt.state.batch_stats, "step": jt.state.step}
+    with np.load(os.path.join(snap, "train_state.npz")) as z:
+        keys = set(z.files)
+    port_only = {"seed", "generator//seed_gen", "generator//gen"}
+    assert port_only <= keys and keys - port_only == set(jflatten(jax.device_get(template)))
+    for name, tmpl in (("train_state", template), ("best_params", jt.state.params)):
+        loaded = jflatten(jax_load_pytree(os.path.join(snap, f"{name}.npz"), tmpl))
+        held = {k[len(name) + 1:] for k in got if k.startswith(name + ":")}
+        assert held == set(loaded), name
+        for k, v in loaded.items():
+            assert np.array_equal(np.asarray(v), got[f"{name}:{k}"]), (name, k)
+    with open(os.path.join(snap, "resume_meta.json")) as f:
+        meta = json.load(f)
+    assert sorted(meta) == ["epoch", "extra_trees", "np_rng_state", "stopper"]
+    assert meta["epoch"] == 0 and meta["extra_trees"] == ["best_params"]
+    assert sorted(os.listdir(snap)) == ["best_params.npz", "resume_meta.json",
+                                        "train_state.npz"]
+
+
+def test_tensorboard_on_mesh_writes_what_the_jax_mesh_trainer_writes(ranks):
+    """``summarize`` on (2, 2) against the JAX mesh trainer's, from the same
+    init: tags, steps and scalars equal, the weight histograms of the whole
+    padded tree (each shard counted on its rank) and the ``grad/``
+    histograms as ``test_torch_tensorboard`` holds them on one device; only
+    rank 0 opens a writer, and the folder holds its one event file."""
+    from mamdr_tpu_torch.utils import trees
+    from test_torch_tensorboard import _accumulator, _histograms_equal
+
+    jt = _jax_side(ranks)["tb"]
+    init = {k[len("init/"):]: v for k, v in ranks["inputs"].items() if k.startswith("init/")}
+    got = [_load(ranks, f"tb_rank{r}") for r in range(4)]
+    assert [bool(g["opened"]) for g in got] == [True, False, False, False]
+    logdir = str(got[0]["logdir"])
+    assert all(str(g["logdir"]) == logdir for g in got)
+    assert len(os.listdir(logdir)) == 1
+    ja = _accumulator(os.path.join(jt.checkpoint_dir, "tensorboard"))
+    ta = _accumulator(logdir)
+    assert sorted(ta.Tags()["scalars"]) == sorted(ja.Tags()["scalars"])
+    for tag in ja.Tags()["scalars"]:
+        assert ([(e.step, e.value) for e in ta.Scalars(tag)]
+                == [(e.step, e.value) for e in ja.Scalars(tag)]), tag
+    names = trees.param_names(trees.unflatten({k.replace("//", "/"): 0 for k in init}))
+    assert sorted(ta.Tags()["histograms"]) == sorted(ja.Tags()["histograms"]) == sorted(
+        names + [f"grad/{n}" for n in names])
+    for tag in ja.Tags()["histograms"]:
+        jh, th = ja.Histograms(tag), ta.Histograms(tag)
+        assert [h.step for h in th] == [0], tag
+        for a, b in zip(th, jh):
+            _histograms_equal(a, b, tag, 2e-5 if tag.startswith("grad/") else 0.0)
 
 
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
@@ -688,4 +996,4 @@ def test_shard_experts_match_jax_and_one_process(ranks, name):
 
 
 if __name__ == "__main__":
-    rank_main(CASES)
+    rank_main(CASES, SECONDS)

@@ -19,6 +19,10 @@ groups of 2, each group split over the data ranks):
   ``make_mesh(jax.devices()[:4], table_parallelism=2)``, rtol 2e-5 and atol
   1e-5 on parameters (the DN steps are data-parallel, so the gradients are
   summed in another order), AUC within 1e-4;
+- MAMDR's ``run()`` resumed on the mesh from the snapshot after its first
+  epoch, bit-equal to the unbroken run on the mesh, every rank's random
+  streams alike; the snapshot read by the JAX ``load_pytree`` with the JAX
+  mesh trainer's templates (every key, shape and value);
 - the mesh gates of ``MAMDRStrategy``: lanes refused when the domains or
   ``dr_lane_chunk`` do not divide the data axis, the automatic group of a
   trainable-table run a multiple of it; and ``Trainer(mesh=)``'s refusal of
@@ -32,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_parallel import launch, rank_main, save
+from test_torch_parallel import hold_snapshots, launch, rank_main, save, spy_starts
 
 N_DOMAIN, BATCH = 4, 32
 ORDER = np.asarray([2, 0, 3, 1], np.int32)
@@ -131,14 +135,16 @@ def port_run(t, s, inputs, kind):
     return out
 
 
-def _trainer(root, kind, mesh=None, tag=None):
+def _trainer(root, kind, mesh=None, tag=None, **train):
     from mamdr_tpu_torch.config import ExperimentConfig
     from mamdr_tpu_torch.data.synthetic import make_synthetic_dataset
     from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
     from mamdr_tpu_torch.train.trainer import Trainer
 
-    t = Trainer(ExperimentConfig.from_dict(config_dict(root, kind, tag)),
-                dataset(make_synthetic_dataset), device="cpu", verbose=False, mesh=mesh)
+    d = config_dict(root, kind, tag)
+    d["train"].update(train)
+    t = Trainer(ExperimentConfig.from_dict(d), dataset(make_synthetic_dataset), device="cpu",
+                verbose=False, mesh=mesh)
     return t, MAMDRStrategy(t)
 
 
@@ -198,7 +204,49 @@ def case_gates(root, inputs):
         save(root, "gates", res=json.dumps(res))
 
 
-CASES = {"frozen": _case("frozen"), "trainable": _case("trainable"), "gates": case_gates}
+def case_resume(root, inputs):
+    """MAMDR's ``run()`` of 2 epochs on (2, 2), trainable tables, the
+    snapshot written every epoch (a); the snapshot after its first epoch
+    copied aside with the whole trees held then (``hold_snapshots``), and
+    fresh trainers resumed from the copy to 2 epochs (c). Each rank holds
+    (c) to (a) leaf by leaf — its state, Adam's slots, shared, every
+    specific, the best snapshot — and (c)'s results to (a)'s, and writes the
+    names that differ and its random streams' states."""
+    from mamdr_tpu_torch.parallel.mesh import make_mesh
+    from mamdr_tpu_torch.utils import trees
+
+    mesh = make_mesh(table_parallelism=2, device="cpu")
+    train = {"epoch": 2, "patience": 5}
+    ta, sa = _trainer(root, "trainable", mesh, "resume_a", resume_every=1, **train)
+    copy = ta.resume_dir.replace("ckpt_resume_a", "ckpt_resume_c")
+    held = {}
+    hold_snapshots(ta, held, copy_to=copy)
+    res_a = sa.run()
+    tc, sc = _trainer(root, "trainable", mesh, "resume_c", resume=True, **train)
+    assert tc.resume_dir == copy
+    starts = spy_starts(tc)
+    res_c = sc.run()
+    pairs = [("state", tc.state.params, ta.state.params), ("shared", sc.shared, sa.shared),
+             ("best_shared", sc.best_shared, sa.best_shared)]
+    pairs += [(f"specific{d}", c, a) for d, (c, a) in enumerate(zip(sc.specific, sa.specific))]
+    pairs += [(f"best_specific{d}", c, a)
+              for d, (c, a) in enumerate(zip(sc.best_specific, sa.best_specific))]
+    differ = [f"{what}/{n}" for what, c, a in pairs
+              for (n, x), y in zip(trees.leaves_with_names(c), trees.leaves(a))
+              if not torch.equal(x, y)]
+    differ += [f"opt/{k}" for k in ("count", "mu", "nu")
+               if not torch.equal(getattr(tc.state.opt_state, k), getattr(ta.state.opt_state, k))]
+    differ += ["results"] * (res_c != res_a) + ["step"] * (int(tc.state.step) != int(ta.state.step))
+    assert len(trees.leaves(sa.specific[0])) > 0 and len(pairs) == 3 + 2 * N_DOMAIN
+    save(root, f"resume_rank{mesh.rank}", differ=json.dumps(differ), starts=np.asarray(starts),
+         np_rng=json.dumps(ta.np_rng.bit_generator.state),
+         seed_gen=ta._seed_gen.get_state().numpy(), gen=ta.gen.get_state().numpy())
+    if mesh.rank == 0:
+        save(root, "resume_snapshot", dir=copy, **held)
+
+
+CASES = {"frozen": _case("frozen"), "trainable": _case("trainable"), "gates": case_gates,
+         "resume": case_resume}
 
 
 # ---------------- the pytest side ----------------
@@ -318,6 +366,53 @@ def test_mamdr_epoch_on_mesh_matches_one_process_and_jax_mesh(ranks, one_process
     jl, ja = jev(st.params, st.batch_stats, shared, stk, jt.eval_block("val"))
     np.testing.assert_allclose(got["eval1"][1], np.asarray(ja), atol=1e-4)
     np.testing.assert_allclose(got["eval1"][0], np.asarray(jl), rtol=1e-4)
+
+
+def test_mamdr_resumed_on_mesh_equals_unbroken(ranks):
+    """(c), resumed on fresh trainers from the snapshot after (a)'s first
+    epoch, ends where the unbroken (a) ends, bit for bit, on every rank; and
+    every rank's random streams (numpy, the CPU and the device generator)
+    are in the same state, as the snapshot's single copy of them assumes."""
+    got = [_load(ranks, f"resume_rank{r}") for r in range(4)]
+    for r, g in enumerate(got):
+        assert json.loads(str(g["differ"])) == [], r
+        assert list(g["starts"]) == [1], r
+    for k in ("np_rng", "seed_gen", "gen"):
+        assert all(np.array_equal(g[k], got[0][k]) for g in got), k
+
+
+def test_mamdr_snapshot_on_mesh_read_by_jax(ranks):
+    """The snapshot the (2, 2) MAMDR run wrote after its first epoch, read by
+    the JAX ``load_pytree`` with the JAX mesh trainer's templates of the
+    same config (its state; shared and its stacked specific weights for the
+    extra trees): every key of the JAX state but its PRNG keys, the padded
+    shapes, and every value equal to the whole trees the ranks held then
+    (Adam's slots over the trainable tables' shards gathered leaf by leaf)."""
+    import jax
+    from mamdr_tpu.train.checkpoints import _flatten as jflatten
+    from mamdr_tpu.train.checkpoints import load_pytree as jax_load_pytree
+
+    jt, js, stack = ranks["jax"]["trainable"]
+    got = _load(ranks, "resume_snapshot")
+    snap = str(got["dir"])
+    state = {"params": jt.state.params, "opt_state": jt.state.opt_state,
+             "batch_stats": jt.state.batch_stats, "step": jt.state.step}
+    with np.load(os.path.join(snap, "train_state.npz")) as z:
+        keys = set(z.files)
+    port_only = {"seed", "generator//seed_gen", "generator//gen"}
+    assert port_only <= keys and keys - port_only == set(jflatten(jax.device_get(state)))
+    files = {"train_state": state, "shared": js.shared, "spec_stack": stack,
+             "best_shared": js.shared, "best_spec_stack": stack}
+    assert sorted(os.listdir(snap)) == sorted([f"{f}.npz" for f in files] + ["resume_meta.json"])
+    for name, template in files.items():
+        loaded = jflatten(jax_load_pytree(os.path.join(snap, f"{name}.npz"), template))
+        assert {k[len(name) + 1:] for k in got if k.startswith(name + ":")} == set(loaded)
+        for k, v in loaded.items():
+            assert np.array_equal(np.asarray(v), got[f"{name}:{k}"]), (name, k)
+    with open(os.path.join(snap, "resume_meta.json")) as f:
+        meta = json.load(f)
+    assert meta["epoch"] == 0
+    assert meta["extra_trees"] == sorted(k for k in files if k != "train_state")
 
 
 def test_mamdr_mesh_gates(ranks):
