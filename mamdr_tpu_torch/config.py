@@ -136,9 +136,7 @@ class ModelConfig:
 @dataclass
 class TrainConfig:
     """``train`` block (README.md:118-146), with the JAX package's fields and
-    defaults, so ``config.json.example`` is the same file. Left out:
-    ``profile_dir`` (a ``jax.profiler`` trace around each epoch; the port's
-    device traces are ``kernel_profile.py``'s)."""
+    defaults, so ``config.json.example`` is the same file."""
 
     load_pretrain_emb: bool = False
     emb_trainable: bool = True
@@ -194,6 +192,10 @@ class TrainConfig:
     resume_every: int = 0
     # checkpoint_dir/metrics.jsonl: one event per evaluation and train epoch.
     metrics_jsonl: bool = True
+    # profile_dir != "": each train epoch under torch.profiler with the
+    # program's spans on, written to profile_dir/epoch_<n>.trace.json, and
+    # its counters logged as an epoch_counters event (utils/trace.py).
+    profile_dir: str = ""
     # tensorboard=True writes every evaluation's scalars to
     # checkpoint_dir/tensorboard; histogram_freq > 0 also writes weight
     # histograms every N val epochs and implies tensorboard; write_grads adds

@@ -60,7 +60,11 @@ On one CUDA card, from the repository root. Prints
      time, device busy time, idle share, CUDA launches and the kernels and
      host ops that take the most time (printed after part 8).
 
-Every line names the card and its power limit.
+Every line names the card and its power limit. Its per-step numbers are read
+from outside the program (a profile around each phase or step it drives);
+the program's own spans and counters are ``utils/trace.py``'s, and a run's
+trace is ``train.profile_dir``'s. This script stays for what nothing else
+measures: the eval, the finetune, the zoo's and STAR's steps.
 """
 
 from __future__ import annotations

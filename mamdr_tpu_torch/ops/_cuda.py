@@ -25,6 +25,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from mamdr_tpu_torch.utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -41,6 +43,7 @@ _variant: List[str] = []  # extra nvcc flags of a diagnostic build (see build_va
 # report per kernel) and how long it took; chip_smoke.py prints both.
 build_log: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
+trace.register(lambda: {f"build_s.{n}": s for n, s in build_seconds.items()})
 
 
 def _nvcc() -> str:

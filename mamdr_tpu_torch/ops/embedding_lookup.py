@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from mamdr_tpu_torch.ops import _cuda
+from mamdr_tpu_torch.utils import trace
 
 
 def embedding_lookup_reference(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -297,23 +298,26 @@ def gather_fields(tables: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
     (``table_rows``: ``WINDOW`` zeros outside it, ``SILENT`` zeros with the
     clamped row ids); a call with a window other than the clamp is also
     counted in ``gather_fields.window_launches``.
+
+    Either route is the span ``k2.gather``.
     """
     tables, ids = tuple(tables), tuple(ids)
-    mask = _mask(train_mask, len(tables))
-    if len(ids) != len(tables):
-        raise ValueError(f"{len(tables)} tables and {len(ids)} id tensors")
-    win = _windows(windows, len(tables))
-    if all(t.device.type == "cpu" for t in (*tables, *ids)):
-        return gather_fields_reference(tables, ids, mask, win)
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tables)
-    want = tuple(m or (grad and t.requires_grad) for m, t in zip(mask, tables))
-    x, flat = (_GatherFields.apply(want, win, *tables, *ids) if grad
-               else _launch_k2(tables, ids, want, win))
-    flats, k = [], 0
-    for w, m in zip(want, mask):  # flat holds a row for each wanted field
-        flats.append(flat[k] if m else None)
-        k += w
-    return x, tuple(flats)
+    with trace.span("k2.gather"):
+        mask = _mask(train_mask, len(tables))
+        if len(ids) != len(tables):
+            raise ValueError(f"{len(tables)} tables and {len(ids)} id tensors")
+        win = _windows(windows, len(tables))
+        if all(t.device.type == "cpu" for t in (*tables, *ids)):
+            return gather_fields_reference(tables, ids, mask, win)
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in tables)
+        want = tuple(m or (grad and t.requires_grad) for m, t in zip(mask, tables))
+        x, flat = (_GatherFields.apply(want, win, *tables, *ids) if grad
+                   else _launch_k2(tables, ids, want, win))
+        flats, k = [], 0
+        for w, m in zip(want, mask):  # flat holds a row for each wanted field
+            flats.append(flat[k] if m else None)
+            k += w
+        return x, tuple(flats)
 
 
 gather_fields.launches = 0
@@ -415,3 +419,8 @@ def gather_rows_pipelined(table: torch.Tensor, ids: torch.Tensor, k: int = 32) -
 
 
 gather_rows_pipelined.launches = 0
+
+trace.register(lambda: {"k2.launches": gather_fields.launches,
+                        "k2.lane_launches": gather_fields.lane_launches,
+                        "k2.window_launches": gather_fields.window_launches,
+                        "k3.launches": gather_rows_pipelined.launches})

@@ -35,7 +35,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +43,7 @@ import torch
 from mamdr_tpu_torch.ops import _cuda
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields, scatter_rows
 from mamdr_tpu_torch.ops.fast_random import MASK32, dropout_mask
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 def _dropout_scale(rate: float) -> float:
     """1/(1-rate) rounded to float32, as the Pallas kernel's constant."""
@@ -232,9 +232,13 @@ def _bind():
     return fn, scratch, shared, count
 
 
-def k1_cuda_launches() -> int:
+def k1_cuda_launches(build: bool = True) -> Optional[int]:
     """CUDA launches kernel K1's library has issued so far in this process (a
-    call of either wrapper adds ``k1_launch_plan(...).launches``)."""
+    call of either wrapper adds ``k1_launch_plan(...).launches``). With
+    ``build=False`` None until the library is loaded: the read never builds
+    it."""
+    if not build and not _bind.cache_info().currsize:
+        return None
     return _bind()[3]()
 
 
@@ -352,23 +356,25 @@ def fused_tower_grad(x, label, weight, seeds, dense, dims, rate):
 
     CUDA tensors launch kernel K1 as its one-lane case (counted once per
     call in ``fused_tower_grad.launches``; a call is two CUDA launches, see
-    ``k1_launch_plan``); CPU tensors run the plain version.
+    ``k1_launch_plan``); CPU tensors run the plain version. Either is the
+    span ``k1.tower``.
     """
-    if x.device.type == "cpu":
-        return tower_grad_reference(x, label, weight, seeds, dense, dims, rate)
-    if x.dim() != 2:
-        raise ValueError(f"x must be [B, {dims[0]}], got {tuple(x.shape)}")
-    if label.numel() != x.shape[0] or weight.numel() != x.shape[0]:
-        raise ValueError("label and weight must hold one value per row")
-    n_layers = len(dims) - 1
-    if len(dense) != 2 * n_layers + 1 or any(
-            t.dim() != (2 if i % 2 == 0 else 1) for i, t in enumerate(dense)):
-        raise ValueError("dense must be (W1 [in,out], b1 [out], ..., Wl [hk,1])")
-    loss, dx, grads, _ = _launch_k1(
-        x[None], label.reshape(1, -1), weight.reshape(1, -1), seeds.reshape(1, -1),
-        tuple(t[None] for t in dense), dims, rate)
-    fused_tower_grad.launches += 1
-    return loss[0], dx[0], tuple(g[0] for g in grads)
+    with trace.span("k1.tower"):
+        if x.device.type == "cpu":
+            return tower_grad_reference(x, label, weight, seeds, dense, dims, rate)
+        if x.dim() != 2:
+            raise ValueError(f"x must be [B, {dims[0]}], got {tuple(x.shape)}")
+        if label.numel() != x.shape[0] or weight.numel() != x.shape[0]:
+            raise ValueError("label and weight must hold one value per row")
+        n_layers = len(dims) - 1
+        if len(dense) != 2 * n_layers + 1 or any(
+                t.dim() != (2 if i % 2 == 0 else 1) for i, t in enumerate(dense)):
+            raise ValueError("dense must be (W1 [in,out], b1 [out], ..., Wl [hk,1])")
+        loss, dx, grads, _ = _launch_k1(
+            x[None], label.reshape(1, -1), weight.reshape(1, -1), seeds.reshape(1, -1),
+            tuple(t[None] for t in dense), dims, rate)
+        fused_tower_grad.launches += 1
+        return loss[0], dx[0], tuple(g[0] for g in grads)
 
 
 fused_tower_grad.launches = 0
@@ -382,16 +388,29 @@ def fused_tower_grad_lanes(x, label, weight, seeds, dense, dims, rate):
     of its launches (counted once per call in
     ``fused_tower_grad_lanes.launches``); lane l's results are bit-equal to
     ``fused_tower_grad`` on lane l's operands. CPU tensors run the plain
-    version.
+    version. Either is the span ``k1.tower``.
     """
-    if x.device.type == "cpu":
-        return tower_grad_reference_lanes(x, label, weight, seeds, dense, dims, rate)
-    loss, dx, grads, _ = _launch_k1(x, label, weight, seeds, dense, dims, rate)
-    fused_tower_grad_lanes.launches += 1
-    return loss, dx, grads
+    with trace.span("k1.tower"):
+        if x.device.type == "cpu":
+            return tower_grad_reference_lanes(x, label, weight, seeds, dense, dims, rate)
+        loss, dx, grads, _ = _launch_k1(x, label, weight, seeds, dense, dims, rate)
+        fused_tower_grad_lanes.launches += 1
+        return loss, dx, grads
 
 
 fused_tower_grad_lanes.launches = 0
+
+
+def _counters() -> Dict[str, int]:
+    out = {"k1.launches": fused_tower_grad.launches,
+           "k1_lanes.launches": fused_tower_grad_lanes.launches}
+    cuda = k1_cuda_launches(build=False)
+    if cuda is not None:
+        out["k1.cuda_launches"] = cuda
+    return out
+
+
+trace.register(_counters)
 
 
 def dense_paths(model_params) -> Sequence[Tuple[str, ...]]:

@@ -25,6 +25,7 @@ import numpy as np
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.train import fused
+from mamdr_tpu_torch.utils import trace
 
 
 class DomainNegotiationStrategy(MetaStrategy):
@@ -43,7 +44,7 @@ class DomainNegotiationStrategy(MetaStrategy):
         sequence = self.meta_sequence()
         start_epoch, ex = self.try_resume_meta({"meta": t.state.params})
         self.meta = ex["meta"]
-        for epoch in range(start_epoch, self.tc.epoch):
+        for epoch in t.epochs(start_epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             if self.tc.shuffle_sequence:
@@ -59,7 +60,7 @@ class DomainNegotiationStrategy(MetaStrategy):
         t = self.trainer
         self.meta = t.state.params
         sequence = self.meta_sequence()
-        for epoch in range(self.tc.epoch):
+        for epoch in t.epochs():
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             if self.tc.shuffle_sequence:
@@ -74,7 +75,7 @@ class DomainNegotiationStrategy(MetaStrategy):
                 cap = self.tc.meta_train_step if idx != self.target_domain else 0
                 t.state, loss = t.fit_domain(t.state, idx, max_steps=cap)
                 if t.verbose:
-                    print(f"Train on: Domain {idx}, Loss: {float(loss):.4f}")
+                    print(f"Train on: Domain {idx}, Loss: {float(trace.to_host(loss)):.4f}")
             self.meta = ops.reptile_update(self.meta, t.state.params,
                                            float(self.tc.meta_learning_rate), self.mask)
             t.state = t.state.replace(params=ops.load_masked(t.state.params, self.meta,

@@ -20,6 +20,7 @@ import numpy as np
 
 from mamdr_tpu_torch.strategies.base import Strategy
 from mamdr_tpu_torch.train import fused
+from mamdr_tpu_torch.utils import trace
 
 
 class JointStrategy(Strategy):
@@ -37,7 +38,7 @@ class JointStrategy(Strategy):
         if resumed is not None:
             start_epoch = resumed[0]
             t.best_params = resumed[1].get("best_params", t.state.params)
-        for epoch in range(start_epoch, self.tc.epoch):
+        for epoch in t.epochs(start_epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
@@ -45,7 +46,7 @@ class JointStrategy(Strategy):
                 t.state, losses = sequential_pass(t.state, block,
                                                   np.asarray(sequence, np.int32), t.gen)
                 t.metrics.log("train_epoch", epoch=epoch, domain_loss={
-                    str(sequence[i]): float(v) for i, v in enumerate(losses.cpu().numpy())})
+                    str(sequence[i]): float(v) for i, v in enumerate(trace.to_host(losses))})
             else:
                 for idx in sequence:
                     if t.verbose:
@@ -53,7 +54,8 @@ class JointStrategy(Strategy):
                     t.state, _ = t.fit_domain(t.state, idx)
             if t.verbose:
                 print("Val Result: ")
-            _, avg_auc, _, _ = t.val_and_test("val")
+            with trace.span("trainer.validate"):
+                _, avg_auc, _, _ = t.val_and_test("val")
             if t.stopper.step(avg_auc):
                 break
             if t.stopper.improved:

@@ -47,7 +47,7 @@ from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.strategies.separate import separate_train_val_test
 from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.steps import make_subset_train_step
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 
 class MAMDRStrategy(MetaStrategy):
@@ -206,6 +206,7 @@ class MAMDRStrategy(MetaStrategy):
                 reg_step, steps_list=steps_list, lane_chunk=self._dr_lane_chunk_effective,
                 mesh=t.mesh)
         self._spec_stack = fused.stack_specific(self.specific, self.mask)
+        self._rows = [s.n for s in t.dataset.train]
 
     def draw_epoch(self):
         """The epoch's host draws from np_rng, exactly as the JAX package's
@@ -230,25 +231,39 @@ class MAMDRStrategy(MetaStrategy):
         """The epoch's draws, then the DN phase; returns its per-position
         mean train losses, still on the device."""
         t = self.trainer
-        self.order, self.aux = self.draw_epoch()
-        t.state, self.shared, losses = self._dn_phase(
-            t.state, self.shared, self._block, self.order, t.gen,
-            float(self.tc.meta_learning_rate))
+        with trace.span("strategy.draw"):
+            self.order, self.aux = self.draw_epoch()
+        with trace.span("strategy.dn_phase"):
+            t.state, self.shared, losses = self._dn_phase(
+                t.state, self.shared, self._block, self.order, t.gen,
+                float(self.tc.meta_learning_rate))
+        trace.count("examples.dn", sum(self._rows[d] for d in self.order))
         return losses
+
+    @staticmethod
+    def _read(losses: torch.Tensor) -> np.ndarray:
+        """The losses on the host: the host sync of a phase or an epoch."""
+        with trace.span("strategy.sync"):
+            return trace.to_host(losses)
 
     def run_dn_phase(self) -> np.ndarray:
         """One epoch's draws, then the DN phase. Returns the per-position
         mean train losses; reading them is the phase's only host sync."""
-        return self._start_dn_phase().cpu().numpy()
+        return self._read(self._start_dn_phase())
 
     def run_dr_phase(self) -> None:
         """The DR phase on the draws of the last DN phase; then ``specific``
         is refreshed from the stack. No host sync."""
         t = self.trainer
-        t.state, self._spec_stack = self._dr_phase(
-            t.state, self.shared, self._spec_stack, self._block, self.order,
-            self.aux, t.gen, float(self.tc.meta_learning_rate))
-        self.specific = fused.unstack_specific(self._spec_stack, self.mask, self.n_domain)
+        with trace.span("strategy.dr_phase"):
+            t.state, self._spec_stack = self._dr_phase(
+                t.state, self.shared, self._spec_stack, self._block, self.order,
+                self.aux, t.gen, float(self.tc.meta_learning_rate))
+            self.specific = fused.unstack_specific(self._spec_stack, self.mask, self.n_domain)
+        cap, batch = self.tc.domain_regulation_step, self.trainer.dataset.batch_size
+        trace.count("examples.dr", sum(
+            self._rows[s] + (self._rows[q] if cap <= 0 else min(cap * batch, self._rows[q]))
+            for q, row in zip(self.order, self.aux) for s in row))
 
     def run_fused_epoch(self) -> np.ndarray:
         """One MAMDR epoch: the draws, the DN phase, the DR phase. Returns
@@ -256,7 +271,7 @@ class MAMDRStrategy(MetaStrategy):
         is the epoch's only host sync."""
         losses = self._start_dn_phase()
         self.run_dr_phase()
-        return losses.cpu().numpy()
+        return self._read(losses)
 
     # ---------------- eval plumbing ----------------
 
@@ -344,7 +359,7 @@ class MAMDRStrategy(MetaStrategy):
                 self.best_specific = fused.unstack_specific(ex["best_spec_stack"], self.mask,
                                                             self.n_domain)
             self.specific = fused.unstack_specific(self._spec_stack, self.mask, self.n_domain)
-        for epoch in range(start_epoch, self.tc.epoch):
+        for epoch in t.epochs(start_epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             self.run_fused_epoch()
@@ -362,7 +377,7 @@ class MAMDRStrategy(MetaStrategy):
         sequence = self.meta_sequence()
         meta_lr = float(self.tc.meta_learning_rate)
         batch_mode = self.spec.batch_update
-        for epoch in range(self.tc.epoch):
+        for epoch in t.epochs():
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             if self.tc.shuffle_sequence:
@@ -406,7 +421,7 @@ class MAMDRStrategy(MetaStrategy):
                     t.state = t.state.replace(params=ops.load_masked(t.state.params, merged, m))
                     t.state, loss = t.fit_domain(t.state, idx)
                     if t.verbose:
-                        print(f"Train on: Domain {idx}, Loss: {float(loss):.4f}")
+                        print(f"Train on: Domain {idx}, Loss: {float(trace.to_host(loss)):.4f}")
                     self.specific[idx] = ops.specific_from_adapted(
                         t.state.params, merged, self.specific[idx], m)
             if self.epoch_tail(epoch):

@@ -43,6 +43,7 @@ from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.flat_optimizer import flat_adam
+from mamdr_tpu_torch.utils import trace
 
 
 class MAMLStrategy(MetaStrategy):
@@ -117,7 +118,7 @@ class MAMLStrategy(MetaStrategy):
         start_epoch, ex = self.try_resume_meta(
             {"meta": self.meta, "meta_opt": self.meta_opt_state})
         self.meta, self.meta_opt_state = ex["meta"], ex["meta_opt"]
-        for epoch in range(start_epoch, self.tc.epoch):
+        for epoch in t.epochs(start_epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
@@ -136,7 +137,7 @@ class MAMLStrategy(MetaStrategy):
         # maml.py:294-341), in domain order
         splits = {idx: self.support_query(idx) for idx in sequence}
         acc = fused.zeros_acc(self.mask, self.meta)
-        for epoch in range(self.tc.epoch):
+        for epoch in t.epochs():
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
@@ -148,7 +149,7 @@ class MAMLStrategy(MetaStrategy):
                 t.state, loss = t.fit_domain(t.state, idx, split=support,
                                              max_steps=self.tc.meta_train_step)
                 if t.verbose:
-                    print(f"Train on: Domain {idx}, Loss: {float(loss):.4f}")
+                    print(f"Train on: Domain {idx}, Loss: {float(trace.to_host(loss)):.4f}")
                 # the query's gradients at the adapted weights
                 acc = self.accumulate_split(t.state.params, query, acc,
                                             stats=t.state.batch_stats)

@@ -25,7 +25,7 @@ from mamdr_tpu_torch.strategies.base import Strategy
 from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.steps import make_subset_train_step
 from mamdr_tpu_torch.train.trainer import Trainer
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 
 class MetaStrategy(Strategy):
@@ -150,7 +150,8 @@ class MetaStrategy(Strategy):
         t = self.trainer
         if epoch % self.tc.val_every_step != 0:
             return False
-        _, avg_auc, _, domain_auc = self.validate()
+        with trace.span("trainer.validate"):
+            _, avg_auc, _, domain_auc = self.validate()
         metric = domain_auc[str(self.target_domain)] if self.target_domain >= 0 else avg_auc
         if t.stopper.step(metric):
             return True

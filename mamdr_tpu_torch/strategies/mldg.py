@@ -35,7 +35,7 @@ class MLDGStrategy(MAMLStrategy):
         batch_mode = self.spec.batch_update
         splits = {idx: self.support_query(idx) for idx in sequence}  # drawn once
         acc = fused.zeros_acc(self.mask, self.meta)
-        for epoch in range(self.tc.epoch):
+        for epoch in t.epochs():
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)

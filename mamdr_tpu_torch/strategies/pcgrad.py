@@ -57,7 +57,7 @@ class PCGradStrategy(MAMLStrategy):
             steps_list=steps_list)
         sequence = self.domain_sequence()
         k = min(self.tc.sample_num, len(sequence) - 1)
-        for epoch in range(self.tc.epoch):
+        for epoch in t.epochs():
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
@@ -76,7 +76,7 @@ class PCGradStrategy(MAMLStrategy):
         sequence = self.domain_sequence()
         mode = self.tc.pcgrad_mode
         splits = {idx: self.support_query(idx)[0] for idx in sequence}  # drawn once
-        for epoch in range(self.tc.epoch):
+        for epoch in t.epochs():
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)

@@ -44,7 +44,7 @@ class ReptileStrategy(MetaStrategy):
         sequence = self.domain_sequence()
         start_epoch, ex = self.try_resume_meta({"meta": t.state.params})
         self.meta = ex["meta"]
-        for epoch in range(start_epoch, self.tc.epoch):
+        for epoch in t.epochs(start_epoch):
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)
@@ -62,7 +62,7 @@ class ReptileStrategy(MetaStrategy):
         self.meta = t.state.params
         sequence = self.domain_sequence()
         batch_mode = self.spec.batch_update
-        for epoch in range(self.tc.epoch):
+        for epoch in t.epochs():
             if t.verbose:
                 print(f"Epoch: {epoch}", "-" * 30)
             t.np_rng.shuffle(sequence)

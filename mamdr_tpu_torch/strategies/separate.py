@@ -48,7 +48,7 @@ from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import make_subset_train_step
 from mamdr_tpu_torch.train.trainer import Trainer
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 
 def separate_train_val_test(trainer: Trainer, init_params: bool = True,
@@ -60,7 +60,8 @@ def separate_train_val_test(trainer: Trainer, init_params: bool = True,
     epochs (None: ``train.epoch``). The lanes run all domains at once when
     padding them to the longest is cheap (``Trainer.fused_padding_ok``),
     else in buckets of similar step counts; ``separate_fused: false`` or a
-    block past the memory budget takes ``_separate_loop``."""
+    block past the memory budget takes ``_separate_loop``. Each epoch is
+    ``_profiled``."""
     t = trainer
     if not t.config.train.separate_fused:
         return _separate_loop(t, init_params, params_fn, max_finetune_epochs)
@@ -88,12 +89,23 @@ def step_buckets(steps: List[int]) -> List[List[int]]:
     return buckets
 
 
+def _profiled(trainer: Trainer, init_params: bool, epoch: int, part: str = ""):
+    """An epoch of a separate run, ``Trainer.profiled``: the span
+    ``trainer.epoch`` and the trace ``[part]epoch_<n>`` when it trains (a
+    ``*_separate`` model), ``trainer.finetune`` and
+    ``finetune_[part]epoch_<n>`` in the finetune stage; ``part`` names the
+    bucket or the domain of a run made of several."""
+    if init_params:
+        return trainer.profiled(f"{part}epoch_{epoch}", epoch=epoch)
+    return trainer.profiled(f"finetune_{part}epoch_{epoch}", "trainer.finetune", epoch)
+
+
 def _separate_bucketed(trainer: Trainer, init_params: bool, params_fn, max_epochs=None):
     domain_loss: Dict[str, float] = {}
     domain_auc: Dict[str, float] = {}
-    for bucket in step_buckets(trainer.steps_per_domain()):
+    for b, bucket in enumerate(step_buckets(trainer.steps_per_domain())):
         _, _, dl, da = _separate_fused(trainer, init_params, params_fn, max_epochs,
-                                       domains=bucket)
+                                       domains=bucket, part=f"bucket_{b}_")
         domain_loss.update(dl)
         domain_auc.update(da)
     return trainer.summarize("test", domain_loss, domain_auc)
@@ -156,7 +168,7 @@ def make_lanes(trainer: Trainer, init_params: bool, params_fn=None,
 
 
 def _separate_fused(trainer: Trainer, init_params: bool, params_fn, max_epochs=None,
-                    domains: Optional[List[int]] = None):
+                    domains: Optional[List[int]] = None, part: str = ""):
     t = trainer
     tc = t.config.train
     lanes = make_lanes(t, init_params, params_fn, domains)
@@ -165,19 +177,21 @@ def _separate_fused(trainer: Trainer, init_params: bool, params_fn, max_epochs=N
     best, best_stats = states.params, states.batch_stats
     best_auc = np.full(n, -np.inf)
     counter = np.zeros(n, np.int32)
-    for _ in range(max_epochs or tc.epoch):
-        states, _ = lanes.epoch_all(states, lanes.block, t.gen)
-        _, aucs = lanes.eval_all(states.params, lanes.val_block, lanes.val_steps,
-                                 states.batch_stats)
-        aucs = aucs.cpu().numpy()  # the epoch's one host sync
-        # A domain out of patience is frozen (the reference's per-domain
-        # Keras EarlyStopping ends its fit, base_model.py:79-82): it keeps
-        # training in its lane but can no longer replace its best weights.
-        improved = (aucs > best_auc + tc.min_delta) & (counter < tc.patience)
-        if improved.any():
-            imp = torch.as_tensor(improved, device=t.device)
-            best = lanes.select_best(best, states.params, imp)
-            best_stats = lanes.select_best(best_stats, states.batch_stats, imp)
+    for epoch in range(max_epochs or tc.epoch):
+        with _profiled(t, init_params, epoch, part):
+            states, _ = lanes.epoch_all(states, lanes.block, t.gen)
+            with trace.span("trainer.validate"):
+                _, aucs = lanes.eval_all(states.params, lanes.val_block, lanes.val_steps,
+                                         states.batch_stats)
+                aucs = trace.to_host(aucs)  # the epoch's one host sync
+            # A domain out of patience is frozen (the reference's per-domain
+            # Keras EarlyStopping ends its fit, base_model.py:79-82): it keeps
+            # training in its lane but can no longer replace its best weights.
+            improved = (aucs > best_auc + tc.min_delta) & (counter < tc.patience)
+            if improved.any():
+                imp = torch.as_tensor(improved, device=t.device)
+                best = lanes.select_best(best, states.params, imp)
+                best_stats = lanes.select_best(best_stats, states.batch_stats, imp)
         best_auc = np.where(improved, aucs, best_auc)
         counter = np.where(improved, 0, counter + 1)
         if (counter >= tc.patience).all():
@@ -224,9 +238,12 @@ def _separate_loop(trainer: Trainer, init_params: bool = True, params_fn=None,
         best_auc = None
         best_params, best_stats = state.params, state.batch_stats
         counter = 0
-        for _ in range(max_epochs or tc.epoch):
-            state, _ = t.fit_domain(state, idx, finetune=not init_params)
-            _, val_auc = t.evaluate_domain("val", idx, state.params, state.batch_stats)
+        for epoch in range(max_epochs or tc.epoch):
+            with _profiled(t, init_params, epoch, f"domain_{idx}_"):
+                state, _ = t.fit_domain(state, idx, finetune=not init_params)
+                with trace.span("trainer.validate"):
+                    _, val_auc = t.evaluate_domain("val", idx, state.params,
+                                                   state.batch_stats)
             if best_auc is None or val_auc > best_auc + tc.min_delta:
                 best_auc, counter = val_auc, 0
                 best_params, best_stats = state.params, state.batch_stats

@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 SEP = "//"
 
@@ -63,6 +63,9 @@ def _like(template, loaded):
 
 
 def _flatten(tree) -> Dict[str, np.ndarray]:
+    """``tree``'s leaves on the host, by name: one wait on the card
+    (``host_syncs`` counts a tree once)."""
+    trace.count("host_syncs")
     return {name.replace("/", SEP): (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                                      else np.asarray(x))
             for name, x in trees.leaves_with_names(_as_dicts(tree))}

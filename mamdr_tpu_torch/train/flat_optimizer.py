@@ -39,7 +39,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 
 class FlatAdamState(NamedTuple):
@@ -79,25 +79,26 @@ class FlatAdam:
         """(updates, new_state); updates has grads' structure, None at
         frozen leaves. Leading lane axes of the state are those of every
         gradient leaf."""
-        b1, b2 = self.b1, self.b2
-        sel = self._selected(grads)
-        lead = state.mu.shape[:-1]  # () or (L,)
-        g = torch.cat([x.reshape(*lead, -1) for x in sel], dim=-1)
-        count = state.count + 1
-        mu = b1 * state.mu + (1.0 - b1) * g
-        nu = b2 * state.nu + (1.0 - b2) * (g * g)
-        c = count.to(torch.float32).reshape(*lead, 1)
-        mu_hat = mu / (1.0 - b1 ** c)
-        nu_hat = nu / (1.0 - b2 ** c)
-        step = -self.learning_rate * mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        with trace.span("step.adam"):
+            b1, b2 = self.b1, self.b2
+            sel = self._selected(grads)
+            lead = state.mu.shape[:-1]  # () or (L,)
+            g = torch.cat([x.reshape(*lead, -1) for x in sel], dim=-1)
+            count = state.count + 1
+            mu = b1 * state.mu + (1.0 - b1) * g
+            nu = b2 * state.nu + (1.0 - b2) * (g * g)
+            c = count.to(torch.float32).reshape(*lead, 1)
+            mu_hat = mu / (1.0 - b1 ** c)
+            nu_hat = nu / (1.0 - b2 ** c)
+            step = -self.learning_rate * mu_hat / (torch.sqrt(nu_hat) + self.eps)
 
-        pieces = iter(torch.split(step, [x[(0,) * len(lead)].numel() for x in sel],
-                                  dim=-1))
-        updates = trees.tree_map(
-            lambda m, x: next(pieces).reshape(x.shape) if m else None,
-            self.mask, grads,
-        )
-        return updates, FlatAdamState(count=count, mu=mu, nu=nu)
+            pieces = iter(torch.split(step, [x[(0,) * len(lead)].numel() for x in sel],
+                                      dim=-1))
+            updates = trees.tree_map(
+                lambda m, x: next(pieces).reshape(x.shape) if m else None,
+                self.mask, grads,
+            )
+            return updates, FlatAdamState(count=count, mu=mu, nu=nu)
 
     def to_optax(self, state: FlatAdamState, params) -> Dict[str, Any]:
         """One tower's state in the per-leaf optax layout: ``{"count", "mu",
@@ -149,7 +150,8 @@ class MaskedSgd:
         """(updates, state): ``-lr * g`` per trainable leaf, None at frozen
         ones (p + (-lr * g) is p - lr * g bit for bit)."""
         lr = self.learning_rate
-        return trees.tree_map(lambda m, g: -lr * g if m else None, self.mask, grads), state
+        with trace.span("step.sgd"):
+            return trees.tree_map(lambda m, g: -lr * g if m else None, self.mask, grads), state
 
 
 def masked_sgd(learning_rate: float, trainable_mask: Any) -> MaskedSgd:

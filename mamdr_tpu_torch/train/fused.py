@@ -69,7 +69,7 @@ from mamdr_tpu_torch.train.flat_optimizer import apply_updates
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import (field_gather, l2_lanes, model_logits, uncertainty_loss,
                                           weighted_bce)
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 Tree = Any
 
@@ -151,6 +151,25 @@ def _form_batches(flat: Dict[str, torch.Tensor], gen: torch.Generator,
     return out
 
 
+def _steps_run(n_steps: int, cap_steps: int = 0, real_steps: Optional[int] = None) -> int:
+    """The steps an epoch runs: ``n_steps``, at most ``cap_steps`` when that
+    is positive, at most ``real_steps`` when given."""
+    steps = n_steps if cap_steps <= 0 else min(cap_steps, n_steps)
+    return steps if real_steps is None else min(steps, int(real_steps))
+
+
+def _count_dr(steps: int, lane_steps: Sequence[Optional[int]]) -> None:
+    """Counts a DR epoch of ``steps`` lane-steps whose lanes hold
+    ``lane_steps`` real steps each (None: not known): ``lane_steps.dr``,
+    ``lane_slots.dr`` (lanes x lane-steps) and ``pad_lane_slots.dr`` (the
+    lane slots whose batch is all padding). A sequential DR step is a
+    lane-step of one lane."""
+    trace.count("lane_steps.dr", steps)
+    trace.count("lane_slots.dr", steps * len(lane_steps))
+    trace.count("pad_lane_slots.dr",
+                sum(steps - min(steps, r) for r in lane_steps if r is not None))
+
+
 def _epoch_on_flat(train_step, state: TrainState, flat, gen: torch.Generator,
                    n_steps: int, batch: int, cap_steps: int = 0,
                    shuffle: bool = True, real_steps: Optional[int] = None,
@@ -166,11 +185,10 @@ def _epoch_on_flat(train_step, state: TrainState, flat, gen: torch.Generator,
     ``keys``: the shuffle's random sort keys, drawn beforehand
     (``_form_batches``). Returns (state, the mean data loss over the steps
     run)."""
-    steps = n_steps if cap_steps <= 0 else min(cap_steps, n_steps)
-    if real_steps is not None:
-        steps = min(steps, int(real_steps))
-    batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle,
-                            keys=keys)
+    steps = _steps_run(n_steps, cap_steps, real_steps)
+    with trace.span("engine.shuffle"):
+        batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle,
+                                keys=keys)
     loss_sum = torch.zeros((), dtype=torch.float32, device=flat["weight"].device)
     for s in range(steps):
         state, loss = train_step(state, {k: v[s] for k, v in batches.items()})
@@ -347,10 +365,9 @@ def _grad_epoch_on_flat(grad_fn, params, flat, gen: torch.Generator, n_steps: in
     the gate is left out there."""
     if accumulate not in ACCUMULATE_MODES:
         raise ValueError(f"unknown accumulate mode {accumulate!r}")
-    steps = n_steps if cap_steps <= 0 else min(cap_steps, n_steps)
-    if real_steps is not None:
-        steps = min(steps, int(real_steps))
-    batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle)
+    steps = _steps_run(n_steps, cap_steps, real_steps)
+    with trace.span("engine.shuffle"):
+        batches = _form_batches(flat, gen, n_steps, batch, cap_steps=steps, shuffle=shuffle)
     return grad_epoch(grad_fn, params, batches, acc, mask, accumulate, stats,
                       gate=real_steps is None, drop_seeds=drop_seeds)
 
@@ -508,10 +525,13 @@ def make_fused_mamdr(train_step, mask, merged_method: str, n_steps: int, batch: 
         return None if steps_of is None else steps_of[dom]
 
     def dn_phase(state: TrainState, shared, block, order, gen, meta_lr):
-        state = state.replace(params=ops.load_masked(state.params, shared, mask))
+        with trace.span("engine.merge"):
+            state = state.replace(params=ops.load_masked(state.params, shared, mask))
         state, losses = _sequential_pass(
             train_step, state, block, order, gen, steps_of, n_steps, batch, shuffle)
-        shared = ops.reptile_update(shared, state.params, meta_lr, mask)
+        trace.count("steps.dn", sum(_steps_run(n_steps, 0, real(int(d))) for d in order))
+        with trace.span("engine.reptile"):
+            shared = ops.reptile_update(shared, state.params, meta_lr, mask)
         return state, shared, losses
 
     def dr_phase(state: TrainState, shared, specific_stack, block, order, aux, gen,
@@ -525,8 +545,9 @@ def make_fused_mamdr(train_step, mask, merged_method: str, n_steps: int, batch: 
             query_flat = {k: v[q] for k, v in block.items()}
             for s_idx in aux_q:
                 s_idx = int(s_idx)
-                merged = ops.merge_weights(shared, spec_q, mask, merged_method)
-                state = state.replace(params=ops.load_masked(state.params, merged, mask))
+                with trace.span("engine.merge"):
+                    merged = ops.merge_weights(shared, spec_q, mask, merged_method)
+                    state = state.replace(params=ops.load_masked(state.params, merged, mask))
                 state, _ = _epoch_on_flat(
                     train_step, state, {k: v[s_idx] for k, v in block.items()}, gen,
                     n_steps, batch, shuffle=shuffle, real_steps=real(s_idx))
@@ -534,9 +555,13 @@ def make_fused_mamdr(train_step, mask, merged_method: str, n_steps: int, batch: 
                     train_step, state, query_flat, gen, n_steps, batch,
                     cap_steps=domain_regulation_step, shuffle=shuffle,
                     real_steps=real(q))
-                spec_q = ops.specific_update(spec_q, state.params, merged, meta_lr, mask)
+                _count_dr(_steps_run(n_steps, 0, real(s_idx))
+                          + _steps_run(n_steps, domain_regulation_step, real(q)), [None])
+                with trace.span("engine.specific_update"):
+                    spec_q = ops.specific_update(spec_q, state.params, merged, meta_lr, mask)
             updated[q] = spec_q
-        return state, _write_specific(specific_stack, mask, updated)
+        with trace.span("engine.write_back"):
+            return state, _write_specific(specific_stack, mask, updated)
 
     return dn_phase, dr_phase
 
@@ -644,6 +669,11 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
     def longest(doms) -> Optional[int]:
         return None if steps_of is None else max(steps_of[int(d)] for d in doms)
 
+    def count_epoch(doms, cap: int) -> None:
+        """The counters of one lane epoch over ``doms``, a domain a lane."""
+        _count_dr(_steps_run(n_steps, cap, longest(doms)),
+                  [None if steps_of is None else steps_of[int(d)] for d in doms])
+
     def dr_parallel(state: TrainState, shared, specific_stack, block, order, aux, gen,
                     meta_lr):
         if state.batch_stats:
@@ -662,35 +692,45 @@ def make_fused_dr_parallel(sub_step, to_sub, combine, mask, merged_method: str,
         keys = None
         if (chunk < d or ranks > 1) and shuffle:  # the whole dispatch's draws: support j, ...
             shape = (d, block["weight"].shape[-1])
-            keys = [torch.rand(shape, generator=gen, device=device) for _ in range(2 * k)]
+            with trace.span("engine.shuffle"):
+                keys = [torch.rand(shape, generator=gen, device=device) for _ in range(2 * k)]
 
         def run_lanes(lanes: slice, spec_stack):
             """The K support runs of the lanes in ``lanes``; returns their
             lane state and the specific stack with their rows written."""
             order_c, aux_c = order[lanes], aux[lanes]
-            order_t = torch.as_tensor(order_c, dtype=torch.long, device=device)
-            aux_t = torch.as_tensor(aux_c, dtype=torch.long, device=device)
-            lane_state = make_lane_state(state, sub0, mask, len(order_c), seeds[lanes])
-            spec_lanes = trees.tree_map(lambda m, s: s[order_t] if m else s, mask, spec_stack)
-            query_flats = {c: v[order_t] for c, v in block.items()}  # [C, N_pad]
+            with trace.span("engine.lane_state"):
+                order_t = torch.as_tensor(order_c, dtype=torch.long, device=device)
+                aux_t = torch.as_tensor(aux_c, dtype=torch.long, device=device)
+                lane_state = make_lane_state(state, sub0, mask, len(order_c), seeds[lanes])
+                spec_lanes = trees.tree_map(lambda m, s: s[order_t] if m else s, mask,
+                                            spec_stack)
+                query_flats = {c: v[order_t] for c, v in block.items()}  # [C, N_pad]
             for j in range(k):
-                merged = ops.merge_weights(shared_sub, spec_lanes, mask, merged_method)
-                lane_state = lane_state.replace(
-                    params=ops.load_masked(lane_state.params, merged, mask))
+                with trace.span("engine.merge"):
+                    merged = ops.merge_weights(shared_sub, spec_lanes, mask, merged_method)
+                    lane_state = lane_state.replace(
+                        params=ops.load_masked(lane_state.params, merged, mask))
+                with trace.span("engine.shuffle"):
+                    support_flats = {c: v[aux_t[:, j]] for c, v in block.items()}
                 lane_state, _ = _epoch_on_flat(
-                    sub_step, lane_state, {c: v[aux_t[:, j]] for c, v in block.items()},
-                    gen, n_steps, batch, shuffle=shuffle, real_steps=longest(aux_c[:, j]),
+                    sub_step, lane_state, support_flats, gen, n_steps, batch,
+                    shuffle=shuffle, real_steps=longest(aux_c[:, j]),
                     keys=None if keys is None else keys[2 * j][lanes])
+                count_epoch(aux_c[:, j], 0)
                 lane_state, _ = _epoch_on_flat(
                     sub_step, lane_state, query_flats, gen, n_steps, batch,
                     cap_steps=domain_regulation_step, shuffle=shuffle,
                     real_steps=longest(order_c),
                     keys=None if keys is None else keys[2 * j + 1][lanes])
-                spec_lanes = ops.specific_update(spec_lanes, lane_state.params, merged,
-                                                 meta_lr, mask)
-            return lane_state, trees.tree_map(
-                lambda m, st, new: st.index_copy(0, order_t, new) if m else st,
-                mask, spec_stack, spec_lanes)
+                count_epoch(order_c, domain_regulation_step)
+                with trace.span("engine.specific_update"):
+                    spec_lanes = ops.specific_update(spec_lanes, lane_state.params, merged,
+                                                     meta_lr, mask)
+            with trace.span("engine.write_back"):
+                return lane_state, trees.tree_map(
+                    lambda m, st, new: st.index_copy(0, order_t, new) if m else st,
+                    mask, spec_stack, spec_lanes)
 
         mine = []  # the lanes this data rank runs
         for start in range(0, d, chunk):
@@ -799,7 +839,8 @@ def make_lane_eval(model, cfg, gather=None):
                 if log_vars is not None:
                     data = uncertainty_loss(data, log_vars, b["domain"])
                 loss = data + l2
-                counts = auc_update(counts, b["label"], torch.sigmoid(logits), b["weight"])
+                with trace.span("eval.auc"):
+                    counts = auc_update(counts, b["label"], torch.sigmoid(logits), b["weight"])
                 has_data = (torch.sum(b["weight"], dim=-1) > 0.0).to(torch.float32)
                 loss_sum = loss_sum + loss * has_data
                 n = n + has_data

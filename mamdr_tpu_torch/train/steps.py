@@ -58,7 +58,7 @@ from mamdr_tpu_torch.parallel.mesh import table_sum
 from mamdr_tpu_torch.parallel.trainer_sharding import make_data_parallel_loss_grad
 from mamdr_tpu_torch.train.flat_optimizer import apply_updates, flat_adam, masked_sgd
 from mamdr_tpu_torch.train.state import TrainState
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 
 class StepConfig(NamedTuple):
@@ -316,32 +316,37 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
     has_stats = model.has_batch_stats
 
     def train_step(state: TrainState, batch):
-        seeds = step_seeds(state.seed, state.step, n_layers)
-        params = state.params if combine is None else combine(state.params)
-        if has_stats:
-            data_loss, grads, new_stats = loss_grad(params, batch, seeds, train=True,
-                                                    stats=state.batch_stats)
-        else:
-            data_loss, grads = loss_grad(params, batch, seeds, train=True)
-        updates, new_opt = tx.update(grads, state.opt_state)
-        new_params = apply_updates(state.params, updates)
-        has_data = torch.sum(batch["weight"], dim=-1) > 0.0  # [] or [L]
+        with trace.span("step"):
+            with trace.span("step.seeds"):
+                seeds = step_seeds(state.seed, state.step, n_layers)
+            params = state.params if combine is None else combine(state.params)
+            with trace.span("step.loss_grad"):
+                if has_stats:
+                    data_loss, grads, new_stats = loss_grad(params, batch, seeds, train=True,
+                                                            stats=state.batch_stats)
+                else:
+                    data_loss, grads = loss_grad(params, batch, seeds, train=True)
+            updates, new_opt = tx.update(grads, state.opt_state)  # the span step.adam
+            with trace.span("step.apply"):
+                new_params = apply_updates(state.params, updates)
+            with trace.span("step.gate"):
+                has_data = torch.sum(batch["weight"], dim=-1) > 0.0  # [] or [L]
 
-        def keep(new, old):
-            if new is old:  # frozen leaves and their placeholders
-                return old
-            gate = has_data[(...,) + (None,) * (new.dim() - has_data.dim())]
-            return torch.where(gate, new, old)
+                def keep(new, old):
+                    if new is old:  # frozen leaves and their placeholders
+                        return old
+                    gate = has_data[(...,) + (None,) * (new.dim() - has_data.dim())]
+                    return torch.where(gate, new, old)
 
-        new_state = state.replace(
-            params=trees.tree_map(keep, new_params, state.params),
-            opt_state=type(state.opt_state)(
-                *(keep(n, o) for n, o in zip(new_opt, state.opt_state))),
-            batch_stats=(trees.tree_map(keep, new_stats, state.batch_stats) if has_stats
-                         else state.batch_stats),
-            step=state.step + has_data.to(state.step.dtype),
-        )
-        return new_state, data_loss
+                new_state = state.replace(
+                    params=trees.tree_map(keep, new_params, state.params),
+                    opt_state=type(state.opt_state)(
+                        *(keep(n, o) for n, o in zip(new_opt, state.opt_state))),
+                    batch_stats=(trees.tree_map(keep, new_stats, state.batch_stats)
+                                 if has_stats else state.batch_stats),
+                    step=state.step + has_data.to(state.step.dtype),
+                )
+            return new_state, data_loss
 
     return train_step
 
@@ -462,7 +467,8 @@ def make_eval_epoch(model, cfg: StepConfig, gather=None):
                 b = {k: v[s] for k, v in stacked.items()}
                 loss, _, probs = loss_fn(params, b, probs=True, stats=stats)[:3]
                 loss_sum = loss_sum + loss
-                counts = auc_update(counts, b["label"], probs, b["weight"])
+                with trace.span("eval.auc"):
+                    counts = auc_update(counts, b["label"], probs, b["weight"])
         return loss_sum / w.shape[0], auc_result(counts)
 
     return eval_epoch

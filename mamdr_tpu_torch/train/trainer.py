@@ -51,10 +51,19 @@ packages draw the same values; a CPU ``torch.Generator`` seeds parameter
 init, the base dropout seeds and the "drop" meta gradients' mask seeds
 (``draw_seed``); ``gen``, a generator on the run's device, makes the fused
 passes' batch shuffles.
+
+``epochs`` numbers a strategy's train epochs and makes each one, with its
+validation and snapshots, the span ``trainer.epoch`` through ``profiled``,
+as the separate and finetune runs make theirs (``trainer.finetune`` in the
+finetune stage); with ``train.profile_dir`` each runs under the profiler
+with the program's spans on (utils/trace.py), writes
+``<profile_dir>/<name>.trace.json`` and logs its counters as an
+``epoch_counters`` event.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import os.path as osp
@@ -91,7 +100,7 @@ from mamdr_tpu_torch.train.steps import (
     make_train_epoch,
     make_train_step,
 )
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 from mamdr_tpu_torch.utils.logging import MetricsLogger, TensorBoardLogger
 
 # The JAX package's gate for its fused paths (trainer.py:227-264): a padded
@@ -282,11 +291,13 @@ class Trainer:
         shared tree whole, and of each specific tree the masked leaves (the
         ones its file keeps)."""
         spec_axes = trees.tree_map(lambda a, m: a if m else None, self.shard_axes, mask)
-        shared = self.whole(shared)
-        specific = [self.whole(s, spec_axes) for s in specific]
-        if self.rank0:
-            checkpoints.save_decomposition(dirpath, shared, specific, extra=extra, mask=mask)
-        self._barrier()
+        with trace.span("trainer.snapshot"):
+            shared = self.whole(shared)
+            specific = [self.whole(s, spec_axes) for s in specific]
+            if self.rank0:
+                checkpoints.save_decomposition(dirpath, shared, specific, extra=extra,
+                                               mask=mask)
+            self._barrier()
 
     def _barrier(self) -> None:
         if self.mesh is not None:
@@ -452,7 +463,7 @@ class Trainer:
         if self._eval_epoch is None:
             self._eval_epoch = make_eval_epoch(self.model, self.step_cfg)
         loss, auc = self._eval_epoch(params, self.eval_stack(mode, domain_idx), batch_stats)
-        both = torch.stack([loss, auc]).cpu().numpy()
+        both = trace.to_host(torch.stack([loss, auc]))
         return float(both[0]), float(both[1])
 
     # ---------------- evaluation ----------------
@@ -509,7 +520,7 @@ class Trainer:
     @staticmethod
     def domain_dicts(losses: torch.Tensor, aucs: torch.Tensor) -> Tuple[Dict, Dict]:
         """[D] losses and AUCs on the device -> per-domain dicts (one read)."""
-        both = torch.stack([losses, aucs]).cpu().numpy()
+        both = trace.to_host(torch.stack([losses, aucs]))
         return ({str(i): float(v) for i, v in enumerate(both[0])},
                 {str(i): float(v) for i, v in enumerate(both[1])})
 
@@ -613,7 +624,8 @@ class Trainer:
         statistics, as the JAX package writes them."""
         params = params if params is not None else self.state.params
         self.best_params = params
-        self.save_tree(self.checkpoint_path, params)
+        with trace.span("trainer.snapshot"):
+            self.save_tree(self.checkpoint_path, params)
 
     def load_checkpoint(self):
         """The best-params file, on every rank: the whole tree read, then this
@@ -663,6 +675,28 @@ class Trainer:
                   for v in (opt.mu, opt.nu))
         return type(opt)(count=opt.count, mu=mu, nu=nu)
 
+    @contextlib.contextmanager
+    def profiled(self, name: str, span: str = "trainer.epoch", epoch: int = 0):
+        """An epoch of a train loop, a separate run or the finetune stage as
+        the span ``span``; with ``train.profile_dir`` (on rank 0) under the
+        profiler with spans on (``trace.profiled``):
+        ``<profile_dir>/<name>.trace.json``, and an ``epoch_counters`` event
+        naming it in the metrics log."""
+        profile_dir = self.config.train.profile_dir if self.rank0 else ""
+        with trace.profiled(profile_dir, name, lambda c: self.metrics.log(
+                "epoch_counters", trace=name, epoch=epoch, counters=c)):
+            with trace.span(span):
+                yield
+
+    def epochs(self, start: int = 0):
+        """The train loop's epoch numbers, ``start`` to ``train.epoch``: each
+        one's iteration (its epoch, validation and snapshots, up to the
+        loop's next step or its ``break``) is ``profiled`` as
+        ``epoch_<n>``."""
+        for epoch in range(start, self.config.train.epoch):
+            with self.profiled(f"epoch_{epoch}", epoch=epoch):
+                yield epoch
+
     def resume_due(self, epoch: int) -> bool:
         """Whether the resume snapshot is written after ``epoch``: every
         ``train.resume_every`` epochs, never when that is 0."""
@@ -680,16 +714,18 @@ class Trainer:
         the random streams and the early stop are rank 0's, the same on every
         rank."""
         optimizers = optimizers or {}
-        state = self.state
-        if self.mesh is not None:
-            state = whole_train_state(state, self.shard_axes, self.mesh, self.tx)
-        extra = {k: self._whole_slots(v, optimizers[k]) if k in optimizers else self.whole(v)
-                 for k, v in (extra_trees or {}).items()}
-        if self.rank0:
-            checkpoints.save_train_state(
-                self.resume_dir, self._snapshot_layout(state), epoch, self.stopper,
-                self.np_rng, extra, generators={"seed_gen": self._seed_gen, "gen": self.gen})
-        self._barrier()
+        with trace.span("trainer.snapshot"):
+            state = self.state
+            if self.mesh is not None:
+                state = whole_train_state(state, self.shard_axes, self.mesh, self.tx)
+            extra = {k: self._whole_slots(v, optimizers[k]) if k in optimizers
+                     else self.whole(v) for k, v in (extra_trees or {}).items()}
+            if self.rank0:
+                checkpoints.save_train_state(
+                    self.resume_dir, self._snapshot_layout(state), epoch, self.stopper,
+                    self.np_rng, extra,
+                    generators={"seed_gen": self._seed_gen, "gen": self.gen})
+            self._barrier()
 
     def _snapshot_layout(self, state: TrainState) -> TrainState:
         """``state`` (whole) as the resume snapshot stores it: with

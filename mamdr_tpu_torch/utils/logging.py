@@ -13,7 +13,8 @@ handed to ``add_histogram_raw``. On a (data, table) mesh every rank calls
 the logger alike and only rank 0 opens a writer: a leaf split over the
 table group is counted on each shard and the counts and sums are added
 over the group (``histogram(..., mesh=)``), so no table is gathered for its
-histogram. The profiler hook is not ported.
+histogram. The profiler hook (the JAX package's ``maybe_profile``) is
+``utils/trace.py``'s ``profiled``, which ``train.profile_dir`` turns on.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from mamdr_tpu_torch.parallel.mesh import TABLE_AXIS, all_gather_dim0, all_reduce_sum
-from mamdr_tpu_torch.utils import trees
+from mamdr_tpu_torch.utils import trace, trees
 
 
 class MetricsLogger:
@@ -94,14 +95,15 @@ def histogram(values: torch.Tensor, mesh=None) -> Dict:
     counts = torch.bincount(idx[inside], minlength=n_bins)
     num = x.numel()
     if mesh is None:
-        stats = torch.stack([x.min(), x.max(), x.sum(), torch.dot(x, x)]).cpu().numpy()
-        counts = counts.cpu().numpy()
+        stats = trace.to_host(torch.stack([x.min(), x.max(), x.sum(), torch.dot(x, x)]))
+        counts = trace.to_host(counts)
     else:
-        summed = all_reduce_sum(mesh, torch.cat([counts.to(torch.float64), torch.stack(
-            [x.sum(), torch.dot(x, x), x.new_tensor(float(num))])]), TABLE_AXIS).cpu()
-        ends = all_gather_dim0(mesh, torch.stack([x.min(), -x.max()]).reshape(1, 2),
-                               TABLE_AXIS).amin(dim=0).cpu()
-        counts = summed[:n_bins].to(torch.int64).numpy()
+        summed = trace.to_host(all_reduce_sum(mesh, torch.cat([
+            counts.to(torch.float64),
+            torch.stack([x.sum(), torch.dot(x, x), x.new_tensor(float(num))])]), TABLE_AXIS))
+        ends = trace.to_host(all_gather_dim0(
+            mesh, torch.stack([x.min(), -x.max()]).reshape(1, 2), TABLE_AXIS).amin(dim=0))
+        counts = summed[:n_bins].astype(np.int64)
         stats = np.asarray([ends[0], -ends[1], summed[n_bins], summed[n_bins + 1]])
         num = int(summed[n_bins + 2])
     limits = np.asarray(DEFAULT_BINS)

@@ -1,7 +1,8 @@
 """Timing on the card: CUDA-graph replay, eager launch, and the card's line.
 
 Used by chip_smoke.py, probe_gather.py and kernel_profile.py. Every function
-needs a CUDA card; none falls back to the CPU.
+needs a CUDA card; none falls back to the CPU. The program's own spans, which
+a device trace of a real run shows, are utils/trace.py's (``train.profile_dir``).
 """
 
 from __future__ import annotations

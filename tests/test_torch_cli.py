@@ -46,12 +46,7 @@ from mamdr_tpu_torch.workload import write_domain_tree
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Fields of the JAX package's config that the port leaves out, and why.
-OMITTED = {
-    "train": {
-        "profile_dir": "wraps each epoch in a jax.profiler trace; the port's device "
-                       "traces are kernel_profile.py's (torch.profiler)",
-    },
-}
+OMITTED = {}
 
 
 def jax_dict(cfg):
