@@ -34,6 +34,14 @@ built for CUDA. It imports nothing of JAX or of the JAX package. Phases:
      range, and at a k larger than a block's rows; its time at both sizes,
      and the gather probe (mamdr_tpu_torch.probe_gather), the one path that
      runs K3, with K3's launches on it at each depth and size;
+  4c. kernel K4 (flat Adam, its apply and the all-pad gate in one pass) at
+     the Amazon-13 benchmark cell's 10 trainable leaves (n 25,741,440 a
+     lane), one tower and 6 and 7 lanes with lane 1 all padding: bit-equal to
+     the three-stage path it replaced and to its plain version, one launch a
+     call, its time beside its byte bound, the plain version, the
+     three-stage path and torch._fused_adam_ (a yardstick the port never
+     calls); 5l asserts that K4 launched once for every DN step and DR
+     lane-step (steps.dn + lane_steps.dr);
   5. the slice: Trainer + MAMDRStrategy at bench.py's shapes (30 domains,
      100k users and items, frozen 128-d tables, MLP 384-256-128-64-1,
      dropout 0.5, batch 1024, flat Adam): one train step through the kernels
@@ -206,6 +214,128 @@ LEARN_GATE = 0.75    # its least test macro AUC
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
+# The benchmark cell's MLP (Amazon-13, trainable 100000 x 128 user and item
+# tables, 13 domains, 384-256-128-64-1): its 10 trainable leaves
+A13_LEAVES = {
+    "dnn": {f"Dense_{i}": {"Dense_0": {"kernel": (a, b), "bias": (b,)}}
+            for i, (a, b) in enumerate(((384, 256), (256, 128), (128, 64)))},
+    "embedding": {"user_emb": (100000, 128), "item_emb": (100000, 128),
+                  "domain_emb": (13, 128)},
+    "logit": {"Dense_0": {"Dense_0": {"kernel": (64, 1)}}},
+}
+
+
+def check_k4(card: str, lanes_list=(1, 6, 7), count: int = 159) -> list:
+    """4c: kernel K4 (``FlatAdam.step`` on the card: Adam, its apply and the
+    all-pad gate in one pass) at the cell's leaves, one tower and ``lanes``
+    lanes (lane 1 all padding), the step's count ``count + 1``: held bit for
+    bit to the three-stage path it replaced (``FlatAdam.update``,
+    ``apply_updates``, the gate's ``torch.where``) and to its plain version
+    (``adam_update_reference``), its launches counted one a call; then each
+    timed between CUDA events over eager calls (a call moves 0.7 to 5 GB,
+    far past the L2) beside its byte bound (28 bytes an element), the plain
+    version, the three-stage path and ``torch._fused_adam_`` over the same
+    leaves (in place, a slot pair a leaf: a yardstick the port never calls).
+    Returns one dict a shape for the kernels line."""
+    import torch
+
+    from mamdr_tpu_torch.ops.fused_adam_update import adam_update_reference, fused_adam_update
+    from mamdr_tpu_torch.train.flat_optimizer import FlatAdamState, apply_updates
+    from mamdr_tpu_torch.train.steps import make_optimizer
+    from mamdr_tpu_torch.utils import trees
+    from mamdr_tpu_torch.utils.timing import device_ms
+
+    dev = torch.device("cuda")
+    tx = make_optimizer("adam", 1e-3, {"model": A13_LEAVES}, True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = []
+    for lanes in lanes_list:
+        lead = () if lanes == 1 else (lanes,)
+        params = trees.tree_map(lambda s: torch.randn(lead + s, generator=gen, device=dev) * 0.1,
+                                {"model": A13_LEAVES})
+        grads = trees.tree_map(lambda x: torch.randn(x.shape, generator=gen, device=dev),
+                               params)
+        n = sum(x[(0,) * len(lead)].numel() for x in trees.leaves(params))
+        state = FlatAdamState(
+            count=torch.full(lead, count, dtype=torch.int32, device=dev),
+            mu=torch.randn(lead + (n,), generator=gen, device=dev) * 1e-2,
+            nu=torch.rand(lead + (n,), generator=gen, device=dev) * 1e-3)
+        has = torch.ones(lead, dtype=torch.bool, device=dev)
+        if lanes > 1:
+            has[1] = False
+
+        def three_stage():
+            updates, new = tx.update(grads, state)
+            new_p = apply_updates(params, updates)
+            keep = lambda a, b: torch.where(  # noqa: E731
+                has[(...,) + (None,) * (a.dim() - has.dim())], a, b)
+            return (trees.tree_map(keep, new_p, params),
+                    type(state)(*(keep(a, b) for a, b in zip(new, state))))
+
+        sel_p, sel_g = trees.leaves(params), trees.leaves(grads)
+        c = (state.count + 1).to(torch.float32).reshape(*lead, 1)
+        args = (sel_p, sel_g, state.mu, state.nu, 1.0 - tx.b1 ** c, 1.0 - tx.b2 ** c, has,
+                tx.learning_rate, tx.b1, tx.b2, tx.eps)
+        before = fused_adam_update.launches
+        got_p, got_s = tx.step(params, grads, state, has)
+        torch.cuda.synchronize()
+        if fused_adam_update.launches != before + 1:
+            fail(f"4c: K4 launched {fused_adam_update.launches - before} times for one step")
+        want_p, want_s = three_stage()
+        ref_p, ref_mu, ref_nu = adam_update_reference(*args)
+        same = (all(torch.equal(a, b) for a, b in zip(trees.leaves(got_p), trees.leaves(want_p)))
+                and all(torch.equal(a, b) for a, b in zip(got_s, want_s))
+                and all(torch.equal(a, b) for a, b in zip(trees.leaves(got_p), ref_p))
+                and torch.equal(got_s.mu, ref_mu) and torch.equal(got_s.nu, ref_nu))
+        kept = lanes == 1 or (all(torch.equal(a[1], b[1]) for a, b in
+                                  zip(trees.leaves(got_p), sel_p))
+                              and all(torch.equal(a[1], b[1]) for a, b in zip(got_s, state)))
+        if not (same and kept):
+            worst = max(float((a - b).abs().max()) for a, b in
+                        zip([*trees.leaves(got_p), got_s.mu, got_s.nu],
+                            [*trees.leaves(want_p), want_s.mu, want_s.nu]))
+            fail(f"4c: K4 at {lanes} lanes is not bit-equal to the three-stage path "
+                 f"(largest difference {worst:.3e}; all-pad lane kept: {kept})")
+        del got_p, got_s, want_p, want_s, ref_p, ref_mu, ref_nu
+        k4_ms = device_ms(lambda: fused_adam_update(*args), inner=4)
+        plain_ms = device_ms(lambda: adam_update_reference(*args), inner=2)
+        three_ms = device_ms(three_stage, inner=2)
+        lib_ms, lib_note = None, ""
+        try:
+            lp = [x.clone() for x in sel_p]
+            lm = [torch.zeros_like(x) for x in sel_p]
+            lv = [torch.zeros_like(x) for x in sel_p]
+            steps = [torch.full((), float(count + 1), device=dev) for _ in sel_p]
+
+            def library():
+                torch._fused_adam_(lp, sel_g, lm, lv, [], steps, lr=tx.learning_rate,
+                                   beta1=tx.b1, beta2=tx.b2, weight_decay=0.0, eps=tx.eps,
+                                   amsgrad=False, maximize=False)
+
+            lib_ms = device_ms(library, inner=4)
+            del lp, lm, lv
+        except (RuntimeError, TypeError) as e:
+            lib_note = f" (torch._fused_adam_ not timed: {e})"
+        bound_ms = 28 * (lanes * n) / HBM_BYTES * 1e3
+        print(f"K4 fused_adam_update at the cell's leaves ({len(sel_p)} leaves, n {n} a lane, "
+              f"{lanes} lane{'s' if lanes > 1 else ''}, count {count + 1}"
+              f"{', lane 1 all padding' if lanes > 1 else ''}): bit-equal to the three-stage "
+              f"path and to its plain version, one launch a call; {k4_ms * 1e3:.1f} us/call, "
+              f"bound {bound_ms * 1e3:.1f} us ({100 * bound_ms / k4_ms:.1f}% of it), plain "
+              f"{plain_ms * 1e3:.1f} us, three-stage {three_ms * 1e3:.1f} us, "
+              f"torch._fused_adam_ "
+              f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f}'} us{lib_note}; {card}")
+        out.append({"name": f"fused_adam_update ({lanes} lane{'s' if lanes > 1 else ''} of the "
+                            "a13 cell's leaves)", "route": "cuda",
+                    "source": "mamdr_tpu_torch/csrc/fused_adam_update.cu", "replaces": None,
+                    "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": plain_ms,
+                    "three_stage_ms": three_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                    "library_ms": lib_ms})
+        del params, grads, state, args, sel_p, sel_g
+        torch.cuda.empty_cache()
+    return out
+
+
 
 def check_resume_tb(work: str) -> list:
     """5n (c): the resume run of ``dryrun.bench_resume`` in ``work``, from the
@@ -373,7 +503,7 @@ def main() -> int:
     from mamdr_tpu_torch.train.trainer import Trainer
     from mamdr_tpu_torch.train import fused
     from mamdr_tpu_torch.train.steps import make_subset_train_step, make_train_step
-    from mamdr_tpu_torch.utils import trees
+    from mamdr_tpu_torch.utils import trace, trees
     from mamdr_tpu_torch.utils.kernel_check import k1_flip_rows, k1_vs_plain, worst_errors
     from mamdr_tpu_torch.utils.timing import card_line, device_ms, eager_ms
     from mamdr_tpu_torch.workload import build_bench_strategy
@@ -786,6 +916,9 @@ def main() -> int:
     print(f"gather probe: K3 launched {gather_rows_pipelined.launches}x; by (k, ids) "
           f"{ {f'k {k}, {n} ids': v for (k, n), v in k3_launches.items()} }")
     del table, item_table, dn_tables, dr_tables, got, want, ring
+
+    # ---- 4c. K4, the train step's Adam, apply and all-pad gate in one pass ----
+    k4_rows = check_k4(card)
 
     # ---- 5. the slice at bench.py's shapes ----
     t0 = time.perf_counter()
@@ -2700,10 +2833,12 @@ def main() -> int:
             fail(f"5l: DR lanes {strat_l.dr_lanes}, in groups of "
                  f"{strat_l._dr_lane_chunk_effective}; expected groups of 7")
         zero_counts()
+        k4_before = trace.counters()
         strat_l.run_dn_phase()
         dn_l_counts = counts() + k2_split()
         entry_l = (t_l.state, strat_l.shared, list(strat_l.specific), t_l.gen.get_state())
         dr7_s, dr7_counts, dr7_peak = dr_run()
+        k4_dn_dr7 = trace.since(k4_before)
         state7, stack7, gen7 = t_l.state, strat_l._spec_stack, t_l.gen.get_state()
         t_l.state, strat_l.shared, strat_l.specific = entry_l[0], entry_l[1], list(entry_l[2])
         t_l.gen.set_state(entry_l[3])
@@ -2711,7 +2846,9 @@ def main() -> int:
         strat_l.prepare_fused()
         if strat_l._dr_lane_chunk_effective != d_l:
             fail(f"5l: dr_lane_chunk {d_l} gave groups of {strat_l._dr_lane_chunk_effective}")
+        k4_before = trace.counters()
         dr30_s, dr30_counts, dr30_peak = dr_run()
+        k4_dr30 = trace.since(k4_before)
         state30, stack30 = t_l.state, strat_l._spec_stack
         eval_l = fused.make_fused_eval_merged(t_l.model, t_l.step_cfg, strat_l.mask,
                                               strat_l.tc.merged_method)
@@ -2729,6 +2866,12 @@ def main() -> int:
         if got_ != (0, steps_, steps_, 0, steps_):
             fail(f"5l: the DR phase in groups of {c_} launched (K1, K1-lanes, K2, K2 ids [B], "
                  f"K2 ids [L, B]) {got_}, expected (0, {steps_}, {steps_}, 0, {steps_})")
+    for what, got_ in (("the DN phase and the DR phase in groups of 7", k4_dn_dr7),
+                       (f"the DR phase in one group of {d_l}", k4_dr30)):
+        steps_ = got_.get("steps.dn", 0) + got_.get("lane_steps.dr", 0)
+        if got_.get("k4.launches", 0) != steps_ or steps_ < 1:
+            fail(f"5l: K4 launched {got_.get('k4.launches', 0)} times over {what}, against "
+                 f"{steps_} Adam steps (steps.dn + lane_steps.dr)")
     if not torch.equal(gen7, t_l.gen.get_state()):
         fail("5l: the grouped and the one-group DR phase drew differently from the generator")
     diffs_l = {
@@ -2760,7 +2903,10 @@ def main() -> int:
           f"bytes, peak memory {dr30_peak} bytes; deterministic algorithms on: the specific "
           f"stack, the state, the val losses and AUCs bit-equal {bit_l} (largest difference "
           f"{worst_l:.2e} of a tensor's max, tol {'0' if bit_l else K1_REL_TOL}); every "
-          f"domain's specific tables moved; ops reported without a deterministic version: "
+          f"domain's specific tables moved; K4 {k4_dn_dr7.get('k4.launches', 0)} launches "
+          f"over DN and the groups of 7 (steps.dn + lane_steps.dr), "
+          f"{k4_dr30.get('k4.launches', 0)} over the one group; ops reported without a "
+          f"deterministic version: "
           f"{not_repeatable_l or 'none'}; {card}")
     del strat_l, t_l, entry_l, state7, stack7, state30, stack30, eval_l, ev7, ev30
     shutil.rmtree(work_l, ignore_errors=True)
@@ -3214,7 +3360,11 @@ def main() -> int:
     shutil.rmtree(work_n, ignore_errors=True)
 
     # ---- 6. kernels ----
+    # K4: launches over 5l (DN, DR in groups of 7 and in one group), times in 4c
+    for row in k4_rows:
+        row["launches"] = k4_dn_dr7.get("k4.launches", 0) + k4_dr30.get("k4.launches", 0)
     print(json.dumps({"kernels": [
+        *k4_rows,
         {"name": "fused_tower_grad", "route": "cuda",
          "source": "mamdr_tpu_torch/csrc/fused_mlp_step.cu",
          "replaces": "mamdr_tpu/ops/fused_mlp_step.py:141",

@@ -30,7 +30,7 @@ from mamdr_tpu_torch.utils import trace
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fused_mlp_step", "gather_rows", "gather_rows_pipelined")
+SOURCES = ("fused_mlp_step", "gather_rows", "gather_rows_pipelined", "fused_adam_update")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -14,7 +14,10 @@ what a single-lane optimizer fed lane l's gradients would.
 Frozen leaves (mask False) take no gradient, get no update (``None``) and
 carry no slot state. ``torch.optim.Adam`` is not used: the train step must be
 able to discard a whole update, slot counter included, on an all-pad batch
-(train/steps.py).
+(train/steps.py). ``FlatAdam.step`` is the train step's call: the update,
+its apply and that gate, which on the card are one launch of kernel K4
+(``ops/fused_adam_update.py``) over the trainable leaves and the slots as
+they are laid out here.
 
 ``train.flat_optimizer: false`` (the JAX package's
 ``make_optimizer(flat=False)``, train/steps.py:369-389: ``optax.adam``, or
@@ -39,6 +42,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from mamdr_tpu_torch.ops.fused_adam_update import adam_moments, fused_adam_update, gated
 from mamdr_tpu_torch.utils import trace, trees
 
 
@@ -75,23 +79,24 @@ class FlatAdam:
             nu=torch.zeros((n,), dtype=torch.float32, device=device),
         )
 
+    def _corrections(self, count: torch.Tensor, lead) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Adam's bias corrections ``1 - b1**count`` and ``1 - b2**count`` in
+        float32, shaped [*lead, 1]."""
+        c = count.to(torch.float32).reshape(*lead, 1)
+        return 1.0 - self.b1 ** c, 1.0 - self.b2 ** c
+
     def update(self, grads, state: FlatAdamState) -> Tuple[Any, FlatAdamState]:
         """(updates, new_state); updates has grads' structure, None at
         frozen leaves. Leading lane axes of the state are those of every
         gradient leaf."""
         with trace.span("step.adam"):
-            b1, b2 = self.b1, self.b2
             sel = self._selected(grads)
             lead = state.mu.shape[:-1]  # () or (L,)
             g = torch.cat([x.reshape(*lead, -1) for x in sel], dim=-1)
             count = state.count + 1
-            mu = b1 * state.mu + (1.0 - b1) * g
-            nu = b2 * state.nu + (1.0 - b2) * (g * g)
-            c = count.to(torch.float32).reshape(*lead, 1)
-            mu_hat = mu / (1.0 - b1 ** c)
-            nu_hat = nu / (1.0 - b2 ** c)
-            step = -self.learning_rate * mu_hat / (torch.sqrt(nu_hat) + self.eps)
-
+            bc1, bc2 = self._corrections(count, lead)
+            step, mu, nu = adam_moments(g, state.mu, state.nu, bc1, bc2, self.learning_rate,
+                                        self.b1, self.b2, self.eps)
             pieces = iter(torch.split(step, [x[(0,) * len(lead)].numel() for x in sel],
                                       dim=-1))
             updates = trees.tree_map(
@@ -99,6 +104,39 @@ class FlatAdam:
                 self.mask, grads,
             )
             return updates, FlatAdamState(count=count, mu=mu, nu=nu)
+
+    def step(self, params, grads, state: FlatAdamState,
+             has_data: torch.Tensor) -> Tuple[Any, FlatAdamState]:
+        """The train step's optimizer: (params', state') — ``update``, its
+        updates applied and the all-pad gate in one call. ``has_data`` (bool,
+        [] or one a lane) keeps a lane's params and slots, count included,
+        exactly as they were where its batch holds no data.
+
+        On the card the trainable leaves and the slots take one launch of
+        kernel K4 (``ops/fused_adam_update.py``: fresh buffers, nothing
+        written in place) in the span ``step.adam``; ``step.apply`` puts the
+        new leaves in the tree and ``step.gate`` gates the count. On the CPU
+        it is ``update`` and ``apply_gated``, each in its span, which K4
+        equals bit for bit (the CPU route goes through ``update``, where the
+        benchmark's CPU tests plant their faults)."""
+        sel_p, sel_g = self._selected(params), self._selected(grads)
+        if all(t.device.type == "cpu" for t in (state.mu, state.nu, *sel_p, *sel_g)):
+            return apply_gated(params, *self.update(grads, state), state, has_data)
+        with trace.span("step.adam"):
+            count = state.count + 1
+            bc1, bc2 = self._corrections(count, state.mu.shape[:-1])
+            # an autograd gradient may come strided (a parameter read through a
+            # transpose); K4 reads gradients contiguous
+            outs, mu, nu = fused_adam_update(sel_p, [g.contiguous() for g in sel_g], state.mu,
+                                             state.nu, bc1, bc2, has_data, self.learning_rate,
+                                             self.b1, self.b2, self.eps)
+        with trace.span("step.apply"):
+            new_leaves = iter(outs)
+            new_params = trees.tree_map(lambda m, p: next(new_leaves) if m else p,
+                                        self.mask, params)
+        with trace.span("step.gate"):
+            count = torch.where(has_data, count, state.count)
+        return new_params, FlatAdamState(count=count, mu=mu, nu=nu)
 
     def to_optax(self, state: FlatAdamState, params) -> Dict[str, Any]:
         """One tower's state in the per-leaf optax layout: ``{"count", "mu",
@@ -153,6 +191,11 @@ class MaskedSgd:
         with trace.span("step.sgd"):
             return trees.tree_map(lambda m, g: -lr * g if m else None, self.mask, grads), state
 
+    def step(self, params, grads, state: SgdState,
+             has_data: torch.Tensor) -> Tuple[Any, SgdState]:
+        """The train step's optimizer: ``update`` and ``apply_gated``."""
+        return apply_gated(params, *self.update(grads, state), state, has_data)
+
 
 def masked_sgd(learning_rate: float, trainable_mask: Any) -> MaskedSgd:
     return MaskedSgd(learning_rate, trainable_mask)
@@ -161,3 +204,16 @@ def masked_sgd(learning_rate: float, trainable_mask: Any) -> MaskedSgd:
 def apply_updates(params, updates):
     """params + updates leaf by leaf; a None update keeps the leaf itself."""
     return trees.tree_map(lambda p, u: p if u is None else p + u, params, updates)
+
+
+def apply_gated(params, updates, new_state, state, has_data: torch.Tensor):
+    """(params', state'): ``apply_updates`` (span ``step.apply``), then the
+    all-pad gate (span ``step.gate``): every updated leaf and every field of
+    the optimizer state keeps its old value in the lanes whose ``has_data``
+    is false."""
+    with trace.span("step.apply"):
+        new_params = apply_updates(params, updates)
+    with trace.span("step.gate"):
+        return (trees.tree_map(lambda n, o: o if n is o else gated(has_data, n, o),
+                               new_params, params),
+                type(state)(*(gated(has_data, n, o) for n, o in zip(new_state, state))))

@@ -25,9 +25,12 @@ builds:
   - one train step = the loss gradient, the optimizer (flat Adam, or masked
     SGD in the finetune stage), and the all-pad gate: a batch whose weights
     sum to 0 leaves params, optimizer slots, batch statistics and ``step``
-    exactly as they were (steps.py:148-165). The gate is a ``torch.where`` on the device, so
-    a step never waits for the host. Its dropout seeds are one a dropout
-    site of the model (``n_dropout_sites``);
+    exactly as they were (steps.py:148-165). The gate is taken on the
+    device, so a step never waits for the host: a ``torch.where``, and for
+    flat Adam on the card part of kernel K4, the one pass that updates,
+    applies and gates the trainable leaves and the slots
+    (``FlatAdam.step``). Its dropout seeds are one a dropout site of the
+    model (``n_dropout_sites``);
   - the subset lane step (``make_subset_train_step``, steps.py:171-236): the
     very same step function over lane-stacked state that carries only
     trainable leaves, with the gate taken per lane;
@@ -53,10 +56,11 @@ from mamdr_tpu_torch.metrics.auc import auc_init, auc_result, auc_update
 from mamdr_tpu_torch.models.deepctr import MLP
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import step_seeds
+from mamdr_tpu_torch.ops.fused_adam_update import gated
 from mamdr_tpu_torch.ops.fused_mlp_step import make_fast_loss_grad
 from mamdr_tpu_torch.parallel.mesh import table_sum
 from mamdr_tpu_torch.parallel.trainer_sharding import make_data_parallel_loss_grad
-from mamdr_tpu_torch.train.flat_optimizer import apply_updates, flat_adam, masked_sgd
+from mamdr_tpu_torch.train.flat_optimizer import flat_adam, masked_sgd
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.utils import trace, trees
 
@@ -326,24 +330,18 @@ def make_train_step(model, tx, cfg: StepConfig, loss_grad: Optional[Callable] = 
                                                             stats=state.batch_stats)
                 else:
                     data_loss, grads = loss_grad(params, batch, seeds, train=True)
-            updates, new_opt = tx.update(grads, state.opt_state)  # the span step.adam
-            with trace.span("step.apply"):
-                new_params = apply_updates(state.params, updates)
             with trace.span("step.gate"):
                 has_data = torch.sum(batch["weight"], dim=-1) > 0.0  # [] or [L]
-
-                def keep(new, old):
-                    if new is old:  # frozen leaves and their placeholders
-                        return old
-                    gate = has_data[(...,) + (None,) * (new.dim() - has_data.dim())]
-                    return torch.where(gate, new, old)
-
+            # the optimizer, its apply and the gate of params and slots (flat
+            # Adam on the card: one launch of K4)
+            new_params, new_opt = tx.step(state.params, grads, state.opt_state, has_data)
+            with trace.span("step.gate"):
                 new_state = state.replace(
-                    params=trees.tree_map(keep, new_params, state.params),
-                    opt_state=type(state.opt_state)(
-                        *(keep(n, o) for n, o in zip(new_opt, state.opt_state))),
-                    batch_stats=(trees.tree_map(keep, new_stats, state.batch_stats)
-                                 if has_stats else state.batch_stats),
+                    params=new_params,
+                    opt_state=new_opt,
+                    batch_stats=(trees.tree_map(
+                        lambda n, o: o if n is o else gated(has_data, n, o), new_stats,
+                        state.batch_stats) if has_stats else state.batch_stats),
                     step=state.step + has_data.to(state.step.dtype),
                 )
             return new_state, data_loss

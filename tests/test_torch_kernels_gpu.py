@@ -38,7 +38,10 @@ from mamdr_tpu_torch.ops.fused_mlp_step import (
     tower_grad_reference,
     tower_grad_reference_lanes,
 )
+from mamdr_tpu_torch.ops.fused_adam_update import adam_update_reference, fused_adam_update
 from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
+from mamdr_tpu_torch.train.flat_optimizer import FlatAdamState, apply_updates
+from mamdr_tpu_torch.train.steps import make_optimizer
 from mamdr_tpu_torch.train.trainer import Trainer
 from mamdr_tpu_torch.utils import trees
 from mamdr_tpu_torch.utils.kernel_check import k1_vs_plain
@@ -596,6 +599,7 @@ def test_epoch_on_the_card_small(cuda_device, dr_parallel, emb_trainable):
     assert strat.dr_lanes == (dr_parallel == "on")
     spec0 = list(strat.specific)
     fused_tower_grad.launches = fused_tower_grad_lanes.launches = 0
+    fused_adam_update.launches = 0
     losses = strat.run_fused_epoch()
     torch.cuda.synchronize()
     spd = trainer.steps_per_domain()
@@ -605,10 +609,12 @@ def test_epoch_on_the_card_small(cuda_device, dr_parallel, emb_trainable):
                          for j in range(strat.aux.shape[1]))
         assert fused_tower_grad.launches == dn_steps
         assert fused_tower_grad_lanes.launches == lane_steps
+        assert fused_adam_update.launches == dn_steps + lane_steps  # K4: every Adam step
     else:
         dr_steps = sum(spd[s] + spd[q] for q, row in zip(strat.order, strat.aux) for s in row)
         assert fused_tower_grad.launches == dn_steps + dr_steps
         assert fused_tower_grad_lanes.launches == 0
+        assert fused_adam_update.launches == dn_steps + dr_steps
         assert int(trainer.state.step) == dn_steps + dr_steps
     assert np.all(np.isfinite(losses))
     for new, old in zip(strat.specific, spec0):
@@ -971,3 +977,151 @@ def test_star_run_on_the_card_matches_the_cpu_small(cuda_device, tmp_path, name)
     for k, v in cpu[2].items():
         assert abs(card[2][k] - v) <= 1e-3 * abs(v)
         assert abs(card[3][k] - cpu[3][k]) <= 1e-3
+
+
+# ---- K4: the train step's Adam, apply and all-pad gate in one pass ----
+
+A13_MLP_LEAVES = {  # the benchmark cell's MLP: n = 25,741,440 floats a lane
+    "dnn": {f"Dense_{i}": {"Dense_0": {"kernel": (a, b), "bias": (b,)}}
+            for i, (a, b) in enumerate(((384, 256), (256, 128), (128, 64)))},
+    "embedding": {"user_emb": (100000, 128), "item_emb": (100000, 128),
+                  "domain_emb": (13, 128)},
+    "logit": {"Dense_0": {"Dense_0": {"kernel": (64, 1)}}},
+}
+
+
+def _adam_case(shapes, lanes, count, device, emb_trainable=True, seed=0):
+    """A tree of ``shapes`` ([lanes, ...] where ``lanes``; frozen tables
+    without a lane axis), its Adam (lr 1e-3), a state at ``count``, random
+    gradients, and has_data with lane 1 all padding where lanes > 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lead = () if lanes is None else (lanes,)
+    frozen = lambda n: not emb_trainable and n.endswith(("user_emb", "item_emb"))  # noqa: E731
+    rand = lambda s, scale: torch.randn(s, generator=gen, device=device) * scale  # noqa: E731
+    tx = make_optimizer("adam", 1e-3, {"model": shapes}, emb_trainable)
+    params = trees.named_tree_map(
+        lambda n, s: rand(s if frozen(n) else lead + s, 0.1), {"model": shapes})
+    grads = trees.named_tree_map(
+        lambda n, m, x: rand(x.shape, 1.0) if m else None, tx.mask, params)
+    n = sum(x[(0,) * len(lead)].numel() for m, x in
+            zip(trees.leaves(tx.mask), trees.leaves(params)) if m)
+    state = FlatAdamState(count=torch.full(lead, count, dtype=torch.int32, device=device),
+                          mu=rand(lead + (n,), 1e-2),
+                          nu=torch.rand(lead + (n,), generator=gen, device=device) * 1e-3)
+    has_data = torch.ones(lead, dtype=torch.bool, device=device)
+    if lanes is not None and lanes > 1:
+        has_data[1] = False
+    return tx, params, grads, state, has_data
+
+
+def _three_stage_step(tx, params, grads, state, has_data):
+    """The train step's path before K4: ``update``, ``apply_updates``, and
+    the gate's ``torch.where`` of every tensor it carries."""
+    updates, new_opt = tx.update(grads, state)
+    new_params = apply_updates(params, updates)
+
+    def keep(new, old):
+        return old if new is old else torch.where(
+            has_data[(...,) + (None,) * (new.dim() - has_data.dim())], new, old)
+
+    return (trees.tree_map(keep, new_params, params),
+            type(state)(*(keep(n, o) for n, o in zip(new_opt, state))))
+
+
+def _held_bit_for_bit(tx, params, grads, state, has_data):
+    """K4 through ``FlatAdam.step`` and through its wrapper against the
+    three-stage path and the plain version, bit for bit; a frozen leaf is
+    the same tensor, an all-pad lane keeps its leaves, slots and count."""
+    before = fused_adam_update.launches
+    got_p, got_s = tx.step(params, grads, state, has_data)
+    torch.cuda.synchronize()
+    assert fused_adam_update.launches == before + 1
+    want_p, want_s = _three_stage_step(tx, params, grads, state, has_data)
+    for (name, a), b, m, old in zip(trees.leaves_with_names(got_p), trees.leaves(want_p),
+                                    trees.leaves(tx.mask), trees.leaves(params)):
+        assert torch.equal(a, b), name
+        if not m:
+            assert a is old, name
+        elif has_data.numel() > 1 and not bool(has_data[1]):
+            assert torch.equal(a[1], old[1]), name
+    for a, b, old in zip(got_s, want_s, state):
+        assert torch.equal(a, b)
+        if has_data.numel() > 1 and not bool(has_data[1]):
+            assert torch.equal(a[1], old[1])
+    lead = state.mu.shape[:-1]
+    sel = lambda t: [x for m, x in zip(trees.leaves(tx.mask), trees.leaves(t)) if m]  # noqa
+    c = (state.count + 1).to(torch.float32).reshape(*lead, 1)
+    args = (sel(params), sel(grads), state.mu, state.nu, 1.0 - tx.b1 ** c, 1.0 - tx.b2 ** c,
+            has_data, tx.learning_rate, tx.b1, tx.b2, tx.eps)
+    outs, mu, nu = adam_update_reference(*args)
+    assert all(torch.equal(a, b) for a, b in zip(sel(got_p), outs))
+    assert torch.equal(got_s.mu, mu) and torch.equal(got_s.nu, nu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", [0, 159])  # the step's count: 1 and 160
+@pytest.mark.parametrize("lanes", [None, 6, 7])
+def test_adam_kernel_bit_equal_at_the_cells_shapes(cuda_device, lanes, count):
+    """The cell's 10 MLP leaves (trainable 100000 x 128 tables), one tower
+    and the DR groups' 6 and 7 lanes, lane 1 all padding."""
+    _held_bit_for_bit(*_adam_case(A13_MLP_LEAVES, lanes, count, cuda_device))
+    torch.cuda.empty_cache()
+
+
+# slot offsets 0, 1, 4098, 4113, 12304, 12432, 12460: a to d on the scalar
+# path, e and the tables on the float4 path
+ODD_LEAVES = {"a": (1,), "b": (4097,), "c": (3, 5), "d": (8191,), "e": (2, 64),
+              "user_emb": (9, 4), "item_emb": (7, 4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emb_trainable", [True, False])
+@pytest.mark.parametrize("lanes", [None, 1, 3])
+def test_adam_kernel_takes_odd_leaves(cuda_device, lanes, emb_trainable):
+    """A 1-element leaf, slot offsets off float4 alignment (scalar path),
+    frozen tables (mask False: untouched, the same tensors), and with lanes
+    slots and a leaf broadcast from one lane (``expand``, stride 0), as a
+    lane state is before its first step; then a float4 leaf whose base
+    address is off 16 bytes (a view one float in: the scalar path)."""
+    tx, params, grads, state, has_data = _adam_case(ODD_LEAVES, lanes, 3, cuda_device,
+                                                    emb_trainable, seed=1)
+    _held_bit_for_bit(tx, params, grads, state, has_data)
+    if lanes is not None:
+        wide = lambda x: x[0].expand(x.shape)  # noqa: E731
+        state = FlatAdamState(count=state.count, mu=wide(state.mu), nu=wide(state.nu))
+        params["model"]["b"] = wide(params["model"]["b"])
+        params["model"]["e"] = wide(params["model"]["e"])
+        _held_bit_for_bit(tx, params, grads, state, has_data)
+    shape = params["model"]["e"].shape
+    base = torch.randn(shape.numel() + 1, device=cuda_device)
+    params["model"]["e"] = base[1:].view(shape)
+    _held_bit_for_bit(tx, params, grads, state, has_data)
+
+
+@pytest.mark.gpu
+def test_adam_kernel_refuses_what_it_does_not_take(cuda_device):
+    tx, params, grads, state, has_data = _adam_case(ODD_LEAVES, 3, 0, cuda_device)
+    sel = lambda t: [x for m, x in zip(trees.leaves(tx.mask), trees.leaves(t)) if m]  # noqa
+    c = (state.count + 1).to(torch.float32).reshape(3, 1)
+    bc = (1.0 - tx.b1 ** c, 1.0 - tx.b2 ** c)
+
+    def call(p=None, g=None, mu=state.mu, nu=state.nu, has=has_data):
+        return fused_adam_update(p or sel(params), g or sel(grads), mu, nu, *bc, has,
+                                 tx.learning_rate, tx.b1, tx.b2, tx.eps)
+
+    p = sel(params)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(p=[p[0]] + [p[1], p[2].transpose(1, 2).contiguous().transpose(1, 2)] + p[3:])
+    with pytest.raises(ValueError, match="float32"):
+        call(p=[p[0].double()] + p[1:])
+    with pytest.raises(ValueError, match="float32"):
+        call(mu=state.mu.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(g=[g.transpose(1, 2).contiguous().transpose(1, 2) if g.dim() == 3 else g
+                for g in sel(grads)])
+    with pytest.raises(ValueError, match="CUDA"):
+        call(g=[sel(grads)[0].cpu()] + sel(grads)[1:])
+    with pytest.raises(ValueError, match="bool"):
+        call(has=has_data.int())
+    with pytest.raises(ValueError, match="lane"):
+        call(mu=state.mu[:2], nu=state.nu[:2])
