@@ -1,5 +1,5 @@
-"""The comparison that decides ``correct``: what the program's first epochs
-produced against the reference on the same inputs.
+"""The comparison of MAMDR epochs on the MLP tower: what the program's
+first epochs produced against the reference on the same inputs.
 
 The program's trajectory cannot be followed far: two runs of the program on
 one seed part by a percent of the losses within one epoch (Adam turns the
@@ -55,20 +55,23 @@ A leaf whose reference moment is under a thousandth of the median leaf's
 has a gradient that is nought to rounding: Adam moves it by round-off
 alone, so it is left out of the changes (none is, on the benchmark's
 configurations; the count is printed).
+
+The controls (``control.py``) are the reference with its products in TF32,
+with the DR lanes' Adam slots in bfloat16, and with the second half of every
+batch left out.
 """
 
 from __future__ import annotations
 
-import json
 import math
-import os
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
 NUMBERS = ("feed_gap", "tower_rows_off", "adam_step_gap", "dr_step_gap", "shared_gap",
            "specific_gap")
-READ = ("tower_loss_gap", "tower_grad_gap", "loss_gap", "moment_gap")
+CONTROLS = (("tf32", {"precision": "tf32"}), ("bf16_slots", {"slots": "bfloat16"}),
+            ("half_batch", {"fault": "half_batch"}))
 ROW_OFF = 1e-4
 NEGLIGIBLE = 1e-3
 TINY = 1e-30
@@ -194,9 +197,10 @@ def step_numbers(prog, ref, reference) -> Dict[str, float]:
 
 
 def compare(prog, ref, reference) -> Tuple[Dict[str, float], int]:
-    """({number: value} of NUMBERS and READ, leaves left out) of two
-    ``Readings``; ``reference`` is the float32 reference that made ``ref``
-    (its tower and its lane step judge the program's steps)."""
+    """({number: value}, leaves left out) of two ``Readings``: NUMBERS and
+    the numbers read, not compared; ``reference`` is the float32 reference
+    that made ``ref`` (its tower and its lane step judge the program's
+    steps)."""
     loss = math.inf if len(prog.losses) != len(ref.losses) else _nan_max(
         abs(p - r) / max(abs(r), TINY) for pe, re in zip(prog.losses, ref.losses)
         for p, r in zip(pe, re))
@@ -209,16 +213,3 @@ def compare(prog, ref, reference) -> Tuple[Dict[str, float], int]:
                 "loss_gap": loss,
                 "moment_gap": norm_gap(prog.moment, ref.moment, ref.moment)})
     return out, len(ref.moment) - len(kept)
-
-
-def load_limits(root: str, workload: str) -> Dict[str, float]:
-    with open(os.path.join(root, "limits", f"{workload}.json")) as f:
-        limits = json.load(f)
-    missing = [n for n in NUMBERS if n not in limits]
-    if missing:
-        raise ValueError(f"limits for {workload} lack {missing}")
-    return {n: float(limits[n]) for n in NUMBERS}
-
-
-def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
-    return all(math.isfinite(numbers[n]) and numbers[n] <= limits[n] for n in NUMBERS)

@@ -4,16 +4,13 @@
         [--control-seeds 21 22 23] [--out control.jsonl]
 
 For each of ``--seeds``: the program's first epochs at the cell's own size
-(the set-up a run makes) against the reference's, the four numbers of
-``check.py`` (the lower readings). For each of ``--control-seeds`` also the
-reference computed in TF32 put in the program's place (the control), the
-reference with the DR lanes' Adam slots in bfloat16 (the control of the
-passes over the lane-stacked tables), and the reference with the second
-half of every batch left out (the fault of a half batch), each against the
-float32 reference (the upper readings), and whether ``check.judge`` fails
-each at the cell's limits. A
-step that returns its state unchanged reads 1 on the changes and needs no
-run. One JSON line a reading, on standard output and in ``--out``.
+(the set-up a run makes) against the reference's, the numbers of the
+configuration's comparison (``checks/<check>.py``; the lower readings). For
+each of ``--control-seeds`` also each of that comparison's ``CONTROLS``, the
+reference with that control put in the program's place, against the
+reference (the upper readings), and whether ``harness.judge`` fails each at
+the cell's limits. One JSON line a reading, on standard output and in
+``--out``.
 """
 
 from __future__ import annotations
@@ -32,12 +29,8 @@ if __name__ == "__main__":
 
 import torch  # noqa: E402
 
-from portbench import check, harness  # noqa: E402
+from portbench import harness  # noqa: E402
 from portbench.card import card_line  # noqa: E402
-
-
-CONTROLS = (("tf32", {"precision": "tf32"}), ("bf16_slots", {"slots": "bfloat16"}),
-            ("half_batch", {"fault": "half_batch"}))
 
 
 def readings(cell, seed: int, device, controls: bool):
@@ -57,10 +50,11 @@ def readings(cell, seed: int, device, controls: bool):
     reference = harness.reference(cell, inp)
     ref = reference.run(harness.SETUP_EPOCHS)
     t_ref = time.perf_counter() - t0
+    check = cell.parts.check
     out = [("program", check.compare(prog, ref, reference)[0],
             {"program_s": t_prog, "reference_s": t_ref})]
     if controls:
-        for kind, kw in CONTROLS:
+        for kind, kw in check.CONTROLS:
             other = harness.reference(cell, inp, **kw).run(harness.SETUP_EPOCHS)
             out.append((kind, check.compare(other, ref, reference)[0], {}))
     return out
@@ -79,14 +73,14 @@ def main(argv) -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     cell = harness.find_cell(args.workload)
-    limits = check.load_limits(harness.BENCH_DIR, cell.name)
+    limits = harness.load_limits(harness.BENCH_DIR, cell.name, cell.parts.check.NUMBERS)
     print(f"control: card {card_line()}", file=sys.stderr)
     sink = open(args.out, "a") if args.out else None
     try:
         for seed in list(args.seeds) + [s for s in args.control_seeds if s not in args.seeds]:
             for kind, numbers, extra in readings(cell, seed, device, seed in args.control_seeds):
                 line = json.dumps({"workload": cell.name, "seed": seed, "kind": kind,
-                                   "judged_correct": check.judge(numbers, limits),
+                                   "judged_correct": harness.judge(numbers, limits),
                                    **numbers, **extra})
                 print(line, flush=True)
                 if sink:

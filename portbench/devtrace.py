@@ -7,7 +7,8 @@ intervals of every device activity (kernels, copies, sets), so that
 overlapping activities are not counted twice; a launch is a kernel on the
 device (copies and sets are not kernels); an idle gap is an interval of the
 window with nothing on the device, named by the harness span that was open
-on the host when it began (``dn:``, ``dr:``) and the kernel that ended it.
+on the host when it began (the system's phase, ``dn`` or ``dr`` of a MAMDR
+epoch) and the kernel that ended it.
 """
 
 from __future__ import annotations
@@ -21,12 +22,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 WINDOW = "bench: traced window"
-SPANS = ("dn:", "dr:")
+PHASE = ": phase"
 
 
-def span(name: str):
-    """A host span the trace can name gaps by."""
-    return record_function(name)
+def span(phase: str):
+    """A host span of one of the system's phases, which the trace names
+    gaps by."""
+    return record_function(phase + PHASE)
 
 
 @dataclass
@@ -68,7 +70,7 @@ def summarise(events) -> Optional[TraceSummary]:
     for e in events:
         name = e.name()
         start, dur = e.start_ns(), e.duration_ns()
-        if name == WINDOW or name.startswith(SPANS):
+        if name == WINDOW or name.endswith(PHASE):
             # the harness's spans, on the host (and mirrored on the device's
             # timeline, which is no device work)
             if e.device_type() != DeviceType.CUDA:

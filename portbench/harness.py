@@ -2,21 +2,57 @@
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-A cell of ``BENCHMARK.json`` names a configuration and a traffic mix; each
-is a file found by its name (``configs/<config>.json``,
-``traffic/<mix>.json``), and they name the code that serves them: the
-traffic's ``generator`` (``traffic/<generator>.py``), the configuration's
-``system`` (``systems/<system>.py``, the program under test) and its plain
-``reference`` (``reference/<reference>.py``). Each metric is read by
-``metrics/<name>.py``; each cell's limits are ``limits/<cell>.json``.
+A cell of ``BENCHMARK.json`` names a configuration and a traffic mix, each a
+file found by its name (``configs/<config>.json``, ``traffic/<mix>.json``).
+The mix names its generator (``traffic/<generator>.py``: ``generate(cfg,
+mix, seed, device)``), the one generator of that kind of traffic. Each
+metric is read by ``metrics/<name>.py`` (``read(record)``: a number, or None
+where the run has nothing for it to read); each cell's limits of ``correct``
+are ``limits/<cell>.json``.
 
-A run: set-up (the traffic, the weights and the seeds from ``--seed``, the
-program built on them, its first two epochs, which warm up every shape and
-are kept for the comparison), then the window (whole epochs back to back
-until ``--seconds`` have passed, the last one finished and counted; with
-``--trace 1`` each phase of those epochs timed on its own, then one more
-epoch under the profiler); then the peak memory is read, the program freed,
-and the reference runs the same two epochs from the same inputs.
+What belongs to a model is its configuration's, in the modules that the
+configuration's file names; a new model brings these files and a
+``BENCHMARK.json`` entry, and no file here changes:
+
+- ``system``: ``systems/<system>.py``, the program under test.
+  ``System(cfg, inputs, device, workdir)`` builds it on the run's
+  ``Inputs``; it offers ``describe()`` (a line for standard error),
+  ``setup_epoch(e)`` (set-up epoch ``e``, recording what the comparison
+  reads), ``readings()`` (those readings), ``epoch()`` (one epoch, its
+  losses), ``phases()`` ([(name, run)]: the epoch's phases in order, each
+  run ending synchronised and giving its losses or None),
+  ``draw_states()`` (the generators' states before an epoch, for the work
+  count), ``finite()`` and ``close()``.
+- ``reference``: ``reference/<reference>.py``, the plain reference (plain
+  PyTorch, nothing of the program). ``make_weights(cfg, traffic, seed,
+  device)`` gives (frozen tables, shared start, each domain's specific
+  start), the shared start holding every leaf the optimizer trains;
+  ``problem(cfg, inputs)`` is what the reference is built from, and
+  ``Reference(problem, **control)`` runs it: ``run(epochs)`` gives the
+  readings of the set-up's epochs.
+- ``check``: ``checks/<check>.py``, the comparison. ``NUMBERS``: the numbers
+  ``correct`` is judged on, each with a limit in the cell's limits file;
+  ``compare(prog, ref, reference)`` gives ({number: value}, leaves left
+  out) from the program's and the reference's readings, and a number it
+  gives beyond ``NUMBERS`` is read and printed, not compared;
+  ``CONTROLS``: [(name, control)], each control a ``Reference(problem,
+  **control)`` put in the program's place (``control.py``).
+- ``work``: ``work/<work>.py``, the work count. ``Counter(cfg, inputs,
+  system, device)`` called with an epoch's states gives its
+  ``yardstick.Work``: its examples by phase and their operations, and with
+  ``full`` also its batches, its Adam lane-steps and each kernel's least
+  time, from a replay of the epoch's draws.
+
+What every configuration does is here: the traffic and the seeds from
+``--seed``; the set-up (the inputs, the program built on them, its first
+two epochs, which warm up every shape and are kept for the comparison);
+the window (whole epochs back to back until ``--seconds`` have passed, the
+last one finished and counted; with ``--trace 1`` each phase of those
+epochs timed on its own for a third of it, then one more epoch under the
+profiler); the peak memory, read before the program is freed; the
+reference's same epochs from the same inputs; the judge (every number of
+``NUMBERS`` finite and within its limit, and no epoch failed); the check
+that no JAX module was loaded; and the result line.
 """
 
 from __future__ import annotations
@@ -34,20 +70,33 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from portbench import check, devtrace, yardstick
+from portbench import devtrace, yardstick
 from portbench.card import card_line
-from portbench.reference.mamdr_mlp import Problem, Readings
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 SETUP_EPOCHS = 2
 PHASE_SHARE = 1 / 3
 FORBIDDEN = ("jax", "jaxlib", "flax", "mamdr_tpu")
+# a configuration's modules: its key, and the folder its name is found in
+PARTS = (("system", "systems"), ("reference", "reference"), ("check", "checks"),
+         ("work", "work"))
+
+
+@dataclass
+class Parts:
+    """The modules a configuration names."""
+
+    system: ModuleType
+    reference: ModuleType
+    check: ModuleType
+    work: ModuleType
 
 
 @dataclass
@@ -58,6 +107,7 @@ class Cell:
     traffic: Dict
     end_to_end: List[Dict]
     per_layer: List[Dict]
+    parts: Parts
 
 
 @dataclass
@@ -67,13 +117,12 @@ class Record:
     setup_s: float = math.nan
     window_s: float = math.nan
     work: yardstick.Work = field(default_factory=yardstick.Work)
-    dn_s: float = 0.0
-    dr_s: float = 0.0
+    phase_s: Dict[str, float] = field(default_factory=dict)  # by phase, host clock to a sync
     phase_work: yardstick.Work = field(default_factory=yardstick.Work)
     phase_window_s: float = math.nan
     traced: Optional[devtrace.TraceSummary] = None
     traced_work: yardstick.Work = field(default_factory=yardstick.Work)
-    dims: tuple = ()
+    trainable: int = 0  # elements of the trainable leaves, a lane
 
 
 def _load_json(*parts: str) -> Dict:
@@ -95,9 +144,11 @@ def find_cell(workload: str, bench: Optional[Dict] = None) -> Cell:
     def mine(metric):
         return workload in metric.get("workloads", [workload])
 
+    parts = Parts(**{key: importlib.import_module(f"portbench.{folder}.{config[key]}")
+                     for key, folder in PARTS})
     return Cell(workload, int(w["chips"]), config, mix,
                 [m for m in bench["end_to_end"] if mine(m)],
-                [m for m in bench["per_layer"] if mine(m)])
+                [m for m in bench["per_layer"] if mine(m)], parts)
 
 
 def reader(name: str):
@@ -111,10 +162,9 @@ def reader(name: str):
 
 def seeds_of(seed: int, plan_seed: int) -> Dict[str, int]:
     """The inputs' seeds: the data, the weights, the shuffles and the
-    dropout from ``--seed``; the host's draws of each epoch (the domain
-    order and each query domain's support domains, which set how many
-    lane-steps an epoch of ragged lanes takes) from the traffic's
-    ``plan_seed``, so that every seed gets the same work."""
+    dropout from ``--seed``; the host's draws of each epoch (such as the
+    domain order, which can set how many steps an epoch takes) from the
+    traffic's ``plan_seed``, so that every seed gets the same work."""
     s = np.random.SeedSequence(int(seed)).generate_state(4, dtype=np.uint32)
     return {"traffic": int(s[0]), "weights": int(s[1]), "np": int(plan_seed),
             "shuffle": int(s[2]), "dropout": int(s[3])}
@@ -130,58 +180,50 @@ class Inputs:
 
 
 def make_inputs(cell: Cell, seed: int, device) -> Inputs:
-    from portbench.weights import make_weights
-
     gen = importlib.import_module(f"portbench.traffic.{cell.traffic['generator']}")
     seeds = seeds_of(seed, cell.traffic["plan_seed"])
     traffic = gen.generate(cell.config, cell.traffic, seeds["traffic"], device)
-    shared0, specific0 = make_weights(cell.config, seeds["weights"], device)
-    frozen = {} if cell.config["emb_trainable"] else dict(traffic.tables)
+    frozen, shared0, specific0 = cell.parts.reference.make_weights(
+        cell.config, traffic, seeds["weights"], device)
     return Inputs(traffic, frozen, shared0, specific0, seeds)
 
 
 def build_system(cell: Cell, inp: Inputs, device, workdir: str):
-    mod = importlib.import_module(f"portbench.systems.{cell.config['system']}")
-    return mod.System(cell.config, inp.traffic, inp.frozen, inp.shared0, inp.specific0,
-                      inp.seeds, device, workdir)
+    return cell.parts.system.System(cell.config, inp, device, workdir)
 
 
-def problem(cell: Cell, inp: Inputs) -> Problem:
-    c = cell.config
-    return Problem(
-        train=inp.traffic.splits["train"], frozen=inp.frozen, shared0=inp.shared0,
-        specific0=inp.specific0, hidden=tuple(c["hidden_dim"]), dropout=c["dropout"],
-        lr=c["learning_rate"], meta_lr=c["meta_learning_rate"], sample_num=c["sample_num"],
-        add_query=c["add_query_domain"], shuffle_sequence=c["shuffle_sequence"],
-        reg_step=c["domain_regulation_step"], batch=c["batch_size"], l2=c["l2"],
-        np_seed=inp.seeds["np"], shuffle_seed=inp.seeds["shuffle"],
-        dropout_seed=inp.seeds["dropout"])
+def reference(cell: Cell, inp: Inputs, **control):
+    """The plain reference of the cell's configuration on the run's inputs
+    (with ``control``, one of its controls)."""
+    ref = cell.parts.reference
+    return ref.Reference(ref.problem(cell.config, inp), **control)
 
 
-def reference(cell: Cell, inp: Inputs, precision: str = "float32",
-              fault: Optional[str] = None, slots: str = "float32"):
-    """The plain reference of the cell's configuration on the run's inputs."""
-    mod = importlib.import_module(f"portbench.reference.{cell.config['reference']}")
-    return mod.Reference(problem(cell, inp), precision, fault, slots)
-
-
-def setup_epochs(system) -> Readings:
-    """The program's first epochs, read as the comparison reads them."""
-    out = Readings()
+def setup_epochs(system):
+    """The program's first epochs; their readings, as the comparison reads them."""
     took = []
     for e in range(SETUP_EPOCHS):
         t0 = time.perf_counter()
-        if e == 0:
-            losses, out.calls, out.lanes = system.recorded_epoch()
-            out.moment = system.moment_norms()
-        else:
-            losses = system.epoch()
-        out.losses.append([float(x) for x in losses])
+        system.setup_epoch(e)
         took.append(time.perf_counter() - t0)
-    out.shared_change = system.shared_change()
-    out.specific_change = system.specific_change()
     print("portbench: set-up epochs s " + " ".join(f"{t:.3f}" for t in took), file=sys.stderr)
-    return out
+    return system.readings()
+
+
+def load_limits(root: str, workload: str, names) -> Dict[str, float]:
+    """The cell's limit of each of ``names``."""
+    with open(os.path.join(root, "limits", f"{workload}.json")) as f:
+        limits = json.load(f)
+    missing = [n for n in names if n not in limits]
+    if missing:
+        raise ValueError(f"limits for {workload} lack {missing}")
+    return {n: float(limits[n]) for n in names}
+
+
+def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
+    """Every number that has a limit is finite and within it."""
+    return all(math.isfinite(numbers.get(n, math.nan)) and numbers[n] <= limit
+               for n, limit in limits.items())
 
 
 def _sync(device) -> None:
@@ -189,25 +231,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-class Counter:
-    """Counts the work of epochs from the generators' states before each:
-    the examples from the host draws alone, or (``full``) every K1 and K2
-    call's least time from a replay of all the draws."""
-
-    def __init__(self, cell: Cell, inp: Inputs, system, device):
-        c = cell.config
-        self.work = yardstick.EpochWork(c, inp.traffic.splits["train"], c["batch_size"], device)
-        self.plan = (c["domain_regulation_step"], c["sample_num"], c["add_query_domain"],
-                     c["shuffle_sequence"])
-        self.group = system.group()
-
-    def __call__(self, states, full: bool = False) -> yardstick.Work:
-        if full:
-            return self.work.replay(*states, self.group, *self.plan)
-        return self.work.examples(states[0], *self.plan)
-
-
-def window(system, seconds: float, count: Counter, device, rec: Record):
+def window(system, seconds: float, count, device, rec: Record):
     """Whole epochs back to back for ``seconds``, the last one finished and
     counted; returns (epochs attempted, epochs that raised or gave
     non-finite losses). An epoch that raises ends the window."""
@@ -237,7 +261,7 @@ def window(system, seconds: float, count: Counter, device, rec: Record):
     return len(states), failed
 
 
-def phase_window(system, seconds: float, count: Counter, rec: Record):
+def phase_window(system, seconds: float, count, rec: Record):
     """The window of a traced run: the same epochs, each phase timed on its
     own to a sync, for a third of ``seconds`` (the rest of a traced run's
     time goes to the profiled epoch and its trace); returns (epochs
@@ -248,13 +272,13 @@ def phase_window(system, seconds: float, count: Counter, rec: Record):
     t0 = time.perf_counter()
     while True:
         states.append(system.draw_states())
-        a = time.perf_counter()
-        losses = system.dn_phase()
-        b = time.perf_counter()
-        system.dr_phase()
-        rec.dn_s += b - a
-        rec.dr_s += time.perf_counter() - b
-        failed += int(not np.all(np.isfinite(losses)))
+        finite = True
+        for name, run in system.phases():
+            a = time.perf_counter()
+            losses = run()
+            rec.phase_s[name] = rec.phase_s.get(name, 0.0) + time.perf_counter() - a
+            finite = finite and (losses is None or bool(np.all(np.isfinite(losses))))
+        failed += int(not finite)
         if time.perf_counter() - t0 >= seconds:
             break
     rec.phase_window_s = time.perf_counter() - t0
@@ -263,15 +287,14 @@ def phase_window(system, seconds: float, count: Counter, rec: Record):
     return len(states), failed
 
 
-def traced_epoch(system, count: Counter, device, rec: Record) -> None:
+def traced_epoch(system, count, device, rec: Record) -> None:
     """One epoch under the profiler, and its work replayed in full."""
     state = system.draw_states()
 
     def one():
-        with devtrace.span("dn: phase"):
-            system.dn_phase()
-        with devtrace.span("dr: phase"):
-            system.dr_phase()
+        for name, run in system.phases():
+            with devtrace.span(name):
+                run()
 
     rec.traced = devtrace.trace(one, device)
     rec.traced_work = count(state, full=True)
@@ -297,9 +320,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         mark("inputs")
         system = build_system(cell, inp, device, workdir)
         mark("program")
-        print(f"portbench: {cell.name} seed {seed}: {system.lanes}", file=sys.stderr)
+        print(f"portbench: {cell.name} seed {seed}: {system.describe()}", file=sys.stderr)
         prog = setup_epochs(system)
-        count = Counter(cell, inp, system, device)
+        count = cell.parts.work.Counter(cell.config, inp, system, device)
         mark("epochs")
         rec.setup_s = time.perf_counter() - t_start
         print("portbench: set-up s: imports %.3f " % (marks[0][1] - t_start)
@@ -320,12 +343,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
         ref = reference(cell, inp)
-        numbers, left_out = check.compare(prog, ref.run(SETUP_EPOCHS), ref)
+        numbers, left_out = cell.parts.check.compare(prog, ref.run(SETUP_EPOCHS), ref)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    rec.dims = (3 * cell.config["user_dim"], *cell.config["hidden_dim"])
-    limits = limits if limits is not None else check.load_limits(BENCH_DIR, cell.name)
-    correct = check.judge(numbers, limits) and failed == 0
+    rec.trainable = sum(x.numel() for x in inp.shared0.values())
+    if limits is None:
+        limits = load_limits(BENCH_DIR, cell.name, cell.parts.check.NUMBERS)
+    correct = judge(numbers, limits) and failed == 0
     metrics = {}
     for m in (cell.per_layer if traced else cell.end_to_end):
         value = reader(m["name"])(rec)
@@ -340,12 +364,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         device_info["window_s"] = rec.traced.window_s
         result["breakdown"] = {"device_ops": rec.traced.top(rec.traced.kernel_s),
                                "idle_gaps": rec.traced.top(rec.traced.gaps)}
-    result["check"] = {n: {"value": numbers[n], "limit": limits[n]} for n in check.NUMBERS}
+    result["check"] = {n: {"value": numbers.get(n, math.nan), "limit": lim}
+                       for n, lim in limits.items()}
     print(f"portbench: leaves left out of the changes: {left_out}; failed epochs: {failed}; "
-          + "; ".join(f"{n} {numbers[n]!r} (not compared)" for n in check.READ),
-          file=sys.stderr)
-    for n in check.NUMBERS:
-        print(f"check {n} {numbers[n]!r} limit {limits[n]!r}", file=sys.stderr)
+          + "; ".join(f"{n} {v!r} (not compared)" for n, v in numbers.items()
+                      if n not in limits), file=sys.stderr)
+    for n, c in result["check"].items():
+        print(f"check {n} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     return result
 
 

@@ -3,6 +3,7 @@ a sync), over the phase-timed window."""
 
 
 def read(rec):
-    if not rec.phase_work.dn_examples or not rec.dn_s > 0:
+    ex, s = rec.phase_work.phase_examples.get("dn", 0), rec.phase_s.get("dn", 0.0)
+    if not ex or not s > 0:
         return None
-    return rec.phase_work.dn_examples / rec.dn_s
+    return ex / s

@@ -3,6 +3,7 @@ a sync), over the phase-timed window."""
 
 
 def read(rec):
-    if not rec.phase_work.dr_examples or not rec.dr_s > 0:
+    ex, s = rec.phase_work.phase_examples.get("dr", 0), rec.phase_s.get("dr", 0.0)
+    if not ex or not s > 0:
         return None
-    return rec.phase_work.dr_examples / rec.dr_s
+    return ex / s

@@ -1,6 +1,7 @@
 """The tower kernel K1's least time over its device time in the traced
 epoch, in %: the least time of each call is the larger of its operations
-at the TF32 peak and its bytes at the HBM rate (yardstick.k1_least_s)."""
+at the TF32 peak and its bytes at the HBM rate, as the configuration's work
+count gives it (``least_s["k1"]``); None where the program runs no K1."""
 
 
 def _k1(name):
@@ -9,9 +10,10 @@ def _k1(name):
 
 def read(rec):
     t = rec.traced
-    if t is None:
+    least = rec.traced_work.least_s.get("k1", 0.0)
+    if t is None or least <= 0:
         return None
     busy = t.time_of(_k1)
-    if busy <= 0 or rec.traced_work.k1_least_s <= 0:
+    if busy <= 0:
         return None
-    return 100.0 * rec.traced_work.k1_least_s / busy
+    return 100.0 * least / busy

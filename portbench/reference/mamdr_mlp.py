@@ -41,11 +41,16 @@ comparison's pieces (``lane_pieces``). ``lane_step`` is the reference's
 step of such a lane from a recorded state and the tower's outputs, and
 ``lane_fields`` its field rows: the comparison holds the program's first
 DR lane-step to them.
+
+``make_weights`` makes the weights that both sides are given, on the device
+from a seed in a few large draws; ``problem`` is what the reference is
+built from: the configuration's settings and the run's inputs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -86,6 +91,76 @@ def leaf_order(n_hidden: int) -> Tuple[str, ...]:
     return TABLES + tuple(tower) + ("Wl",)
 
 
+# ---- the inputs both sides are given ----
+
+Tree = Dict[str, torch.Tensor]
+
+
+def shapes(cfg: Dict) -> Dict[str, Tuple[int, ...]]:
+    dims = [3 * cfg["user_dim"], *cfg["hidden_dim"]]
+    out = {"user_emb": (cfg["n_uid"], cfg["user_dim"]), "item_emb": (cfg["n_pid"], cfg["user_dim"]),
+           "domain_emb": (cfg["n_domain"], cfg["user_dim"])}
+    for i in range(len(cfg["hidden_dim"])):
+        out[f"W{i}"] = (dims[i], dims[i + 1])
+        out[f"b{i}"] = (dims[i + 1],)
+    out["Wl"] = (dims[-1], 1)
+    return out
+
+
+def trainable(cfg: Dict) -> List[str]:
+    frozen = () if cfg["emb_trainable"] else ("user_emb", "item_emb")
+    return [n for n in leaf_order(len(cfg["hidden_dim"])) if n not in frozen]
+
+
+def _draw(names: List[str], shp: Dict, copies: int, g: torch.Generator, device) -> List[Tree]:
+    """``copies`` trees of the leaves ``names``: one uniform and one normal
+    draw for all of them, scaled leaf by leaf."""
+    sizes = [math.prod(shp[n]) for n in names]
+    n = sum(sizes)
+    uni = torch.rand((copies, n), generator=g, device=device) * 2.0 - 1.0
+    nor = torch.randn((copies, n), generator=g, device=device)
+    trees = []
+    for c in range(copies):
+        tree, off = {}, 0
+        for name, size in zip(names, sizes):
+            s = shp[name]
+            if name in TABLES:
+                x = nor[c, off:off + size] * 1e-4
+            elif name.startswith("b"):
+                x = torch.zeros(size, device=device)
+            elif name == "Wl":
+                x = nor[c, off:off + size] * math.sqrt(2.0 / (s[0] + s[1]))
+            else:
+                x = uni[c, off:off + size] * math.sqrt(6.0 / (s[0] + s[1]))
+            tree[name] = x.reshape(s).clone()
+            off += size
+        trees.append(tree)
+    return trees
+
+
+def make_weights(cfg: Dict, traffic, seed: int, device) -> Tuple[Tree, Tree, List[Tree]]:
+    """(frozen tables, shared start, each domain's specific start).
+
+    A trainable table N(0, 1e-4) (deepctr's embedding default), a kernel
+    [in, out] glorot-uniform, a bias 0, the logit kernel N(0, 2 / (fan_in +
+    fan_out)). ``shared`` holds every trainable leaf; each domain's specific
+    start is a fresh draw of the same initialisers (``specific_init``
+    "random", the reference's ``init_layer``) or zeros. Frozen tables are
+    the traffic's pretrained ones."""
+    g = torch.Generator(device=device).manual_seed(int(seed))
+    shp, names = shapes(cfg), trainable(cfg)
+    shared = _draw(names, shp, 1, g, device)[0]
+    if cfg["specific_init"] == "zeros":
+        specific = [{n: torch.zeros_like(x) for n, x in shared.items()}
+                    for _ in range(cfg["n_domain"])]
+    elif cfg["specific_init"] == "random":
+        specific = _draw(names, shp, cfg["n_domain"], g, device)
+    else:
+        raise ValueError(f"unknown specific_init {cfg['specific_init']!r}")
+    frozen = {} if cfg["emb_trainable"] else dict(traffic.tables)
+    return frozen, shared, specific
+
+
 @dataclass
 class Problem:
     """What both sides are given, on one device."""
@@ -107,6 +182,19 @@ class Problem:
     np_seed: int
     shuffle_seed: int
     dropout_seed: int
+
+
+def problem(cfg: Dict, inputs) -> Problem:
+    """The reference's problem: the configuration's settings and the run's
+    inputs (the traffic's train split, the weights and the seeds)."""
+    s = inputs.seeds
+    return Problem(
+        train=inputs.traffic.splits["train"], frozen=inputs.frozen, shared0=inputs.shared0,
+        specific0=inputs.specific0, hidden=tuple(cfg["hidden_dim"]), dropout=cfg["dropout"],
+        lr=cfg["learning_rate"], meta_lr=cfg["meta_learning_rate"], sample_num=cfg["sample_num"],
+        add_query=cfg["add_query_domain"], shuffle_sequence=cfg["shuffle_sequence"],
+        reg_step=cfg["domain_regulation_step"], batch=cfg["batch_size"], l2=cfg["l2"],
+        np_seed=s["np"], shuffle_seed=s["shuffle"], dropout_seed=s["dropout"])
 
 
 @dataclass

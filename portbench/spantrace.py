@@ -33,6 +33,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from portbench.devtrace import PHASE
+
 WINDOW = "bench: spans window"
 # the program's layers (utils/trace.py names a span <layer>.<part>)
 PROGRAM = ("strategy.", "engine.", "step", "k1.", "k2.", "trainer.", "eval.")
@@ -42,7 +44,7 @@ Path = Tuple[str, ...]
 
 
 def is_program(name: str) -> bool:
-    return name.startswith(PROGRAM) and not name.startswith(("dn:", "dr:"))
+    return name.startswith(PROGRAM) and not name.endswith(PHASE)
 
 
 @dataclass

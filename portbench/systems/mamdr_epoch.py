@@ -8,17 +8,17 @@ dropout base seed, the shuffle generator and the numpy generator) and runs
 ``run_fused_epoch``. It reads back only what the comparison judges and what
 the metrics count: the epoch's losses and draws, ``shared``, the specific
 trees, the optimizer's first moment, and the first epoch's first tower calls
-and first DR lane-step.
+and first DR lane-step, as the reference's ``Readings``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from portbench.reference.mamdr_mlp import table_rows
+from portbench.reference.mamdr_mlp import Readings, table_rows
 
 # The program's parameter paths of the reference's leaves.
 _TABLE_PATHS = {"user_emb": "embedding/user_emb", "item_emb": "embedding/item_emb",
@@ -36,9 +36,7 @@ class System:
     """One trainer and strategy of the program, built once and driven
     epoch after epoch."""
 
-    def __init__(self, cfg: Dict, traffic, frozen: Dict[str, torch.Tensor],
-                 shared0: Dict[str, torch.Tensor], specific0: List[Dict[str, torch.Tensor]],
-                 seeds: Dict[str, int], device, workdir: str):
+    def __init__(self, cfg: Dict, inputs, device, workdir: str):
         from mamdr_tpu_torch.benchmarks import benchmark_config
         from mamdr_tpu_torch.data.dataset import DomainSplit, MultiDomainDataset
         from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
@@ -46,6 +44,8 @@ class System:
         from mamdr_tpu_torch.utils import trees
 
         self.trees = trees
+        traffic, frozen, seeds = inputs.traffic, inputs.frozen, inputs.seeds
+        shared0, specific0 = inputs.shared0, inputs.specific0
         econf = benchmark_config(cfg["benchmark"], cfg["model"])
         tc = econf.train
         tc.checkpoint_path = tc.result_save_path = workdir
@@ -85,31 +85,45 @@ class System:
         self.shared0 = shared0
         self.specific0 = specific0
         self.slot_at = self._slot_offsets()
+        self.read = Readings()
 
-    @property
-    def lanes(self) -> str:
+    def describe(self) -> str:
         """How DR runs: lanes, and in groups of how many (0: all at once)."""
         s = self.strat
         return f"dr_lanes {bool(s.dr_lanes)} group {int(s._dr_lane_chunk_effective)}"
 
-    def group(self) -> int:
+    def group(self) -> Optional[int]:
+        """DR's lanes a lane-step: 0 all at once, else the size of a
+        group; None where DR runs sequentially, one lane a step."""
         s = self.strat
-        if not s.dr_lanes:
-            raise ValueError("the program runs DR sequentially: not the lane work counted")
-        return int(s._dr_lane_chunk_effective)
+        return int(s._dr_lane_chunk_effective) if s.dr_lanes else None
 
     def draw_states(self):
         """The generators' states before an epoch (to replay its draws)."""
         t = self.trainer
         return t.np_rng.bit_generator.state, t.gen.get_state()
 
-    def plan(self):
-        """The last epoch's domain order and support domains."""
-        return ([int(q) for q in self.strat.order],
-                [[int(a) for a in row] for row in self.strat.aux])
-
     def epoch(self) -> np.ndarray:
         return self.strat.run_fused_epoch()
+
+    def phases(self):
+        """The epoch's phases in order, each ended by a sync."""
+        return [("dn", self.dn_phase), ("dr", self.dr_phase)]
+
+    def setup_epoch(self, e: int) -> None:
+        """Set-up epoch ``e``; the first records its first steps."""
+        if e == 0:
+            losses, self.read.calls, self.read.lanes = self.recorded_epoch()
+            self.read.moment = self.moment_norms()
+        else:
+            losses = self.epoch()
+        self.read.losses.append([float(x) for x in losses])
+
+    def readings(self) -> Readings:
+        """What the set-up epochs gave, for the comparison."""
+        self.read.shared_change = self.shared_change()
+        self.read.specific_change = self.specific_change()
+        return self.read
 
     def recorded_epoch(self):
         """One epoch with its first steps recorded: (losses, calls, lanes).

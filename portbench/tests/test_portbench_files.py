@@ -29,8 +29,8 @@ def _bench():
 def test_cell_found_by_name(workload):
     cell = harness.find_cell(workload)
     c = cell.config
-    for folder, name in (("systems", c["system"]), ("reference", c["reference"]),
-                         ("traffic", cell.traffic["generator"])):
+    for folder, name in [(folder, c[key]) for key, folder in harness.PARTS] + [
+            ("traffic", cell.traffic["generator"])]:
         assert os.path.exists(os.path.join(BENCH, folder, f"{name}.py")), (folder, name)
     assert os.path.exists(os.path.join(BENCH, "limits", f"{workload}.json"))
     assert cell.end_to_end and cell.per_layer
@@ -109,6 +109,7 @@ def test_run_loads_no_jax():
         "import sys; sys.path.insert(0, %r)\n"
         "from portbench import harness, control\n"
         "import portbench.systems.mamdr_epoch, portbench.traffic.latent_clicks\n"
+        "import portbench.checks.mamdr_mlp, portbench.work.mamdr_mlp\n"
         "import mamdr_tpu_torch.strategies.mamdr, mamdr_tpu_torch.train.trainer\n"
         "import mamdr_tpu_torch.benchmarks, mamdr_tpu_torch.data.dataset\n"
         "for w in ('a13-mlp-mamdr.epoch-balanced',):\n"
