@@ -29,6 +29,18 @@ gradient over the table group, so every replicated leaf's gradient is
 whole on every rank. With whole leaves both are the identity, and the same
 code computes the whole model. An expert's dropout mask is its rows of the
 whole bank's. Both collectives run under ``torch.func.vmap`` (the lanes).
+
+PLE's forward is traced (``utils/trace.py``): the spans ``ple.experts`` (the
+task and shared expert products with their ReLU), ``ple.gates`` (both
+gates' softmax and the mixes) and ``ple.towers`` (the task towers and the
+head's selection), also under ``vmap``; the backward runs inside the train
+step's ``step.loss_grad`` (on the card from autograd's device thread, where
+no span is open). ``apply`` and ``apply_lanes`` count, from
+the leaves' shapes and the ids', ``ple.expert_rows`` (rows times the experts
+computed, every task's and the shared ones of every level, as the leaves
+hold them) and ``ple.expert_rows_used`` (rows times the experts the selected
+head depends on: every expert of the levels before the last, and the
+batch's task's own and the shared ones of the last).
 """
 
 from __future__ import annotations
@@ -40,7 +52,9 @@ from torch import nn
 
 from mamdr_tpu_torch.models.deepctr import ZooModel
 from mamdr_tpu_torch.models.layers import DNN, FastDropout, glorot_normal, glorot_uniform
+from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import IOTA_MUL, MASK32
+from mamdr_tpu_torch.utils import trace
 
 
 def _same(x: torch.Tensor) -> torch.Tensor:
@@ -244,6 +258,27 @@ class PLE(_MTLBase):
     def n_dropout_sites(self) -> int:
         return len(self.tower_hidden_dim)
 
+    def apply(self, params, uid, pid, domain, seeds=None, gather=gather_fields):
+        self._count_rows(params, uid.numel())
+        return super().apply(params, uid, pid, domain, seeds, gather)
+
+    def apply_lanes(self, params, uid, pid, domain, gather=gather_fields, seeds=None):
+        self._count_rows(params, uid.numel())
+        return super().apply_lanes(params, uid, pid, domain, gather, seeds)
+
+    def _count_rows(self, params, rows: int) -> None:
+        """``ple.expert_rows`` and ``ple.expert_rows_used`` of a forward over
+        ``rows`` rows, from the shapes of the expert leaves in ``params``
+        (a lane axis, where they carry one, does not count)."""
+        T, computed, used = self.n_domain, 0, 0
+        for level in range(self.num_levels):
+            held, t = params[f"task_expert_kernel_{level}"].shape[-4:-2]
+            s = params[f"shared_expert_kernel_{level}"].shape[-3]
+            computed += held * t + s
+            used += (T * t + s) if level < self.num_levels - 1 else t + s
+        trace.count("ple.expert_rows", rows * computed)
+        trace.count("ple.expert_rows_used", rows * used)
+
     def tower(self, x, lin, domain, seeds):
         T = self.n_domain
         held = self.task_expert_kernel_0.shape[0]
@@ -255,7 +290,8 @@ class PLE(_MTLBase):
                 "task_expert_kernel", "task_expert_bias", "shared_expert_kernel",
                 "shared_expert_bias", "task_gate_kernel", "shared_gate_kernel")}
             task_in, shared_in = self._level(first, held, copy, total, p, task_in, shared_in)
-        return select_head(self.towers(task_in, seeds), domain)
+        with trace.span("ple.towers"):
+            return select_head(self.towers(task_in, seeds), domain)
 
     def _level(self, first: int, held: int, copy, total, p, task_in, shared_in):
         """One CGC level over tasks [first, first + held) (all T on one
@@ -265,24 +301,28 @@ class PLE(_MTLBase):
         over the group, plus the shared experts' part (replicated)."""
         T = self.n_domain
         ti = copy(task_in)[first:first + held]
-        task_experts = torch.relu(
-            torch.einsum("kbi,ktio->ktbo", ti, p["task_expert_kernel"])
-            + p["task_expert_bias"][:, :, None, :])  # [held, t, B, D']
-        shared_experts = torch.relu(
-            torch.einsum("bi,sio->sbo", shared_in, p["shared_expert_kernel"])
-            + p["shared_expert_bias"][:, None, :])  # [s, B, D']
-        gates = torch.softmax(torch.einsum(
-            "kbi,kie->kbe", ti, copy(p["task_gate_kernel"])[first:first + held]), dim=-1)
-        se = copy(shared_experts)
-        cat = torch.cat([task_experts, se.expand(held, *se.shape)], dim=1)  # [held, t+s, B, D']
-        local = torch.einsum("kbe,kebd->kbd", gates, cat)  # [held, B, D']
-        if held < T:
-            rest = local.shape[1:]
-            local = torch.cat([local.new_zeros((first, *rest)), local,
-                               local.new_zeros((T - first - held, *rest))])
-        t = task_experts.shape[1]
-        sgates = torch.softmax(shared_in @ p["shared_gate_kernel"], dim=-1)
-        part = torch.einsum("be,ebd->bd", copy(sgates)[:, first * t:(first + held) * t],
-                            task_experts.reshape(-1, *task_experts.shape[2:]))
-        shared_out = total(part) + torch.einsum("be,ebd->bd", sgates[:, T * t:], shared_experts)
-        return total(local), shared_out
+        with trace.span("ple.experts"):
+            task_experts = torch.relu(
+                torch.einsum("kbi,ktio->ktbo", ti, p["task_expert_kernel"])
+                + p["task_expert_bias"][:, :, None, :])  # [held, t, B, D']
+            shared_experts = torch.relu(
+                torch.einsum("bi,sio->sbo", shared_in, p["shared_expert_kernel"])
+                + p["shared_expert_bias"][:, None, :])  # [s, B, D']
+        with trace.span("ple.gates"):
+            gates = torch.softmax(torch.einsum(
+                "kbi,kie->kbe", ti, copy(p["task_gate_kernel"])[first:first + held]), dim=-1)
+            se = copy(shared_experts)
+            # [held, t+s, B, D']
+            cat = torch.cat([task_experts, se.expand(held, *se.shape)], dim=1)
+            local = torch.einsum("kbe,kebd->kbd", gates, cat)  # [held, B, D']
+            if held < T:
+                rest = local.shape[1:]
+                local = torch.cat([local.new_zeros((first, *rest)), local,
+                                   local.new_zeros((T - first - held, *rest))])
+            t = task_experts.shape[1]
+            sgates = torch.softmax(shared_in @ p["shared_gate_kernel"], dim=-1)
+            part = torch.einsum("be,ebd->bd", copy(sgates)[:, first * t:(first + held) * t],
+                                task_experts.reshape(-1, *task_experts.shape[2:]))
+            shared_out = total(part) + torch.einsum("be,ebd->bd", sgates[:, T * t:],
+                                                    shared_experts)
+            return total(local), shared_out

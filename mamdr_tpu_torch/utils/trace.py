@@ -14,9 +14,10 @@ encloses it on the same thread.
 
 Span names are ``<layer>.<part>``: ``strategy.*`` (strategies/mamdr.py),
 ``engine.*`` (train/fused.py), ``step`` and ``step.*`` (train/steps.py, the
-optimizers), ``k1.tower`` and ``k2.gather`` (ops/), ``trainer.*``
-(train/trainer.py, the strategies' epoch loops) and ``eval.auc``. No name
-starts with ``dn:`` or ``dr:``.
+optimizers), ``k1.tower`` and ``k2.gather`` (ops/), ``ple.experts``,
+``ple.gates`` and ``ple.towers`` (PLE's forward, models/mtl.py; under the
+lane step's ``vmap`` too), ``trainer.*`` (train/trainer.py, the strategies'
+epoch loops) and ``eval.auc``. No name starts with ``dn:`` or ``dr:``.
 
 ``count(name, n)`` is always on: an integer add in a module dict, made on
 the host from what the host knows, never a read of the device.
@@ -24,6 +25,9 @@ the host from what the host knows, never a read of the device.
 ``host_syncs``. ``counters()`` returns the counts with those a module keeps
 itself and hands over with ``register`` (the kernels' launch counters,
 ``fused_tower_grad.launches`` and the rest, and their build seconds).
+Among the program's own: ``ple.expert_rows`` and ``ple.expert_rows_used``
+(models/mtl.py: rows times the PLE experts a forward computes, and times
+those its selected head depends on).
 
 ``profiled(profile_dir, name, log)`` is the operator's trace
 (``train.profile_dir``, through ``Trainer.profiled``): the block under
