@@ -1,11 +1,18 @@
 """Multi-task CTR models: SharedBottom, MMoE and PLE, one task a domain.
 
 Counterpart of ``mamdr_tpu/models/mtl.py`` (reference
-model_zoo/DeepMTLCTR/deep_mtl_ctr.py:17-233). Every forward computes ALL T
-task towers batched on a leading task axis ([T, ...] einsums) and selects
-the logit of the batch's domain, ``domain[0]`` (a batch is one domain's;
-``select_head``). In a lane forward (``ZooModel.apply_lanes``) each lane
-selects by its own ``domain[:, 0]``.
+model_zoo/DeepMTLCTR/deep_mtl_ctr.py:17-233). A batch is one domain's, and
+its logit is the head of its domain's task, ``domain[0]``. SharedBottom and
+MMoE compute ALL T task towers batched on a leading task axis ([T, ...]
+einsums) and select that head (``select_head``). PLE with whole task leaves
+runs its levels before the last for every task (their task outputs feed the
+next level's shared gate), and its last CGC level and tower for the batch's
+task alone: the task-indexed leaves of those are gathered at ``domain[:1]``
+(``torch.index_select``, whose backward scatters into zeros, so every other
+task's slice gets a gradient of exactly 0), the last level's shared mix,
+which feeds nothing, is not computed, and the tower's dropout masks are the
+task's rows of the whole [T, B, units] masks. In a lane forward
+(``ZooModel.apply_lanes``) each lane takes its own ``domain[:, 0]``.
 
 Parameter trees keep the flax names: ``towers/tower_{kernel,bias}_i``,
 ``towers/tower_logit``, ``experts/expert_{kernel,bias}_i``, ``gate_kernel``,
@@ -29,6 +36,8 @@ gradient over the table group, so every replicated leaf's gradient is
 whole on every rank. With whole leaves both are the identity, and the same
 code computes the whole model. An expert's dropout mask is its rows of the
 whole bank's. Both collectives run under ``torch.func.vmap`` (the lanes).
+A rank's slice of PLE runs every task's last level and tower, since the
+batch's task may sit on another rank.
 
 PLE's forward is traced (``utils/trace.py``): the spans ``ple.experts`` (the
 task and shared expert products with their ReLU), ``ple.gates`` (both
@@ -37,10 +46,11 @@ head's selection), also under ``vmap``; the backward runs inside the train
 step's ``step.loss_grad`` (on the card from autograd's device thread, where
 no span is open). ``apply`` and ``apply_lanes`` count, from
 the leaves' shapes and the ids', ``ple.expert_rows`` (rows times the experts
-computed, every task's and the shared ones of every level, as the leaves
-hold them) and ``ple.expert_rows_used`` (rows times the experts the selected
+computed) and ``ple.expert_rows_used`` (rows times the experts the selected
 head depends on: every expert of the levels before the last, and the
-batch's task's own and the shared ones of the last).
+batch's task's own and the shared ones of the last). With whole task leaves
+the two are equal; a rank's slice computes its tasks' and the shared
+experts of every level.
 """
 
 from __future__ import annotations
@@ -67,6 +77,11 @@ def _param(shape, init, generator) -> nn.Parameter:
 
 def _zeros(shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape))
+
+
+_LEVEL_LEAVES = ("task_expert_kernel", "task_expert_bias", "shared_expert_kernel",
+                 "shared_expert_bias", "task_gate_kernel", "shared_gate_kernel")
+_TASK_LEAVES = ("task_expert_kernel", "task_expert_bias", "task_gate_kernel")  # [T, ...]
 
 
 def _seeds(seeds, start: int, stop: int):
@@ -269,38 +284,69 @@ class PLE(_MTLBase):
     def _count_rows(self, params, rows: int) -> None:
         """``ple.expert_rows`` and ``ple.expert_rows_used`` of a forward over
         ``rows`` rows, from the shapes of the expert leaves in ``params``
-        (a lane axis, where they carry one, does not count)."""
-        T, computed, used = self.n_domain, 0, 0
+        (a lane axis, where they carry one, does not count): a level
+        computes its held tasks' and its shared experts, except a last level
+        over whole task leaves, which computes the batch's task's alone."""
+        T, last, computed, used = self.n_domain, self.num_levels - 1, 0, 0
         for level in range(self.num_levels):
             held, t = params[f"task_expert_kernel_{level}"].shape[-4:-2]
             s = params[f"shared_expert_kernel_{level}"].shape[-3]
-            computed += held * t + s
-            used += (T * t + s) if level < self.num_levels - 1 else t + s
+            computed += (t + s) if level == last and held == T else held * t + s
+            used += (t + s) if level == last else T * t + s
         trace.count("ple.expert_rows", rows * computed)
         trace.count("ple.expert_rows_used", rows * used)
 
     def tower(self, x, lin, domain, seeds):
-        T = self.n_domain
+        T, last = self.n_domain, self.num_levels - 1
         held = self.task_expert_kernel_0.shape[0]
         first, copy, total = self._expert_split(held, T)
         task_in = x.expand(T, *x.shape)  # [T, B, D]
         shared_in = x
         for level in range(self.num_levels):
-            p = {n: getattr(self, f"{n}_{level}") for n in (
-                "task_expert_kernel", "task_expert_bias", "shared_expert_kernel",
-                "shared_expert_bias", "task_gate_kernel", "shared_gate_kernel")}
+            p = {n: getattr(self, f"{n}_{level}") for n in _LEVEL_LEAVES}
+            if level == last and held == T:  # whole task leaves: the batch's task alone
+                d = domain[:1].long()
+                ti = x[None] if level == 0 else torch.index_select(task_in, 0, d)
+                return self._one_task(d, p, ti, shared_in, seeds)
             task_in, shared_in = self._level(first, held, copy, total, p, task_in, shared_in)
         with trace.span("ple.towers"):
             return select_head(self.towers(task_in, seeds), domain)
 
+    def _one_task(self, d, p, task_in, shared_in, seeds):
+        """The last level and the tower of task ``d`` ([1]) alone, on its
+        input ``task_in`` [1, B, D]: the level's and the towers' task leaves
+        gathered at ``d``, the level's shared mix left out (it feeds
+        nothing), and each tower dropout seed advanced by ``d * B * units``
+        steps of the mask's counter, so the masks are task ``d``'s rows of
+        the whole [T, B, units] ones -> logits [B]."""
+        # leaving out shared_gate_kernel is how ``_level`` is told this is a
+        # last level: it then skips the shared mix
+        p = {n: torch.index_select(v, 0, d) if n in _TASK_LEAVES else v
+             for n, v in p.items() if n != "shared_gate_kernel"}
+        out, _ = self._level(0, 1, _same, _same, p, task_in, shared_in)
+        with trace.span("ple.towers"):
+            leaves = {n: torch.index_select(v, 0, d) for n, v in self.towers.named_parameters()}
+            if seeds is not None and self.tower_hidden_dim:
+                # d * B * units * IOTA_MUL mod 2**32; d < T keeps d * c inside int64
+                rows = out.shape[1]
+                step = torch.cat([d * (rows * u * IOTA_MUL & MASK32)
+                                  for u in self.tower_hidden_dim])
+                seeds = (seeds + step) & MASK32
+            return torch.func.functional_call(self.towers, leaves, (out, seeds)).squeeze(0)
+
     def _level(self, first: int, held: int, copy, total, p, task_in, shared_in):
-        """One CGC level over tasks [first, first + held) (all T on one
-        device): their experts, gates and mixed outputs, summed over the
-        table group into the whole [T, B, D'] (a zero-filled placement);
-        the shared path's mix is its part over those tasks' experts, summed
-        over the group, plus the shared experts' part (replicated)."""
-        T = self.n_domain
-        ti = copy(task_in)[first:first + held]
+        """One CGC level over tasks [first, first + held) of ``task_in``'s
+        (all of them on one device): their experts, gates and mixed outputs,
+        summed over the table group into the whole [task_in.shape[0], B, D']
+        (a zero-filled placement); the shared path's mix is its part over
+        those tasks' experts, summed over the group, plus the shared
+        experts' part (replicated). A ``p`` without ``shared_gate_kernel``
+        marks a last level, whose shared mix feeds nothing: the mix is then
+        not computed, and None is returned in its place."""
+        T, n_in = self.n_domain, task_in.shape[0]
+        ti, gk = copy(task_in), copy(p["task_gate_kernel"])
+        if held < n_in:  # a slice's backward is a zero fill and a copy: only where it cuts
+            ti, gk = ti[first:first + held], gk[first:first + held]
         with trace.span("ple.experts"):
             task_experts = torch.relu(
                 torch.einsum("kbi,ktio->ktbo", ti, p["task_expert_kernel"])
@@ -309,16 +355,17 @@ class PLE(_MTLBase):
                 torch.einsum("bi,sio->sbo", shared_in, p["shared_expert_kernel"])
                 + p["shared_expert_bias"][:, None, :])  # [s, B, D']
         with trace.span("ple.gates"):
-            gates = torch.softmax(torch.einsum(
-                "kbi,kie->kbe", ti, copy(p["task_gate_kernel"])[first:first + held]), dim=-1)
+            gates = torch.softmax(torch.einsum("kbi,kie->kbe", ti, gk), dim=-1)
             se = copy(shared_experts)
             # [held, t+s, B, D']
             cat = torch.cat([task_experts, se.expand(held, *se.shape)], dim=1)
             local = torch.einsum("kbe,kebd->kbd", gates, cat)  # [held, B, D']
-            if held < T:
+            if held < n_in:
                 rest = local.shape[1:]
                 local = torch.cat([local.new_zeros((first, *rest)), local,
-                                   local.new_zeros((T - first - held, *rest))])
+                                   local.new_zeros((n_in - first - held, *rest))])
+            if "shared_gate_kernel" not in p:
+                return total(local), None
             t = task_experts.shape[1]
             sgates = torch.softmax(shared_in @ p["shared_gate_kernel"], dim=-1)
             part = torch.einsum("be,ebd->bd", copy(sgates)[:, first * t:(first + held) * t],

@@ -38,7 +38,10 @@ ranks work:
 - ``shard_experts`` on MMoE and PLE (``tests/test_expert_parallel.py``'s
   recipe, four domains so PLE's task experts split over the table axis):
   three data-parallel steps, a lane step and a lane eval (the collectives
-  under ``torch.func.vmap``) on (2, 2) against the port's one process
+  under ``torch.func.vmap``) on (2, 2) against the port's one process, and
+  PLE's ``ple.expert_rows`` / ``_used`` over the first step: a rank's
+  slice computes its held tasks' experts of every level (held·t + s a
+  level), whole leaves the last level for the batch's task alone
   (losses and evaluations rtol 2e-5 / atol 2e-5, params with a floor of
   lr/100 for Adam's steps on rounding-noise gradients), and the one
   process's losses and first-step Adam slots against the JAX
@@ -457,7 +460,7 @@ def expert_run(t, whole, batch, n_domain=4):
     domain: {name: whole arrays}."""
     from mamdr_tpu_torch.convert import state_on_mesh
     from mamdr_tpu_torch.train.steps import make_subset_train_step
-    from mamdr_tpu_torch.utils import trees
+    from mamdr_tpu_torch.utils import trace, trees
 
     if t.mesh is None:
         params = trees.tree_map(lambda x: torch.tensor(np.asarray(x)), whole)
@@ -468,8 +471,13 @@ def expert_run(t, whole, batch, n_domain=4):
     step = t.train_step_fn()
     losses, out = [], {}
     for i in range(3):
+        before = trace.counters()
         t.state, loss = step(t.state, batch)
         losses.append(float(loss))
+        if i == 0:  # the first step's PLE expert counts (0 for MMoE)
+            got = trace.since(before)
+            out["counted"] = np.asarray([got.get("ple.expert_rows", 0),
+                                         got.get("ple.expert_rows_used", 0)])
         if i == 0 and t.mesh is None:  # the first step's slots, over the whole leaves
             out.update(mu=t.state.opt_state.mu.numpy(), nu=t.state.opt_state.nu.numpy())
     out["losses"] = np.asarray(losses)
@@ -978,6 +986,17 @@ def test_shard_experts_match_jax_and_one_process(ranks, name):
         torch.set_num_threads(threads)
     got = _load(ranks, f"experts_{name}")
     assert sorted(got) == sorted(k for k in one if k not in ("mu", "nu"))
+    # PLE's counters over the first step (T=4, t=s=1, two levels): the one
+    # process's whole task leaves compute every task's first level and the
+    # batch's task's last, 7 experts a row, what the head reads; rank 0
+    # holds 2 of the 4 tasks' experts, so it computes 2*1 + 1 a level over
+    # its data half of the rows, and reads 7 a row
+    counted, one_counted = got.pop("counted").tolist(), one.pop("counted").tolist()
+    if name == "ple":
+        assert one_counted == [64 * 7, 64 * 7]
+        assert counted == [32 * 2 * (2 + 1), 32 * 7]
+    else:
+        assert counted == one_counted == [0, 0]
     # the mesh against one process: losses and evaluations at rtol 2e-5 /
     # atol 2e-5; params with an absolute floor of lr/100: a PLE tower bias
     # whose gradient is rounding noise takes Adam steps of order lr steered

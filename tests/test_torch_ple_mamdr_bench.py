@@ -10,7 +10,8 @@ the port's public entry points (``benchmark_config``, ``Trainer``,
   Adam slots;
 - PLE's spans (``ple.experts``, ``ple.gates``, ``ple.towers``) in the
   operator's trace, under the lane step's ``vmap`` too, and its counters
-  ``ple.expert_rows`` / ``ple.expert_rows_used`` against a hand count.
+  ``ple.expert_rows`` / ``ple.expert_rows_used`` against a hand count
+  (equal: whole leaves compute only the batch's task's last level).
 
 The benchmark's cell (its comparison, controls, planted faults and work
 count) is tested with the benchmark, in ``portbench/tests``.
@@ -235,8 +236,9 @@ def test_spans_and_counters(tmp_path):
 
     t, strat = _port(tmp_path)
     cfg = t.config.model
-    computed = N_DOMAIN * cfg.specific_expert_num + cfg.shared_expert_num
-    used = cfg.specific_expert_num + cfg.shared_expert_num
+    # whole task leaves: one level, computed for the batch's task alone, so
+    # the experts computed are the experts the head uses
+    computed = used = cfg.specific_expert_num + cfg.shared_expert_num
     batch = _batch(1, 41)
     sub_step, to_sub, _ = make_subset_train_step(t.model, t.tx, t.step_cfg, t.frozen_mask(),
                                                  t.state.params)
