@@ -19,7 +19,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
-from mamdr_tpu_torch.train.flat_optimizer import FlatAdamState
+from mamdr_tpu_torch.train.flat_optimizer import FlatAdam, FlatAdamState
 from mamdr_tpu_torch.utils import trees
 
 
@@ -114,6 +114,7 @@ def state_on_mesh(tree_of_numpy: Any, mesh, min_rows: int = 16384, opt_state=Non
     Adam over the whole padded tree and its ``trainable_mask`` (the
     optimizer's mask): the slots are cut to follow the slices. On
     ``device`` (default: the mesh rank's)."""
+    from mamdr_tpu_torch.models.embeddings import lookup_row_sharded
     from mamdr_tpu_torch.parallel.embedding_shard import pad_rows
     from mamdr_tpu_torch.parallel.trainer_sharding import (
         shard_flat_slots,
@@ -125,7 +126,7 @@ def state_on_mesh(tree_of_numpy: Any, mesh, min_rows: int = 16384, opt_state=Non
 
     def pad(name, x):
         x = torch.tensor(np.asarray(x))
-        if name.rsplit("/", 1)[-1] in ("user_emb", "item_emb") and x.dim() == 2:
+        if lookup_row_sharded(name) and x.dim() == 2:
             n = pad_rows(x.shape[0], mesh.table)
             if n != x.shape[0]:
                 x = torch.cat([x, x.new_zeros((n - x.shape[0], x.shape[1]))])
@@ -137,10 +138,8 @@ def state_on_mesh(tree_of_numpy: Any, mesh, min_rows: int = 16384, opt_state=Non
     if opt_state is None:
         return params, axes
 
-    class _Sel:  # the optimizer's leaf selection, as FlatAdam keeps it
-        _trainable = trees.leaves(trainable_mask)
-
     count, mu, nu = (torch.tensor(np.asarray(v)) for v in opt_state)
-    mu, nu = (shard_flat_slots(v, whole, axes, _Sel, mesh) for v in (mu, nu))
+    sel = FlatAdam(0.0, trainable_mask)  # the optimizer's leaf selection
+    mu, nu = (shard_flat_slots(v, whole, axes, sel, mesh) for v in (mu, nu))
     return params, axes, FlatAdamState(count=count.to(torch.int32).to(device),
                                        mu=mu.to(device), nu=nu.to(device))

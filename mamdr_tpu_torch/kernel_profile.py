@@ -261,6 +261,7 @@ def main() -> int:
     del unc, unc_step, flat0
 
     # ---- 7. the zoo: a joint autograd step and a DR autograd lane-step ----
+    from mamdr_tpu_torch.models.embeddings import frozen_mask
     from mamdr_tpu_torch.train.steps import make_subset_train_step
     from mamdr_tpu_torch.utils import trees
 
@@ -274,8 +275,7 @@ def main() -> int:
                                                zt.dataset.batch_size,
                                                real_steps=zt.steps_per_domain()[0]),
                   zt.steps_per_domain()[0], unit="step", host_top=8)
-        frozen = trees.named_tree_map(lambda n, x: "user_emb" in n or "item_emb" in n,
-                                      zt.state.params)
+        frozen = frozen_mask(zt.state.params, emb_trainable=False)  # pretrained tables
         mask = trees.tree_map(lambda x: True, zt.state.params)  # meta_parms "all"
         sub_step, to_sub, _ = make_subset_train_step(zt.model, zt.tx, zt.step_cfg, frozen,
                                                      zt.state.params)

@@ -8,10 +8,13 @@ term, ``linear_{user,item,domain}_emb`` [N, 1], gathered by plain indexing
 (``table_rows``: K2 takes widths that are multiples of 4, and the JAX
 package gathers these with ``jnp.take``, not a Pallas kernel); and
 ``stack_fields``, the [B, 3, D] field stack as a view of the gather's one
-output. Freezing is not done here; the optimizer skips frozen tables
-(train/steps.py::make_optimizer) — every table whose path holds "user_emb"
-or "item_emb", the linear ones too, as in the JAX package. Paths all contain
-"emb" so the reference's meta_parms filters work unchanged.
+output.
+
+The table rule lives here alone; callers build its masks once, never per
+step. Tables (the l2 term's set) are the paths holding "emb"; with
+``emb_trainable`` false those holding "user_emb" or "item_emb" are frozen,
+the wide term's too, as in the JAX package; and a mesh row-shards by the
+JAX package's rule or, narrower, by its lookup's.
 """
 
 from __future__ import annotations
@@ -24,6 +27,34 @@ from torch import nn
 
 from mamdr_tpu_torch.models.layers import emb_init
 from mamdr_tpu_torch.ops.embedding_lookup import table_rows
+from mamdr_tpu_torch.utils import trees
+
+FIELD_TABLES = ("user_emb", "item_emb", "domain_emb")  # the field gather's, in order
+
+
+def _user_or_item(name: str) -> bool:
+    return "user_emb" in name or "item_emb" in name
+
+
+def table_mask(params):
+    """True at the tables: each leaf whose path holds "emb"."""
+    return trees.named_tree_map(lambda n, x: "emb" in n, params)
+
+
+def frozen_mask(params, emb_trainable: bool):
+    """True at the tables the optimizer never trains."""
+    return trees.named_tree_map(lambda n, x: not emb_trainable and _user_or_item(n), params)
+
+
+def jax_row_sharded(name: str, x: torch.Tensor) -> bool:
+    """The JAX package's row-shard rule: a 2-D user or item table, [n, 1]
+    ones too (the caller checks the rows divide the table axis)."""
+    return _user_or_item(name) and x.dim() == 2
+
+
+def lookup_row_sharded(name: str) -> bool:
+    """The mesh lookup's: a leaf named exactly ``user_emb`` / ``item_emb``."""
+    return name.rsplit("/", 1)[-1] in FIELD_TABLES[:2]
 
 
 def _table(pretrained: Optional[np.ndarray], shape, generator) -> nn.Parameter:

@@ -46,13 +46,13 @@ import torch
 from torch import nn
 
 from mamdr_tpu_torch.models.deepctr import ZooModel, _flat
+from mamdr_tpu_torch.models.embeddings import FIELD_TABLES
 from mamdr_tpu_torch.models.layers import Dense, glorot_uniform
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.utils import trees
 
 MOMENTUM = 0.99
 EPSILON = 1e-3
-_TABLES = ("user_emb", "item_emb", "domain_emb")
 
 
 def keras_embedding_init(t: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -245,7 +245,7 @@ class Star(ZooModel):
     def gather_inputs(self, params, uid, pid, domain, gather=gather_fields):
         """(x [*ids.shape, 3D], None): the three top-level tables by ONE
         ``gather``; no wide term."""
-        x = gather(tuple(params[k] for k in _TABLES), (uid, pid, domain))[0]
+        x = gather(tuple(params[k] for k in FIELD_TABLES), (uid, pid, domain))[0]
         return x, None
 
     def forward(self, uid, pid, domain, seeds=None, fields=None, stats=None,
@@ -299,7 +299,7 @@ class Star(ZooModel):
         ``stats_axes``); every lane reads the statistics of its own batch's
         domain."""
         x = self.gather_inputs(params, uid, pid, domain, gather)[0]
-        tower = {k: v for k, v in params.items() if k not in _TABLES}
+        tower = {k: v for k, v in params.items() if k not in FIELD_TABLES}
         axes = self.lane_axes(tower)
         stats = stats if self.has_batch_stats else None
         s_axes = None if stats is None else self.stats_axes(stats)

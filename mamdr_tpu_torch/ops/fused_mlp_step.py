@@ -40,6 +40,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mamdr_tpu_torch.models.embeddings import FIELD_TABLES, frozen_mask
 from mamdr_tpu_torch.ops import _cuda
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields, scatter_rows
 from mamdr_tpu_torch.ops.fast_random import MASK32, dropout_mask
@@ -424,18 +425,6 @@ def dense_paths(model_params) -> Sequence[Tuple[str, ...]]:
     return paths
 
 
-def _get(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
-
-
-def _set(tree, path, value):
-    for k in path[:-1]:
-        tree = tree[k]
-    tree[path[-1]] = value
-
-
 def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
                         gather: Optional[Callable] = None):
     """Returns f(params, batch, seeds, train=True) -> (data_loss, grads), for
@@ -459,7 +448,8 @@ def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
     rate = float(model.dropout)
     u_dim, i_dim = int(model.user_dim), int(model.item_dim)
     l2 = float(cfg.l2_emb)
-    emb_trainable = bool(cfg.emb_trainable)
+    frozen = frozen_mask(model.param_tree(), cfg.emb_trainable)["embedding"]
+    train_mask = tuple(not frozen[k] for k in FIELD_TABLES)  # K2's (user, item, domain)
     gather = gather or cfg.lookup or gather_fields
 
     def table_grad(table, flat, dx_part):
@@ -475,10 +465,10 @@ def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
         x, (u_flat, p_flat, d_flat) = gather(
             (emb["user_emb"], emb["item_emb"], emb["domain_emb"]),
             (batch["uid"], batch["pid"], batch["domain"]),
-            train_mask=(emb_trainable, emb_trainable, True))
+            train_mask=train_mask)
 
         paths = dense_paths(mp)
-        dense = tuple(_get(mp, path) for path in paths)
+        dense = tuple(trees.at(mp, path) for path in paths)
         tower = tower_grad or (fused_tower_grad_lanes if x.dim() == 3 else fused_tower_grad)
         data_loss, dx, dgrads = tower(
             x, batch["label"], batch["weight"], seeds, dense, dims,
@@ -487,14 +477,15 @@ def make_fast_loss_grad(model, cfg, tower_grad: Optional[Callable] = None,
 
         grads_model = trees.tree_map(lambda leaf: None, mp)
         for path, g in zip(paths, dgrads):
-            _set(grads_model, path, g.reshape(_get(mp, path).shape))
+            trees.at(grads_model, path[:-1])[path[-1]] = g.reshape(trees.at(mp, path).shape)
 
         # embedding grads: scatter-add of dx slices + l2 terms (frozen
         # tables get none: the optimizer never reads them)
         ge = grads_model["embedding"]
         ge["domain_emb"] = table_grad(emb["domain_emb"], d_flat, dx[..., u_dim + i_dim :])
-        if emb_trainable:
+        if train_mask[0]:
             ge["user_emb"] = table_grad(emb["user_emb"], u_flat, dx[..., :u_dim])
+        if train_mask[1]:
             ge["item_emb"] = table_grad(emb["item_emb"], p_flat,
                                         dx[..., u_dim : u_dim + i_dim])
         return data_loss, {"model": grads_model}

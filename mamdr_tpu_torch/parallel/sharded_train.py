@@ -25,7 +25,7 @@ from mamdr_tpu_torch.parallel.data_feed import data_rows
 from mamdr_tpu_torch.parallel.embedding_shard import MeshLookup, pad_rows, shard_range
 from mamdr_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, all_reduce_sum_
 from mamdr_tpu_torch.parallel.trainer_sharding import make_sharded_batch
-from mamdr_tpu_torch.train.flat_optimizer import apply_updates, flat_adam
+from mamdr_tpu_torch.train.flat_optimizer import FlatAdam, true_on
 from mamdr_tpu_torch.utils import trees
 
 
@@ -73,7 +73,8 @@ def make_sharded_train_step(mesh: Mesh, n_uid: int, n_pid: int, n_domain: int, b
             raise ValueError(f"{k} has {params[k].shape[0]} rows, the padded table {n}")
         params[k] = params[k][shard_range(mesh, n)].contiguous()
     params = trees.tree_map(lambda x: x.to(mesh.device), params)
-    tx = flat_adam(learning_rate, trees.tree_map(lambda x: True, params))
+    tx = FlatAdam(learning_rate, trees.tree_map(lambda x: True, params))
+    has_data = true_on(mesh.device)
     state = ShardedState(params, tx.init(params))
     lookup = MeshLookup(mesh, (True, True, False))
     layers = [str(i) for i in range(len(params["dense"]))]
@@ -99,7 +100,6 @@ def make_sharded_train_step(mesh: Mesh, n_uid: int, n_pid: int, n_domain: int, b
                                                + [loss.detach().reshape(1)]), DATA_AXIS)
         pieces = iter(torch.split(flat[:-1], [g.numel() for g in grads]))
         gtree = trees.tree_map(lambda x: next(pieces).view(x.shape), state.params)
-        updates, opt = tx.update(gtree, state.opt_state)
-        return ShardedState(apply_updates(state.params, updates), opt), flat[-1]
+        return ShardedState(*tx.step(state.params, gtree, state.opt_state, has_data)), flat[-1]
 
     return step, state, make_sharded_batch(mesh, n_uid, n_pid, n_domain, batch)

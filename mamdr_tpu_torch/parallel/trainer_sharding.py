@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from mamdr_tpu_torch.models.deepctr import MLP
+from mamdr_tpu_torch.models.embeddings import jax_row_sharded, lookup_row_sharded, table_mask
 from mamdr_tpu_torch.ops.fast_random import IOTA_MUL, MASK32, fmix32
 from mamdr_tpu_torch.parallel.data_feed import data_rows
 from mamdr_tpu_torch.parallel.embedding_shard import shard_range
@@ -50,16 +51,15 @@ _DATA_MIX = 0x27D4EB2F  # decorrelates the data ranks' seeds of a zoo model
 
 
 def param_sharding_specs(params, mesh: Mesh, shard_experts: bool = False):
-    """The JAX rule (trainer_sharding.py:39-62) per leaf: ``ROW`` for a 2-D
-    leaf whose name holds "user_emb" or "item_emb" and whose rows divide the
-    table axis; with ``shard_experts`` ``EXPERT`` for an MMoE / PLE expert
-    bank leaf of rank >= 2 whose leading axis divides it; None (replicated)
-    otherwise."""
+    """The JAX rule (trainer_sharding.py:39-62) per leaf: ``ROW`` for a
+    table it row-shards (``models/embeddings.jax_row_sharded``) whose rows
+    divide the table axis; with ``shard_experts`` ``EXPERT`` for an MMoE /
+    PLE expert bank leaf of rank >= 2 whose leading axis divides it; None
+    (replicated) otherwise."""
     t = mesh.table
 
     def spec(name: str, x):
-        if (("user_emb" in name or "item_emb" in name) and x.dim() == 2
-                and x.shape[0] % t == 0):
+        if jax_row_sharded(name, x) and x.shape[0] % t == 0:
             return ROW
         if (shard_experts and any(k in name for k in _EXPERT) and x.dim() >= 2
                 and x.shape[0] % t == 0):
@@ -70,12 +70,10 @@ def param_sharding_specs(params, mesh: Mesh, shard_experts: bool = False):
 
 
 def lookup_sharded(name: str, x: torch.Tensor, mesh: Mesh, min_rows: int) -> bool:
-    """Whether the port row-shards the leaf: the field tables ``user_emb`` /
-    ``item_emb`` (not the wide term's dim-1 ones) with at least ``min_rows``
-    rows, divisible by the table axis (the JAX lookup's own predicate,
-    embedding_lookup.py:45-52)."""
-    leaf = name.rsplit("/", 1)[-1]
-    return (leaf in ("user_emb", "item_emb") and x.dim() == 2
+    """Whether the port row-shards the leaf: a table its mesh lookup takes
+    (``models/embeddings.lookup_row_sharded``) with at least ``min_rows``
+    rows, divisible by the table axis (JAX embedding_lookup.py:45-52)."""
+    return (lookup_row_sharded(name) and x.dim() == 2
             and x.shape[0] >= min_rows and x.shape[0] % mesh.table == 0)
 
 
@@ -133,21 +131,26 @@ def shard_train_state(state, axes, mesh: Mesh, tx):
     return state.replace(params=params, opt_state=opt)
 
 
+def _map_split_segments(vec: torch.Tensor, params, axes, tx, fn) -> torch.Tensor:
+    """A flat Adam slot vector over the trainable leaves of ``params`` with
+    each split leaf's segment (shaped [*lead, *leaf.shape]) replaced by
+    ``fn(axis, segment)``, in leaf order."""
+    out, off, lead = [], 0, vec.shape[:-1]
+    for a, sel, x in zip(trees.leaves(axes), tx._trainable, trees.leaves(params)):
+        if sel:
+            seg = vec[..., off:off + x.numel()]
+            off += x.numel()
+            out.append((fn(a, seg.reshape(*lead, *x.shape)) if a else seg).reshape(*lead, -1))
+    return torch.cat(out, dim=-1) if out else vec
+
+
 def shard_flat_slots(vec: torch.Tensor, whole_params, axes, tx, mesh: Mesh):
     """A flat Adam slot vector over the whole trainable leaves -> the one
     over this rank's leaves: each split leaf's segment cut to its slice."""
-    out, off = [], 0
-    for a, sel, x in zip(trees.leaves(axes), tx._trainable, trees.leaves(whole_params)):
-        if not sel:
-            continue
-        seg = vec[..., off:off + x.numel()]
-        off += x.numel()
-        if a:
-            seg = seg.reshape(*vec.shape[:-1], *x.shape)
-            r = shard_range(mesh, x.shape[a])
-            seg = seg.narrow(seg.dim() + a, r.start, r.stop - r.start)
-        out.append(seg.reshape(*vec.shape[:-1], -1))
-    return torch.cat(out, dim=-1) if out else vec
+    def cut(a, seg):
+        r = shard_range(mesh, seg.shape[a])
+        return seg.narrow(seg.dim() + a, r.start, r.stop - r.start)
+    return _map_split_segments(vec, whole_params, axes, tx, cut)
 
 
 def whole_flat_slots(vec: torch.Tensor, params, axes, tx, mesh: Mesh) -> torch.Tensor:
@@ -155,18 +158,8 @@ def whole_flat_slots(vec: torch.Tensor, params, axes, tx, mesh: Mesh) -> torch.T
     rank's leaves of ``params`` -> the one over the whole leaves, in the
     whole tree's flat order, each split leaf's segment gathered over the
     table group (exactly). Every member of the group must call it."""
-    out, off = [], 0
-    lead = vec.shape[:-1]
-    for a, sel, x in zip(trees.leaves(axes), tx._trainable, trees.leaves(params)):
-        if not sel:
-            continue
-        seg = vec[..., off:off + x.numel()]
-        off += x.numel()
-        if a:
-            seg = seg.reshape(*lead, *x.shape).contiguous()
-            seg = all_gather_dim0(mesh, seg, TABLE_AXIS, dim=seg.dim() + a)
-        out.append(seg.reshape(*lead, -1))
-    return torch.cat(out, dim=-1) if out else vec
+    return _map_split_segments(vec, params, axes, tx, lambda a, seg: all_gather_dim0(
+        mesh, seg.contiguous(), TABLE_AXIS, dim=seg.dim() + a))
 
 
 def whole_train_state(state, axes, mesh: Mesh, tx):
@@ -214,6 +207,7 @@ def make_data_parallel_loss_grad(base: Callable, model, cfg, mesh: Optional[Mesh
     loss (its log-variance term does not scale with the rows' weights)."""
     mesh = mesh or cfg.lookup.mesh
     l2 = float(cfg.l2_emb)
+    tables = table_mask(model.param_tree())
     widths = [int(h) for h in model.hidden_dim] if isinstance(model, MLP) else None
     if model.has_batch_stats and mesh.data > 1:
         raise ValueError("a model with batch statistics cannot be data-parallel: its norms "
@@ -232,23 +226,17 @@ def make_data_parallel_loss_grad(base: Callable, model, cfg, mesh: Optional[Mesh
         data_loss, grads = out[0], out[1]
         w_all = torch.clamp(torch.sum(batch["weight"]), min=1.0)
         scale = torch.clamp(torch.sum(local["weight"]), min=1.0) / w_all
-        named = [(n, g) for n, g in trees.leaves_with_names(grads) if g is not None]
-        flat = torch.cat([(g * scale).reshape(-1) for _, g in named]
+        live = [g for g in trees.leaves(grads) if g is not None]
+        flat = torch.cat([(g * scale).reshape(-1) for g in live]
                          + [(data_loss * scale).reshape(1)])
         flat = all_reduce_sum_(mesh, flat, DATA_AXIS)
-        pieces = dict(zip([n for n, _ in named],
-                          torch.split(flat[:-1], [g.numel() for _, g in named])))
-        pvals = dict(trees.leaves_with_names(params))
-
-        def summed(name, g):
-            if g is None:
-                return None
-            g = pieces[name].view(g.shape)
-            if l2 and "emb" in name:
-                g = g + 2.0 * l2 * pvals[name]
-            return g
-
-        grads = trees.named_tree_map(summed, grads)
+        pieces = iter(torch.split(flat[:-1], [g.numel() for g in live]))
+        grads = trees.tree_map(lambda g: None if g is None else next(pieces).view(g.shape),
+                               grads)
+        if l2:  # each table's l2 gradient, after the sum
+            grads["model"] = trees.tree_map(
+                lambda g, t, p: g + 2.0 * l2 * p if t and g is not None else g,
+                grads["model"], tables, params["model"])
         return (flat[-1].reshape(data_loss.shape), grads, *out[2:])
 
     return loss_grad

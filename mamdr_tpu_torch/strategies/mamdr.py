@@ -42,6 +42,7 @@ from typing import List
 import numpy as np
 import torch
 
+from mamdr_tpu_torch.models.embeddings import frozen_mask
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.strategies.separate import separate_train_val_test
@@ -166,19 +167,16 @@ class MAMDRStrategy(MetaStrategy):
 
     def _lane_chunk(self) -> int:
         """The DR lanes' group size (JAX mamdr.py:370-401): ``dr_lane_chunk``
-        when set; else 7 when a user or item table is trainable (the lanes
-        then stack whole tables) and there are more than 7 domains; else 0,
-        every lane at once. On a mesh the 7 becomes max((7 // data) * data,
+        when set; else 7 when the user and item tables train (the lanes then
+        stack whole tables) and there are more than 7 domains; else 0, every
+        lane at once. On a mesh the 7 becomes max((7 // data) * data,
         data), a multiple of the data axis (JAX :397-401). Chunked and whole
         lanes give the same results, so the rule moves memory and launches,
         never a number."""
         if self.tc.dr_lane_chunk > 0:
             return self.tc.dr_lane_chunk
-        frozen = self.trainer.frozen_mask()
-        trainable_table = any(
-            ("user_emb" in n or "item_emb" in n) and x.dim() == 2 and not f
-            for (n, x), f in zip(trees.leaves_with_names(self.trainer.state.params),
-                                 trees.leaves(frozen)))
+        trainable_table = self.tc.emb_trainable and any(
+            trees.leaves(frozen_mask(self.trainer.state.params, False)))
         if not (trainable_table and self.n_domain > 7):
             return 0
         data = 1 if self.trainer.mesh is None else self.trainer.mesh.data

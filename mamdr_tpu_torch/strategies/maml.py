@@ -42,7 +42,7 @@ from mamdr_tpu_torch.data.dataset import split_support_query
 from mamdr_tpu_torch.strategies import ops
 from mamdr_tpu_torch.strategies.meta_base import MetaStrategy
 from mamdr_tpu_torch.train import fused
-from mamdr_tpu_torch.train.flat_optimizer import flat_adam
+from mamdr_tpu_torch.train.flat_optimizer import FlatAdam
 from mamdr_tpu_torch.utils import trace
 
 
@@ -51,7 +51,7 @@ class MAMLStrategy(MetaStrategy):
 
     def __init__(self, trainer):
         super().__init__(trainer)
-        self.meta_tx = flat_adam(self.tc.meta_learning_rate, self.mask)
+        self.meta_tx = FlatAdam(self.tc.meta_learning_rate, self.mask)
         self.meta_opt_state = self.meta_tx.init(trainer.state.params)
         self.meta = trainer.state.params
         self.snapshot_optimizers = {"meta_opt": self.meta_tx}

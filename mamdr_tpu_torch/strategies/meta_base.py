@@ -31,15 +31,13 @@ from mamdr_tpu_torch.utils import trace, trees
 class MetaStrategy(Strategy):
     def __init__(self, trainer: Trainer):
         super().__init__(trainer)
-        self.mask = trees.meta_parm_mask(trainer.state.params, self.tc.meta_parms)
         # Meta params are drawn from TRAINABLE weights only (reference
         # maml.py:159 iterates model.trainable_weights): frozen user/item
         # tables are never meta parameters even under meta_parms=["all"].
-        if not self.tc.emb_trainable:
-            self.mask = trees.named_tree_map(
-                lambda n, m: bool(m) and not ("user_emb" in n or "item_emb" in n),
-                self.mask,
-            )
+        self.mask = trees.tree_map(
+            lambda m, f: bool(m) and not f,
+            trees.meta_parm_mask(trainer.state.params, self.tc.meta_parms),
+            trainer.frozen_mask())
         self.target_domain: int = self.tc.target_domain
 
     def domain_sequence(self) -> List[int]:

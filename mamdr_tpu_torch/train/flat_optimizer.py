@@ -14,10 +14,10 @@ what a single-lane optimizer fed lane l's gradients would.
 Frozen leaves (mask False) take no gradient, get no update (``None``) and
 carry no slot state. ``torch.optim.Adam`` is not used: the train step must be
 able to discard a whole update, slot counter included, on an all-pad batch
-(train/steps.py). ``FlatAdam.step`` is the train step's call: the update,
-its apply and that gate, which on the card are one launch of kernel K4
-(``ops/fused_adam_update.py``) over the trainable leaves and the slots as
-they are laid out here.
+(train/steps.py). ``step``, every caller's one entry (train steps, meta
+steps, the sharded trainer), is the update, its apply and that gate, which
+on the card are one launch of kernel K4 (``ops/fused_adam_update.py``) over
+the trainable leaves and the slots as they are laid out here.
 
 ``train.flat_optimizer: false`` (the JAX package's
 ``make_optimizer(flat=False)``, train/steps.py:369-389: ``optax.adam``, or
@@ -31,13 +31,14 @@ and ``to_optax`` / ``from_optax`` convert between the flat slots and that
 layout's per-leaf trees (trainable leaves only, as the masked chain holds no
 slot at a frozen leaf).
 
-``masked_sgd`` is the finetune stage's optimizer (optax.sgd under the JAX
+``MaskedSgd`` is the finetune stage's optimizer (optax.sgd under the JAX
 package's frozen-table mask): updates ``-lr * g`` on trainable leaves, none
 at frozen ones, and no state. It serves a lane-stacked state unchanged.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -156,18 +157,11 @@ class FlatAdam:
 
     def from_optax(self, tree: Dict[str, Any]) -> FlatAdamState:
         """``to_optax``'s inverse: the slots' leaves joined in leaf order."""
-        for part in self.optax_path:
-            tree = tree[part]
+        tree = trees.at(tree, self.optax_path)
         return FlatAdamState(
             count=tree["count"],
             mu=torch.cat([x.reshape(-1) for x in trees.leaves(tree["mu"])]),
             nu=torch.cat([x.reshape(-1) for x in trees.leaves(tree["nu"])]))
-
-
-def flat_adam(learning_rate: float, trainable_mask: Any, b1: float = 0.9,
-              b2: float = 0.999, eps: float = 1e-8,
-              optax_path: Optional[Tuple[str, ...]] = None) -> FlatAdam:
-    return FlatAdam(learning_rate, trainable_mask, b1, b2, eps, optax_path)
 
 
 class SgdState(NamedTuple):
@@ -197,8 +191,11 @@ class MaskedSgd:
         return apply_gated(params, *self.update(grads, state), state, has_data)
 
 
-def masked_sgd(learning_rate: float, trainable_mask: Any) -> MaskedSgd:
-    return MaskedSgd(learning_rate, trainable_mask)
+@functools.lru_cache(maxsize=None)
+def true_on(device: torch.device) -> torch.Tensor:
+    """``step``'s has_data for a step that always holds data: a 0-d True made
+    on ``device`` once, by ``torch.ones`` (no copy of a host bool)."""
+    return torch.ones((), dtype=torch.bool, device=device)
 
 
 def apply_updates(params, updates):

@@ -65,10 +65,10 @@ from mamdr_tpu_torch.ops.fast_random import dropout_mask, lane_seeds
 from mamdr_tpu_torch.parallel.data_feed import process_local_rows
 from mamdr_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_sum_, broadcast
 from mamdr_tpu_torch.strategies import ops
-from mamdr_tpu_torch.train.flat_optimizer import apply_updates
+from mamdr_tpu_torch.train.flat_optimizer import true_on
 from mamdr_tpu_torch.train.state import TrainState
-from mamdr_tpu_torch.train.steps import (field_gather, l2_lanes, model_logits, uncertainty_loss,
-                                          weighted_bce)
+from mamdr_tpu_torch.train.steps import (field_gather, make_l2_term, model_logits,
+                                          uncertainty_loss, weighted_bce)
 from mamdr_tpu_torch.utils import trace, trees
 
 Tree = Any
@@ -380,11 +380,11 @@ def zeros_acc(mask, params):
 
 def meta_step(meta_tx, target, opt, acc, mask, grad_scale: float):
     """target + the meta optimizer's step on acc * grad_scale (masked
-    leaves; the others pass through by reference) -> (target, opt)."""
+    leaves; the others pass through by reference) -> (target, opt), by
+    ``step`` (flat Adam on the card: one launch of K4)."""
     if grad_scale != 1.0:
         acc = trees.tree_map(lambda m, g: g * grad_scale if m else g, mask, acc)
-    updates, opt = meta_tx.update(acc, opt)
-    return apply_updates(target, updates), opt
+    return meta_tx.step(target, acc, opt, true_on(opt.count.device))
 
 
 def make_fused_maml(train_step, grad_fn, mask, meta_tx, n_steps_support: int,
@@ -810,7 +810,7 @@ def make_lane_eval(model, cfg, gather=None):
     uncertainty weighting bce/var^2 + log(var), var the log_vars entry of the
     lane's batch's domain, from the lane's own log_vars where they carry a
     lane axis — plus the l2 of the lane's embedding tables, the wide term's
-    dim-1 tables among them, as ``steps._l2_term`` counts them)
+    dim-1 tables among them, as ``steps.make_l2_term`` counts them)
     averaged over the batches that hold data, a partial batch by its
     weighted mean; the confusion counts of every
     batch (500 thresholds) are formed from zero and added. Nothing waits for
@@ -818,6 +818,7 @@ def make_lane_eval(model, cfg, gather=None):
     plain version to hold the eval through K2 against.
     """
     gather = field_gather(cfg, gather)
+    l2_term = make_l2_term(model, cfg)
 
     def eval_lanes(params, block, steps: Optional[int] = None, stats=None):
         mp = params["model"]
@@ -826,7 +827,7 @@ def make_lane_eval(model, cfg, gather=None):
         n_steps, lanes = by_step["weight"].shape[:2]
         steps = n_steps if steps is None else min(int(steps), n_steps)
         dev = by_step["weight"].device
-        l2 = l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable, cfg.lookup)
+        l2 = l2_term(mp, lanes=True)
         log_vars = params["uncertainty"]["log_vars"] if cfg.uncertainty_weight else None
         counts = auc_init(lanes=(lanes,), device=dev)
         loss_sum = torch.zeros((lanes,), dtype=torch.float32, device=dev)

@@ -54,13 +54,14 @@ import torch
 
 from mamdr_tpu_torch.metrics.auc import auc_init, auc_result, auc_update
 from mamdr_tpu_torch.models.deepctr import MLP
+from mamdr_tpu_torch.models.embeddings import frozen_mask, table_mask
 from mamdr_tpu_torch.ops.embedding_lookup import gather_fields
 from mamdr_tpu_torch.ops.fast_random import step_seeds
 from mamdr_tpu_torch.ops.fused_adam_update import gated
 from mamdr_tpu_torch.ops.fused_mlp_step import make_fast_loss_grad
 from mamdr_tpu_torch.parallel.mesh import table_sum
 from mamdr_tpu_torch.parallel.trainer_sharding import make_data_parallel_loss_grad
-from mamdr_tpu_torch.train.flat_optimizer import flat_adam, masked_sgd
+from mamdr_tpu_torch.train.flat_optimizer import FlatAdam, MaskedSgd
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.utils import trace, trees
 
@@ -93,29 +94,37 @@ def weighted_bce(logits, labels, weights):
     return torch.sum(bce * weights, dim=-1) / denom
 
 
-def _shard_total(lookup, name: str, t):
-    """A row-sharded table's term summed over the table group (the whole
-    table's), or ``t`` as it is."""
-    if lookup is None or not lookup.sharded_leaf(name):
-        return t
-    return table_sum(lookup.mesh, t)
+def make_l2_term(model, cfg: StepConfig):
+    """l2_term(model_params, lanes=False) -> l2 * sum(table^2) over the
+    model's tables (``models/embeddings``' rule, read here once): one value,
+    or over lanes [L] where a table carries a lane axis (``model.lane_axes``);
+    frozen tables detached (a constant); a row-sharded table's sum taken over
+    its table group."""
+    l2, lookup = cfg.l2_emb, cfg.lookup
+    whole = model.param_tree()
+    tables = [(name.split("/"), x.dim(), frozen,
+               lookup is not None and lookup.sharded_leaf(name))
+              for (name, x), is_table, frozen in zip(
+                  trees.leaves_with_names(whole), trees.leaves(table_mask(whole)),
+                  trees.leaves(frozen_mask(whole, cfg.emb_trainable)))
+              if is_table]
 
+    def l2_term(model_params, lanes: bool = False):
+        if l2 <= 0.0:
+            return 0.0
+        total = 0.0
+        for path, rank, frozen, sharded in tables:
+            x = trees.at(model_params, path)
+            t = (torch.sum(torch.square(x.flatten(1)), dim=1) if lanes and x.dim() > rank
+                 else torch.sum(torch.square(x)))
+            if sharded:
+                t = table_sum(lookup.mesh, t)
+            if frozen:
+                t = t.detach()
+            total = total + t
+        return l2 * total
 
-def _l2_term(model_params, l2_emb: float, emb_trainable: bool, lookup=None):
-    """l2 * sum(table^2) over embedding-table params ('emb' in path); frozen
-    tables are detached (their term is a constant). On a mesh a row-sharded
-    table's sum is taken over its table group."""
-    if l2_emb <= 0.0:
-        return 0.0
-    total = 0.0
-    for name, x in trees.leaves_with_names(model_params):
-        if "emb" not in name:
-            continue
-        t = _shard_total(lookup, name, torch.sum(torch.square(x)))
-        if not emb_trainable and ("user_emb" in name or "item_emb" in name):
-            t = t.detach()
-        total = total + t
-    return l2_emb * total
+    return l2_term
 
 
 def model_logits(model, model_params, batch, seeds=None, gather=gather_fields,
@@ -139,24 +148,22 @@ def model_logits(model, model_params, batch, seeds=None, gather=gather_fields,
     return out if train else (out, stats)
 
 
-def _losses(model, cfg: StepConfig, params, batch, seeds, gather, stats=None,
+def _losses(model, cfg: StepConfig, l2_term, params, batch, seeds, gather, stats=None,
             train: bool = False):
     """(total loss, data loss, logits, batch statistics) of a batch through
     ``model_logits``: one tower (columns [B]; losses []) or L lanes (columns
     [L, B]; losses [L], lane l reading its own leaves where they carry a
     lane axis, ``model.lane_axes``). Under uncertainty weighting var is the
     ``log_vars`` entry (a lane's own, where they carry a lane axis) for the
-    batch's domain; the l2 term is ``_l2_term``'s, a lane's own tables' over
-    lanes (``l2_lanes``)."""
+    batch's domain; the l2 term is ``l2_term``'s (``make_l2_term``), a lane's
+    own tables' over lanes."""
     mp = params["model"]
     logits, new_stats = model_logits(model, mp, batch, seeds, gather, stats, train)
     data_loss = weighted_bce(logits, batch["label"], batch["weight"])
     if cfg.uncertainty_weight:
         data_loss = uncertainty_loss(data_loss, params["uncertainty"]["log_vars"],
                                      batch["domain"])
-    lookup = cfg.lookup
-    l2 = (_l2_term(mp, cfg.l2_emb, cfg.emb_trainable, lookup) if batch["uid"].dim() == 1
-          else l2_lanes(model, mp, cfg.l2_emb, cfg.emb_trainable, lookup))
+    l2 = l2_term(mp, lanes=batch["uid"].dim() == 2)
     return data_loss + l2, data_loss, logits, new_stats
 
 
@@ -168,11 +175,12 @@ def make_loss_fn(model, cfg: StepConfig, gather=None):
     forward pass on one tower's batch (``model_logits``) and the loss on
     it."""
     gather = field_gather(cfg, gather)
+    l2_term = make_l2_term(model, cfg)
 
     def loss_fn(params, batch, seeds=None, probs: bool = False, stats=None,
                 train: bool = False):
-        loss, data_loss, logits, new_stats = _losses(model, cfg, params, batch, seeds, gather,
-                                                     stats, train)
+        loss, data_loss, logits, new_stats = _losses(model, cfg, l2_term, params, batch, seeds,
+                                                     gather, stats, train)
         out = (loss, data_loss)
         if probs:
             out += (torch.sigmoid(logits),)
@@ -181,10 +189,6 @@ def make_loss_fn(model, cfg: StepConfig, gather=None):
         return out
 
     return loss_fn
-
-
-def _trainable(name: str, emb_trainable: bool) -> bool:
-    return emb_trainable or not ("user_emb" in name or "item_emb" in name)
 
 
 def uncertainty_loss(data_loss, log_vars, domain):
@@ -197,25 +201,6 @@ def uncertainty_loss(data_loss, log_vars, domain):
     else:
         var = log_vars[dom, 0]
     return data_loss / torch.square(var) + torch.log(var)
-
-
-def l2_lanes(model, model_params, l2_emb: float, emb_trainable: bool, lookup=None):
-    """``_l2_term`` of each lane: [L] where an embedding table carries a lane
-    axis (``model.lane_axes``), else one value; frozen tables detached; a
-    row-sharded table's sums over its table group."""
-    if l2_emb <= 0.0:
-        return 0.0
-    axes = dict(trees.leaves_with_names(model.lane_axes(model_params)))
-    total = 0.0
-    for name, x in trees.leaves_with_names(model_params):
-        if "emb" not in name:
-            continue
-        t = _shard_total(lookup, name, torch.sum(torch.square(x.flatten(1)), dim=1)
-                         if axes[name] == 0 else torch.sum(torch.square(x)))
-        if not _trainable(name, emb_trainable):
-            t = t.detach()
-        total = total + t
-    return l2_emb * total
 
 
 def make_autograd_loss_grad(model, cfg: StepConfig, gather=None):
@@ -239,27 +224,35 @@ def make_autograd_loss_grad(model, cfg: StepConfig, gather=None):
     its loss, vmapped over the lanes) wherever its fused kernel is not
     eligible."""
     gather = field_gather(cfg, gather)
+    l2_term = make_l2_term(model, cfg)
+    like = {"model": model.param_tree()}  # the tree a step reads
+    if cfg.uncertainty_weight:
+        like["uncertainty"] = {"log_vars": None}
+    frozen = frozen_mask(like, cfg.emb_trainable)
 
     def loss_grad(params, batch, seeds, train: bool = True, stats=None):
-        def trains(name):
-            return _trainable(name, cfg.emb_trainable)
+        inputs = []
 
-        live = trees.named_tree_map(
-            lambda n, x: x.detach().requires_grad_(True) if trains(n) else x, params)
-        inputs = [x for n, x in trees.leaves_with_names(live) if trains(n)]
+        def require_grad(x, f):
+            if not f:
+                x = x.detach().requires_grad_(True)
+                inputs.append(x)
+            return x
+
+        live = trees.tree_map(require_grad, params, frozen)
         s = seeds if train else None
         with torch.enable_grad():
-            loss, data_loss, _, new_stats = _losses(model, cfg, live, batch, s, gather,
-                                                    stats, train)
+            loss, data_loss, _, new_stats = _losses(model, cfg, l2_term, live, batch, s,
+                                                    gather, stats, train)
             got = iter(torch.autograd.grad(torch.sum(loss), inputs, allow_unused=True))
 
-        def grad_of(name, x):
-            if not trains(name):
+        def grad_of(x, f):
+            if f:
                 return None
             g = next(got)
             return torch.zeros_like(x) if g is None else g
 
-        grads = trees.named_tree_map(grad_of, live)
+        grads = trees.tree_map(grad_of, live, frozen)
         if stats is None:
             return data_loss.detach(), grads
         return data_loss.detach(), grads, trees.tree_map(torch.Tensor.detach, new_stats)
@@ -422,11 +415,11 @@ def make_optimizer(name: str, learning_rate: float, params,
     """
     if name not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {name!r}")
-    mask = trees.named_tree_map(lambda n, x: _trainable(n, emb_trainable), params)
+    mask = trees.tree_map(lambda f: not f, frozen_mask(params, emb_trainable))
     if name == "sgd":
-        return masked_sgd(learning_rate, mask)
+        return MaskedSgd(learning_rate, mask)
     per_leaf = ("0",) if emb_trainable else ("1", "inner_state", "0")
-    return flat_adam(learning_rate, mask, optax_path=None if flat else per_leaf)
+    return FlatAdam(learning_rate, mask, optax_path=None if flat else per_leaf)
 
 
 def make_train_epoch(train_step: Callable):

@@ -76,6 +76,7 @@ import torch
 from mamdr_tpu_torch import DeviceLike, resolve_device
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.data.dataset import COLUMNS, DomainSplit, MultiDomainDataset, batch_rows
+from mamdr_tpu_torch.models.embeddings import frozen_mask
 from mamdr_tpu_torch.models.zoo import build_model
 from mamdr_tpu_torch.parallel.data_feed import data_rows
 from mamdr_tpu_torch.parallel.embedding_shard import MeshLookup, pad_rows
@@ -340,13 +341,8 @@ class Trainer:
         return make_train_step(self.model, self.tx, self.step_cfg)
 
     def frozen_mask(self):
-        """True at the leaves the optimizer never trains: the user / item
-        tables when ``emb_trainable`` is false (the wide term's linear ones
-        too: every path holding "user_emb" or "item_emb", as in the JAX
-        package)."""
-        frozen = not self.config.train.emb_trainable
-        return trees.named_tree_map(
-            lambda n, x: frozen and ("user_emb" in n or "item_emb" in n), self.state.params)
+        """``models/embeddings.frozen_mask`` of the state's params."""
+        return frozen_mask(self.state.params, self.config.train.emb_trainable)
 
     def draw_seed(self) -> int:
         """A fresh uint32 base dropout seed from the trainer's CPU generator

@@ -48,6 +48,13 @@ def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
     return named_tree_map(lambda _, x, *r: fn(x, *r), tree, *rest)
 
 
+def at(tree: Tree, path: Sequence[str]) -> Any:
+    """The node of ``tree`` at ``path``, a sequence of keys."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def param_names(tree: Tree) -> List[str]:
     return [name for name, _ in leaves_with_names(tree)]
 

@@ -17,6 +17,10 @@ a card.
   (kept here), bit for bit: the MLP one tower and over lanes (the subset
   lane step, an all-pad lane), frozen tables, masked SGD, and STAR with its
   batch statistics;
+- the meta steps' optimizer (``fused.meta_step``: MAML, MLDG, PCGrad) takes
+  ``step`` with a 0-d True made once on the device, and gives the bits of
+  ``update`` + ``apply_updates`` on the scaled accumulator, frozen tables
+  and leaves outside the meta mask passed through by reference;
 - ``trace.counters()`` carries ``k4.launches``, which no CPU step moves.
 
 The kernel itself runs only on the card (``tests/test_torch_kernels_gpu.py``).
@@ -37,7 +41,9 @@ from mamdr_tpu_torch.ops.fused_adam_update import (
     adam_update_reference,
     fused_adam_update,
 )
-from mamdr_tpu_torch.train.flat_optimizer import FlatAdamState, apply_updates
+from mamdr_tpu_torch.models.embeddings import frozen_mask
+from mamdr_tpu_torch.train import fused
+from mamdr_tpu_torch.train.flat_optimizer import FlatAdam, FlatAdamState, apply_updates, true_on
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import (
     make_loss_grad,
@@ -344,6 +350,41 @@ def test_subset_lane_step_equals_the_step_before_k4(emb_trainable):
         assert torch.equal(la, lb)
         _same_state(a, b)
     assert a.step.tolist() == [4, 3, 4]
+
+
+@pytest.mark.parametrize("grad_scale", [1.0, 0.125])
+@pytest.mark.parametrize("emb_trainable", [True, False])
+def test_meta_step_through_step_equals_update_and_apply(emb_trainable, grad_scale):
+    rng = np.random.default_rng(11)
+    params = _tree(rng, None)
+    # the meta mask: the rule's trainable leaves less the logit (meta_parms
+    # naming dnn and emb)
+    mask = trees.named_tree_map(lambda n, f: not f and "logit" not in n,
+                                frozen_mask(params, emb_trainable))
+    tx = FlatAdam(1e-3, mask)
+    n = tx.init(params).mu.numel()
+    state = FlatAdamState(count=torch.tensor(4, dtype=torch.int32),
+                          mu=torch.from_numpy(rng.normal(0, 1e-2, n).astype(np.float32)),
+                          nu=torch.from_numpy(rng.uniform(0, 1e-3, n).astype(np.float32)))
+    acc = trees.tree_map(
+        lambda m, x: torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)) if m
+        else None, mask, params)
+    seen = []
+    step = tx.step
+    tx.step = lambda *a: seen.append(a[3]) or step(*a)
+    got_p, got_s = fused.meta_step(tx, params, state, acc, mask, grad_scale)
+    assert len(seen) == 1 and seen[0] is true_on(torch.device("cpu"))
+    assert seen[0].dtype == torch.bool and seen[0].dim() == 0 and bool(seen[0])
+
+    scaled = trees.tree_map(lambda m, g: g * grad_scale if m else g, mask, acc)
+    updates, want_s = FlatAdam(1e-3, mask).update(scaled, state)
+    want_p = apply_updates(params, updates)
+    for (name, a), b, m, old in zip(trees.leaves_with_names(got_p), trees.leaves(want_p),
+                                    trees.leaves(mask), trees.leaves(params)):
+        assert torch.equal(a, b), name
+        assert (a is old) != m, name  # a leaf outside the mask is the same tensor
+    assert all(torch.equal(a, b) for a, b in zip(got_s, want_s))
+    assert int(got_s.count) == 5
 
 
 def test_counters_carry_k4_launches():

@@ -39,7 +39,9 @@ from mamdr_tpu_torch.ops.fused_mlp_step import (
     tower_grad_reference_lanes,
 )
 from mamdr_tpu_torch.ops.fused_adam_update import adam_update_reference, fused_adam_update
+from mamdr_tpu_torch.strategies.base import build_strategy
 from mamdr_tpu_torch.strategies.mamdr import MAMDRStrategy
+from mamdr_tpu_torch.train import fused
 from mamdr_tpu_torch.train.flat_optimizer import FlatAdamState, apply_updates
 from mamdr_tpu_torch.train.steps import make_optimizer
 from mamdr_tpu_torch.train.trainer import Trainer
@@ -1125,3 +1127,61 @@ def test_adam_kernel_refuses_what_it_does_not_take(cuda_device):
         call(has=has_data.int())
     with pytest.raises(ValueError, match="lane"):
         call(mu=state.mu[:2], nu=state.nu[:2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emb_trainable", [True, False])
+def test_meta_step_takes_k4_bit_equal_to_update_and_apply(cuda_device, emb_trainable):
+    """``fused.meta_step`` (the meta-Adam of MAML, MLDG and PCGrad) on the
+    card: one K4 launch through ``FlatAdam.step``, the bits of ``update`` +
+    ``apply_updates`` on the scaled accumulator, a frozen table the same
+    tensor."""
+    tx, params, acc, state, _ = _adam_case(ODD_LEAVES, None, 3, cuda_device, emb_trainable,
+                                           seed=2)
+    before = fused_adam_update.launches
+    got_p, got_s = fused.meta_step(tx, params, state, acc, tx.mask, 0.125)
+    torch.cuda.synchronize()
+    assert fused_adam_update.launches == before + 1
+    scaled = trees.tree_map(lambda m, g: g * 0.125 if m else g, tx.mask, acc)
+    updates, want_s = tx.update(scaled, state)
+    want_p = apply_updates(params, updates)
+    for (name, a), b, m, old in zip(trees.leaves_with_names(got_p), trees.leaves(want_p),
+                                    trees.leaves(tx.mask), trees.leaves(params)):
+        assert torch.equal(a, b), name
+        assert (a is old) != m, name
+    assert all(torch.equal(a, b) for a, b in zip(got_s, want_s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mlp_meta_maml_finetune", "mlp_meta_mldg_finetune",
+                                  "mlp_pcgrad"])
+def test_meta_strategies_step_through_k4_on_the_card(cuda_device, tmp_path, name):
+    """One training epoch of MAML, MLDG and PCGrad at a small size: each meta
+    step is one K4 launch, and the meta-Adam's slots and the weights stay
+    finite."""
+    cfg = ExperimentConfig.from_dict({
+        "model": {"name": name, "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                  "hidden_dim": [32, 16], "dropout": 0.0},
+        "train": {"epoch": 1, "meta_split": "meta-train/val", "meta_learning_rate": 0.1,
+                  "checkpoint_path": str(tmp_path)},
+        "dataset": {"name": "synthetic", "batch_size": 32, "seed": 5},
+    })
+    ds = make_synthetic_dataset(n_domain=3, n_uid=50, n_pid=60, n_per_domain=200, seed=5,
+                                batch_size=32)
+    strat = build_strategy(Trainer(cfg, ds, verbose=False))
+    launches = []
+    step = strat.meta_tx.step
+
+    def counted(*args):
+        before = fused_adam_update.launches
+        out = step(*args)
+        launches.append(fused_adam_update.launches - before)
+        return out
+
+    strat.meta_tx.step = counted
+    strat.train()
+    torch.cuda.synchronize()
+    assert launches and all(n == 1 for n in launches), launches
+    assert int(strat.meta_opt_state.count) == len(launches)
+    assert all(bool(torch.isfinite(x).all()) for x in strat.meta_opt_state)
+    assert all(bool(torch.isfinite(x).all()) for x in trees.leaves(strat.trainer.state.params))

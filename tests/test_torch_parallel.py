@@ -9,7 +9,8 @@ ranks work:
 
 - ``mesh_shape`` against the JAX ``make_mesh`` for 1-8 devices; ``pad_rows``,
   ``process_local_rows`` and (on the ranks) ``shard_host_batch``;
-  ``param_sharding_specs`` against the JAX rule for mlp, mmoe and ple;
+  ``param_sharding_specs`` against the JAX rule for mlp, mmoe, ple, the
+  wide term's dim-1 tables (wdl, deepfm) and STAR's top-level tables;
 - ``sharded_lookup`` on meshes (1, 4) and (2, 2): in-range ids bit-equal to
   the plain gather, zeros where the JAX sharded lookup gives zeros (ids
   outside [0, rows)), and the table-shard gradients (summed over the data
@@ -625,7 +626,7 @@ def test_pad_rows_and_process_local_rows():
     assert process_local_rows(8, 1, 2) == slice(4, 8)
 
 
-@pytest.mark.parametrize("name", ["mlp", "mmoe", "ple"])
+@pytest.mark.parametrize("name", ["mlp", "mmoe", "ple", "wdl", "deepfm", "star"])
 def test_param_sharding_specs_match_jax_rule(name):
     import jax
     from mamdr_tpu.config import ExperimentConfig as JConfig
@@ -662,7 +663,7 @@ def test_param_sharding_specs_match_jax_rule(name):
             expect = (None if not spec else ROW if table_leaf and spec == ("table", None)
                       else EXPERT)
             assert got[k] == expect, (k, spec, got[k])
-        assert (EXPERT in got.values()) == (experts and name != "mlp")
+        assert (EXPERT in got.values()) == (experts and name in ("mmoe", "ple"))
 
 
 @pytest.mark.parametrize("table_index", [0, 1])

@@ -19,6 +19,11 @@
   ``jax.vmap`` over 3 lanes, each with its own weights and batches; the
   per-lane all-pad gate leaves that lane's params, slots and step exactly as
   they were while the other lanes move. Same tolerances.
+- the table rule (``models/embeddings``: tables, frozen tables) on the trees
+  of bases whose tables differ (the MLP, WDL's dim-1 tables, PLE, STAR's
+  top-level ones), with and without ``emb_trainable``, vs what the JAX
+  package does on the same tree, and the port's optimizer mask and l2 term
+  vs the rule.
 """
 
 import jax
@@ -32,20 +37,23 @@ from mamdr_tpu.models.zoo import build_model as jax_build_model
 from mamdr_tpu.train.flat_optimizer import flat_adam as jax_flat_adam
 from mamdr_tpu.train.state import TrainState as JState
 from mamdr_tpu.train.steps import StepConfig as JStepConfig
+from mamdr_tpu.train.steps import _l2_term as jax_l2_term
 from mamdr_tpu.train.steps import make_optimizer as jax_make_optimizer
 from mamdr_tpu.train.steps import make_subset_train_step as jax_make_subset_train_step
 from mamdr_tpu.train.steps import make_train_step as jax_make_train_step
 from mamdr_tpu.utils import trees as jtrees
 from mamdr_tpu_torch.config import ExperimentConfig
 from mamdr_tpu_torch.convert import params_from_jax
+from mamdr_tpu_torch.models.embeddings import frozen_mask, table_mask
 from mamdr_tpu_torch.models.zoo import build_model
-from mamdr_tpu_torch.train.flat_optimizer import apply_updates, flat_adam
+from mamdr_tpu_torch.train.flat_optimizer import FlatAdam, apply_updates
 from mamdr_tpu_torch.train.state import TrainState
 from mamdr_tpu_torch.train.steps import (
     StepConfig,
     make_optimizer,
     make_subset_train_step,
     make_autograd_loss_grad,
+    make_l2_term,
     make_train_step,
 )
 from mamdr_tpu_torch.utils import trees
@@ -64,7 +72,7 @@ def test_flat_adam_matches_jax():
     rng = np.random.default_rng(0)
     params = _tree(rng)
     mask = {"b": {"kernel": True, "bias": True}, "a": {"user_emb": False}, "c": True}
-    jtx, ttx = jax_flat_adam(1e-2, mask), flat_adam(1e-2, mask)
+    jtx, ttx = jax_flat_adam(1e-2, mask), FlatAdam(1e-2, mask)
     jp, tp = jax.tree_util.tree_map(jnp.asarray, params), params_from_jax(params)
     js, ts = jtx.init(jp), ttx.init(tp)
     for _ in range(5):
@@ -321,3 +329,62 @@ def test_subset_lane_step_matches_jax_vmap(emb_trainable):
         if leaf.dim() > 0:
             np.testing.assert_allclose(leaf.numpy(), np.asarray(jnamed[name]),
                                        rtol=2e-5, atol=1e-5, err_msg=name)
+
+
+RULE_BASES = {
+    "mlp": {},
+    "wdl": {},
+    "ple": {"tower_hidden_dim": [8], "num_experts": 3, "gate_dnn_hidden_units": [8],
+            "specific_expert_num": 2, "shared_expert_num": 1, "num_levels": 1},
+    "star": {"norm": "pn", "dense": "star", "auxiliary_net": True, "auxiliary_dim": 8},
+}
+
+
+def _leaf_names(tree, keep):
+    """The '/'-joined names of the leaves of a JAX tree where ``keep(leaf)``."""
+    return {n for n, x in zip(trees.param_names(jax.device_get(tree)),
+                              jax.tree_util.tree_leaves(tree)) if keep(np.asarray(x))}
+
+
+@pytest.mark.parametrize("emb_trainable", [False, True])
+@pytest.mark.parametrize("base", list(RULE_BASES))
+def test_table_rule_matches_jax(base, emb_trainable):
+    """The frozen mask is the set of leaves to which the JAX package's
+    ``make_optimizer`` gives a zero update on all-ones gradients; the tables
+    less the frozen ones are the leaves its ``_l2_term`` reaches (a frozen
+    table's term is a constant). The port's optimizer trains exactly the
+    leaves the rule leaves unfrozen, and its l2 term reaches the same leaves
+    as the JAX package's."""
+    d = {"model": {"name": base, "user_dim": 8, "item_dim": 8, "domain_dim": 8,
+                   "hidden_dim": [16, 8], "dropout": 0.0, **RULE_BASES[base]},
+         "train": {}, "dataset": {"name": "synthetic"}}
+    tmodel = build_model(ExperimentConfig.from_dict(d), 20, 30, 3,
+                         generator=torch.Generator().manual_seed(0))
+    jmodel = jax_build_model(JConfig.from_dict(d), 20, 30, 3)
+    z = jnp.zeros(2, jnp.int32)
+    jparams = {"model": jmodel.init({"params": jax.random.PRNGKey(0),
+                                     "dropout": jax.random.PRNGKey(0)}, z, z, z)["params"]}
+    jtx = jax_make_optimizer("sgd", 1.0, jparams, emb_trainable)
+    updates, _ = jtx.update(jax.tree_util.tree_map(jnp.ones_like, jparams), jtx.init(jparams),
+                            jparams)
+    jfrozen = _leaf_names(updates, lambda u: not u.any())
+    reach = jax.grad(lambda p: jax_l2_term(p, 1.0, emb_trainable))(jparams)
+    jl2 = _leaf_names(reach, lambda g: g.any())
+
+    tparams = {"model": tmodel.param_tree()}
+    frozen = {n for n, f in trees.leaves_with_names(frozen_mask(tparams, emb_trainable)) if f}
+    tables = {n for n, t in trees.leaves_with_names(table_mask(tparams)) if t}
+    assert frozen == jfrozen and bool(frozen) != emb_trainable
+    assert tables - frozen == jl2 and frozen <= tables
+    if base == "wdl":
+        assert {"model/linear/linear_user_emb", "model/linear/linear_domain_emb"} <= tables
+    if base == "star":
+        assert "model/user_emb" in tables
+
+    tx = make_optimizer("adam", 1e-3, tparams, emb_trainable)
+    assert {n for n, m in trees.leaves_with_names(tx.mask) if not m} == frozen
+    live = trees.tree_map(lambda x: x.detach().requires_grad_(True), tparams["model"])
+    term = make_l2_term(tmodel, StepConfig(1.0, emb_trainable))(live)
+    grads = torch.autograd.grad(term, trees.leaves(live), allow_unused=True)
+    assert {"model/" + n for n, g in zip(trees.param_names(live), grads)
+            if g is not None and bool(g.any())} == jl2
